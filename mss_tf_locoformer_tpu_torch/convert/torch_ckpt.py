@@ -1,0 +1,70 @@
+"""Weights carried across: JAX parameter trees and reference ``.pth`` files
+-> the port's ``state_dict`` (the TF-Locoformer part of the JAX package's
+``convert/torch_ckpt.py``).
+
+The JAX package stores every weight in its torch layout, so the conversion
+is a key rename with no transposes.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["jax_params_to_state_dict", "load_torch_checkpoint"]
+
+
+def _unrename(path) -> str:
+    """flax param path (tuple of names) -> torch state_dict key."""
+    out = []
+    for p in path:
+        m = re.fullmatch(r"blocks_(\d+)", p)
+        if m:
+            out.append(f"blocks.{m.group(1)}")
+            continue
+        m = re.fullmatch(r"(ffn|ffn_norm)_(\d+)", p)
+        if m:
+            out.append(f"{m.group(1)}.{m.group(2)}")
+            continue
+        out.append(p)
+    key = ".".join(out)
+    key = key.replace("conv_norm", "conv.1")
+    if key.startswith("conv.") and not key.startswith("conv.1"):
+        key = "conv.0." + key.split(".", 1)[1]
+    return key.replace("aggregate_heads.weight", "aggregate_heads.0.weight")
+
+
+def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``TFLocoformerMSS`` parameter tree (``{'params': ...}`` or the
+    bare tree, numpy-convertible leaves) -> the port's ``state_dict`` (fp32)."""
+    tree = params.get("params", params)
+    flat: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            arr = np.array(node, dtype=np.float32)
+            flat[_unrename(path)] = torch.from_numpy(arr)
+
+    walk(tree, ())
+    return flat
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Load a reference ``.pth`` into a CPU state_dict: the wrapped trainer
+    layout (``model_state_dict``), a raw state_dict, or an ESPnet flat dict
+    (``separator.`` prefixes stripped, other keys dropped)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(ckpt, Mapping):
+        raise ValueError(f"{path}: not a state_dict or trainer checkpoint")
+    if "model_state_dict" in ckpt:
+        ckpt = ckpt["model_state_dict"]
+    if any(k.startswith("separator.") for k in ckpt):
+        ckpt = {k[len("separator."):]: v for k, v in ckpt.items()
+                if k.startswith("separator.")}
+    return {k: v.detach().cpu() for k, v in ckpt.items()}

@@ -1,0 +1,73 @@
+"""Model loading and end-to-end separation (the JAX package's
+``infer/separate.py``).
+
+``load_model`` reads a PyTorch ``.pth`` in any of the reference's layouts
+(trainer dict, raw state_dict, ESPnet ``separator.``-prefixed) into the
+port's ``TFLocoformerMSS`` with ``strict=True``, and an optional config
+file's ``model:`` section (else the ``ModelConfig`` defaults).  Orbax
+checkpoint directories need JAX to read and are not accepted (ROADMAP.md).
+
+``separate_audio`` loads a WAV at the model rate, mixes stereo to mono,
+separates with the chunked overlap-add engine, and writes each stem as
+duplicated-stereo, peak-normalised ``{input}_{stem}.wav``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..convert.torch_ckpt import load_torch_checkpoint
+from ..core.config import ModelConfig, load_model_config
+from ..core.precision import BF16, Precision
+from ..models import build_model
+from ..utils.audio import load_audio, save_audio
+from .overlap_add import SeparationEngine
+
+__all__ = ["load_model", "make_engine", "separate_audio"]
+
+
+def load_model(checkpoint_path: str, config_path: Optional[str] = None,
+               precision: Precision = BF16,
+               device="cpu") -> Tuple[torch.nn.Module, ModelConfig]:
+    """``(model on device in eval mode, model config)``.  Inference defaults
+    to bf16 blocks with the fp32 islands kept."""
+    cfg = load_model_config(config_path) if config_path else ModelConfig()
+    if os.path.isdir(checkpoint_path):
+        raise NotImplementedError(
+            f"{checkpoint_path}: orbax checkpoint directories need JAX; "
+            f"export a .pth from the JAX package (ROADMAP.md)")
+    if not checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
+        raise FileNotFoundError(f"Unsupported checkpoint: {checkpoint_path}")
+    model = build_model(cfg, precision=precision)
+    model.load_state_dict(load_torch_checkpoint(checkpoint_path), strict=True)
+    return model.to(device).eval(), cfg
+
+
+def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,
+                overlap_seconds: float = 1.0, sample_rate: int = 44100,
+                batch_size: int = 2, device="cpu") -> SeparationEngine:
+    return SeparationEngine(
+        model, chunk_samples=int(chunk_seconds * sample_rate),
+        overlap=int(overlap_seconds * sample_rate), batch_size=batch_size,
+        device=device)
+
+
+def separate_audio(input_path: str, output_dir: str, model: torch.nn.Module,
+                   sample_rate: int = 44100, chunk_seconds: float = 8.0,
+                   overlap_seconds: float = 1.0, batch_size: int = 2,
+                   save_stems: bool = True, device="cpu") -> Dict[str, np.ndarray]:
+    audio, _ = load_audio(input_path, sample_rate=sample_rate)
+    engine = make_engine(model, chunk_seconds, overlap_seconds, sample_rate,
+                         batch_size, device)
+    stems = engine(audio.mean(axis=0))  # stereo -> mono mean
+    if save_stems:
+        os.makedirs(output_dir, exist_ok=True)
+        base = os.path.splitext(os.path.basename(input_path))[0]
+        for name, est in stems.items():
+            save_audio(os.path.join(output_dir, f"{base}_{name}.wav"),
+                       np.stack([est, est]), sample_rate, normalize=True)
+    return stems

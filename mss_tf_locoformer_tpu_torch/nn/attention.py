@@ -1,0 +1,53 @@
+"""Multi-head self-attention with optional RoPE (the JAX package's
+``nn/attention.py::MultiHeadSelfAttention``).
+
+Bias-free fused QKV projection, interleaved-pair RoPE on q/k in fp32,
+fp32-softmax attention, bias-free output projection.  Parameters are
+``qkv.weight [3A, C]`` and ``aggregate_heads.0.weight [C, A]``, the
+reference's keys.
+
+``forward`` is the unfused path (plain torch); ``fused_step`` runs
+``x + MHSA(RMSGroupNorm(x))`` through the fused attention-step kernel
+(``ops/cuda/attention_block.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from ..ops.cuda.attention_block import fused_attention_block
+from ..ops.rope import apply_rope
+
+__all__ = ["MultiHeadSelfAttention"]
+
+
+class MultiHeadSelfAttention(nn.Module):
+    def __init__(self, emb_dim: int, attention_dim: int, n_heads: int,
+                 use_rope: bool = True):
+        super().__init__()
+        self.n_heads, self.use_rope = n_heads, use_rope
+        self.qkv = nn.Linear(emb_dim, attention_dim * 3, bias=False)
+        self.aggregate_heads = nn.Sequential(
+            nn.Linear(attention_dim, emb_dim, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, L, C]`` -> ``[B, L, C]``, attention over L, in ``x.dtype``."""
+        b, l, _ = x.shape
+        dt = x.dtype
+        qkv = (x @ self.qkv.weight.to(dt).T).reshape(b, l, 3, self.n_heads, -1)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)                  # [B, H, L, D]
+        if self.use_rope:
+            q, k = apply_rope(q), apply_rope(k)
+        out = dot_product_attention(q, k, v).transpose(1, 2).reshape(b, l, -1)
+        return out @ self.aggregate_heads[0].weight.to(dt).T
+
+    def fused_step(self, x: torch.Tensor, gamma: torch.Tensor, num_groups: int,
+                   eps: float) -> torch.Tensor:
+        """``x + MHSA(RMSGroupNorm(x))`` for rows ``x [B, L, C]`` in one
+        kernel step; ``gamma`` is the pre-norm's scale."""
+        return fused_attention_block(
+            x.contiguous(), gamma, self.qkv.weight,
+            self.aggregate_heads[0].weight, self.n_heads, num_groups, eps,
+            self.use_rope)

@@ -1,0 +1,97 @@
+"""Locoformer blocks: macaron FFN-attention-FFN and the dual-path TF wrapper
+(the JAX package's ``nn/blocks.py``).
+
+``LocoformerBlock`` keeps the reference's quirks: the macaron FFN list is
+stored *reversed* (``ffn.1`` runs before attention, ``ffn.0`` after) and
+there is no 1/2 macaron factor.  Activations are channels-last
+``[B, S1, S2, C]``; both sub-steps work along S2 on rows ``B*S1``.
+
+The fused kernel steps are a deliberate choice made from the config, as in
+the JAX package: with ``rmsgroupnorm`` pre-norms, ``fused_ffn`` (and stride
+1) makes each FFN step the fused FFN-step kernel, and ``flash_attention``
+makes the attention step the fused attention-step kernel.  Otherwise the
+steps run as plain torch modules.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+from torch import nn
+
+from .attention import MultiHeadSelfAttention
+from .ffn import SwiGLUConvDeconv1d
+from .norms import LayerNorm, RMSGroupNorm
+
+__all__ = ["LocoformerBlock", "TFLocoformerBlock"]
+
+
+class LocoformerBlock(nn.Module):
+    def __init__(self, emb_dim: int, norm_type: str, num_groups: int,
+                 n_heads: int, flash_attention: bool, attention_dim: int,
+                 use_rope: bool, ffn_type: Union[str, Sequence[str]],
+                 ffn_hidden_dim: Union[int, Sequence[int]], conv1d_kernel: int,
+                 conv1d_shift: int, fused_ffn: bool, eps: float):
+        super().__init__()
+        macaron = isinstance(ffn_type, (tuple, list))
+        types = tuple(ffn_type)[::-1] if macaron else (ffn_type,)
+        dims = tuple(ffn_hidden_dim)[::-1] if macaron else (ffn_hidden_dim,)
+        if any(t != "swiglu_conv1d" for t in types):
+            raise NotImplementedError(
+                "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1)")
+        self.num_groups, self.eps = num_groups, eps
+
+        def norm():
+            if norm_type == "rmsgroupnorm":
+                return RMSGroupNorm(num_groups, emb_dim, eps=eps)
+            return LayerNorm(emb_dim, eps=eps)
+
+        self.ffn_norm = nn.ModuleList(norm() for _ in types)
+        self.ffn = nn.ModuleList(
+            SwiGLUConvDeconv1d(emb_dim, d, conv1d_kernel, conv1d_shift)
+            for d in dims)
+        self.attn_norm = norm()
+        self.attn = MultiHeadSelfAttention(emb_dim, attention_dim, n_heads,
+                                           use_rope=use_rope)
+        rms = norm_type == "rmsgroupnorm"
+        self.fuse_ffn = fused_ffn and rms and conv1d_shift == 1
+        self.fuse_attn = flash_attention and rms
+
+    def _ffn_step(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        if self.fuse_ffn:
+            return self.ffn[i].fused_step(x, self.ffn_norm[i].gamma,
+                                          self.num_groups, self.eps)
+        return x + self.ffn[i](self.ffn_norm[i](x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, S1, S2, C]``; attention and conv along S2."""
+        if len(self.ffn) == 2:  # pre-attention FFN: the last stored one
+            x = self._ffn_step(x, 1)
+        b, s1, s2, c = x.shape
+        rows = x.reshape(b * s1, s2, c)
+        if self.fuse_attn:
+            rows = self.attn.fused_step(rows, self.attn_norm.gamma,
+                                        self.num_groups, self.eps)
+        else:
+            rows = rows + self.attn(self.attn_norm(rows))
+        return self._ffn_step(rows.reshape(b, s1, s2, c), 0)
+
+
+class TFLocoformerBlock(nn.Module):
+    """One LocoformerBlock over frequency (rows B*T, sequence F) and one over
+    time (rows B*F, sequence T), in ``tf_order``; ``[B, T, F, C]`` in and out."""
+
+    def __init__(self, tf_order: str = "ft", **kwargs):
+        super().__init__()
+        self.tf_order = tf_order
+        self.freq_path = LocoformerBlock(**kwargs)
+        self.frame_path = LocoformerBlock(**kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tf_order == "ft":
+            x = self.freq_path(x)
+            x = self.frame_path(x.transpose(1, 2).contiguous())   # [B, F, T, C]
+            return x.transpose(1, 2).contiguous()
+        x = self.frame_path(x.transpose(1, 2).contiguous())
+        return self.freq_path(x.transpose(1, 2).contiguous())

@@ -1,0 +1,69 @@
+"""Locoformer feed-forward network: SwiGLU Conv-Deconv (the JAX package's
+``nn/ffn.py::SwiGLUConvDeconv1d``).
+
+Conv1d(dim -> 2*inner, k, stride) with the reference's symmetric padding,
+SwiGLU gate ``y[:inner] * silu(y[inner:])``, ConvTranspose1d back to dim, crop
+to the input length.  Submodules ``conv1d``/``deconv1d`` are the torch layers
+whose layouts the JAX package emulates, so reference checkpoints load as
+they are.
+
+``forward`` is the unfused path (plain torch, any stride); ``fused_step``
+runs ``x + FFN(RMSGroupNorm(x))`` through the fused FFN-step kernel
+(``ops/cuda/swiglu_block.py``), stride 1 only.  The ``conv1d`` FFN type (the
+reference's ``ConvDeconv1d``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.cuda.swiglu_block import fused_norm_ffn_residual
+
+__all__ = ["SwiGLUConvDeconv1d"]
+
+
+def _pad_len(s2: int, kernel: int, shift: int) -> int:
+    diff_ks = kernel - shift
+    return math.ceil((s2 + 2 * diff_ks - kernel) / shift) * shift + kernel
+
+
+class SwiGLUConvDeconv1d(nn.Module):
+    def __init__(self, dim: int, dim_inner: int, conv1d_kernel: int,
+                 conv1d_shift: int):
+        super().__init__()
+        self.dim_inner = dim_inner
+        self.kernel, self.shift = conv1d_kernel, conv1d_shift
+        self.conv1d = nn.Conv1d(dim, dim_inner * 2, conv1d_kernel, stride=conv1d_shift)
+        self.deconv1d = nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel,
+                                           stride=conv1d_shift)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, S1, S2, C]`` -> FFN output ``[B, S1, S2, C]`` (conv along
+        S2), computed in ``x.dtype``."""
+        b, s1, s2, c = x.shape
+        diff_ks = self.kernel - self.shift
+        dt = x.dtype
+        y = x.reshape(b * s1, s2, c).transpose(1, 2)
+        y = F.pad(y, (diff_ks, _pad_len(s2, self.kernel, self.shift) - s2 - diff_ks))
+        y = F.conv1d(y, self.conv1d.weight.to(dt), self.conv1d.bias.to(dt),
+                     stride=self.shift)
+        y = y[:, :self.dim_inner] * F.silu(y[:, self.dim_inner:])
+        y = F.conv_transpose1d(y, self.deconv1d.weight.to(dt),
+                               self.deconv1d.bias.to(dt), stride=self.shift)
+        y = y[:, :, diff_ks:diff_ks + s2].transpose(1, 2)
+        return y.reshape(b, s1, s2, c)
+
+    def fused_step(self, x: torch.Tensor, gamma: torch.Tensor, num_groups: int,
+                   eps: float) -> torch.Tensor:
+        """``x + FFN(RMSGroupNorm(x))`` for ``x [B, S1, S2, C]`` in one
+        kernel (stride 1); ``gamma`` is the pre-norm's scale."""
+        b, s1, s2, c = x.shape
+        y = fused_norm_ffn_residual(
+            x.reshape(b * s1, s2, c).contiguous(), gamma, self.conv1d.weight,
+            self.conv1d.bias, self.deconv1d.weight, self.deconv1d.bias,
+            self.kernel, num_groups, eps)
+        return y.reshape(b, s1, s2, c)

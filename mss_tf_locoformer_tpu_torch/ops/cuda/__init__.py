@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on its own by ``nvcc`` into a shared library with a
+plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds rather than the minutes a ``torch.utils.cpp_extension``
+build takes.  Libraries go to ``build/torch_kernels/`` at the repository
+root (git-ignored).  A library is built at its first use, and again when its
+source is newer than it; ``build_all`` builds every one of them at once.
+
+Pointers and the CUDA stream cross ``ctypes`` as ``c_void_p``.  Every C entry
+point returns ``cudaGetLastError()`` after its launches, and :func:`check`
+raises when that is not 0: a launch the card refuses never runs, and no later
+synchronisation would report it.
+
+Nothing here is imported or built when the package is imported, and nothing
+falls back: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
+
+import torch
+
+__all__ = ["SOURCES", "BUILD_DIR", "load", "build_all", "check", "ptr",
+           "stream_handle"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+SOURCES = ("stft", "swiglu_block", "attention_block")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+BUILD_LOG: Dict[str, str] = {}   # name -> nvcc's output (ptxas register use)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless the library is newer than it."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    if (os.path.exists(lib)
+            and os.path.getmtime(lib) >= max(map(os.path.getmtime, deps))):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{BUILD_LOG[name]}")
+        os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built if needed)."""
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(_build(name))
+        return _LIBS[name]
+
+
+def build_all() -> float:
+    """Build every kernel library in parallel; returns the seconds taken."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build, SOURCES))
+    for name in SOURCES:
+        load(name)
+    return time.perf_counter() - t0
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

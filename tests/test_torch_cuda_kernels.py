@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at small and ragged shapes (``chip_smoke.py`` covers the main path's).
+
+Needs a CUDA device and nvcc; skipped elsewhere.  On the GPU machine:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
+"""
+
+import pytest
+import torch
+
+from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+
+pytestmark = pytest.mark.cuda
+
+# bf16 rows: kernel and plain version round at different places; about one
+# bf16 step of the output apart (see chip_smoke.py's tolerance note)
+STEP_TOL = 2e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _close(got, ref, tol_rel):
+    ref = ref.float() if not ref.is_complex() else ref
+    got = got.float() if not got.is_complex() else got
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= tol_rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("n_fft,hop,t", [(2048, 512, 44100), (256, 64, 3000),
+                                         (1024, 256, 5000)])
+def test_stft_kernel(dev, n_fft, hop, t):
+    g = torch.Generator().manual_seed(0)
+    audio = (0.1 * torch.randn(3, t, generator=g)).to(dev)
+    got = SK.stft_fused(audio, n_fft, hop)
+    torch.cuda.synchronize()
+    _close(got, SK.reference_stft(audio, n_fft, hop), 1e-4)
+
+
+@pytest.mark.parametrize("r,seq,c,inner,k", [(1, 5, 96, 384, 4), (3, 61, 32, 64, 8),
+                                             (2, 130, 64, 96, 3), (2, 200, 128, 64, 6)])
+def test_ffn_step_kernel(dev, r, seq, c, inner, k):
+    g = torch.Generator().manual_seed(1)
+    b = (c * k) ** -0.5
+    x = torch.randn(r, seq, c, generator=g).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    w = [((torch.rand(*s, generator=g) * 2 - 1) * b).to(dev)
+         for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+    got = FB.fused_norm_ffn_residual(x, gamma, *w, k, 4, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, FB.reference_norm_ffn_residual(x, gamma, *w, k, 4, 1e-5), STEP_TOL)
+
+
+@pytest.mark.parametrize("r,seq,c,a,h,rope", [(1, 1, 96, 96, 4, True),
+                                              (2, 37, 32, 32, 2, True),
+                                              (2, 130, 96, 96, 4, True),
+                                              (3, 64, 64, 96, 3, False)])
+def test_attention_step_kernel(dev, r, seq, c, a, h, rope):
+    g = torch.Generator().manual_seed(2)
+    x = (0.5 * torch.randn(r, seq, c, generator=g)).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    w_qkv = ((torch.rand(3 * a, c, generator=g) * 2 - 1) * 2 * c ** -0.5).to(dev)
+    w_out = ((torch.rand(c, a, generator=g) * 2 - 1) * a ** -0.5).to(dev)
+    got = AB.fused_attention_block(x, gamma, w_qkv, w_out, h, 4, 1e-5, rope)
+    torch.cuda.synchronize()
+    ref = AB.reference_attention_block(x, gamma, w_qkv, w_out, h, 4, 1e-5, rope)
+    _close(got, ref, STEP_TOL)
+
+
+def test_ffn_step_too_large_for_shared_memory_raises(dev):
+    """C 128 with k 8 needs more shared memory than a block may have: the
+    launch is refused and the wrapper raises."""
+    x = torch.zeros(1, 16, 128, device=dev, dtype=torch.bfloat16)
+    w = [torch.zeros(*s, device=dev) for s in ((64, 128, 8), (64,), (32, 128, 8), (128,))]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        FB.fused_norm_ffn_residual(x, torch.ones(128, device=dev), *w, 8, 4, 1e-5)
+
+
+def test_kernels_refuse_fp32_rows(dev):
+    x = torch.randn(2, 16, 32, device=dev)
+    with pytest.raises(TypeError):
+        FB.fused_norm_ffn_residual(x, x[0, 0], *(torch.zeros(1, device=dev),) * 4, 4, 4, 1e-5)
+    with pytest.raises(TypeError):
+        AB.fused_attention_block(x, x[0, 0], x, x, 2, 4, 1e-5)
+
+
+def test_launch_counters_count_launches(dev):
+    before = SK.stft_fused.launches
+    SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
+    assert SK.stft_fused.launches == before + 1
