@@ -5,22 +5,39 @@
 
 Drives the port (``mss_tf_locoformer_tpu_torch``) at the base config of
 ``configs/musdb18.yaml`` (built here in code: the GPU machine may have no
-PyYAML), with seeded random weights.  Phases, each of which raises on
-failure (exit code != 0, no result line):
+PyYAML), with seeded random weights, through its two main paths: serving
+(the separation CLI) and training (the training CLI).  Phases, each of
+which raises on failure (exit code != 0, no result line):
 
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile the three CUDA kernels from ``csrc/`` with nvcc;
-  3. kernels: each kernel against its plain PyTorch version at the shapes
-     the main path gives it (one engine batch: 2 chunks of 8 s; the plain
-     attention's [R, H, L, L] fp32 scores take ~23 GB at the freq path);
+  2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
+  3. kernels: each forward kernel against its plain PyTorch version at the
+     shapes the serving path gives it (one engine batch: 2 chunks of 8 s;
+     the plain attention's [R, H, L, L] fp32 scores take ~23 GB at the freq
+     path);
   4. slice parity: the whole model with its kernels against the same model
      with every kernel replaced by its plain version (1 s, batch 1, bf16);
-  5. the slice: the separation CLI on a 20 s stereo WAV (3 chunks of 8 s in
+  5. serving: the separation CLI on a 20 s stereo WAV (3 chunks of 8 s in
      2 batches of 2), 4 stereo stems checked, launch counters checked;
   6. timings: each kernel against its plain version, one model forward of
      the engine batch on the kernel path against the plain path (in turns,
      with peak device memory), and the separation's wall time and realtime
-     factor.
+     factor;
+  7. training kernels: forward (with the training stash) and backward of
+     the FFN and attention steps at the training path's full rows (micro-
+     batch 2 of 3 s: freq [518, 1025, 96], time [2050, 259, 96]) against
+     autograd through their plain versions in fp32 on the same inputs at
+     dropout 0, and at dropout 0.1 on a 16-row slice; timed;
+  8. training: the training CLI on a synthetic MUSDB tree (16 train tracks
+     of 4 s, 2 test tracks), base model and training sections (batch 8 as 4
+     micro-batches of 2 x 3 s, bf16, dropout 0.1, AdamW, clip 5): one epoch
+     of 2 optimizer steps, validation and a checkpoint, then ``--resume``
+     for one more epoch; launch counters, gradients and the checkpoint
+     (through the separation CLI) checked;
+  9. train-step parity: the kernel path against the plain path, same
+     weights, batch and dropout seeds (1 x 1 s, dropout 0.1);
+ 10. train-step timing in turns (plain, kernel, kernel, plain), with peak
+     device memory.
 
 It imports nothing of JAX.  The line before the last is a JSON object with
 one entry per kernel; the last line is
@@ -267,9 +284,6 @@ def phase_slice(workdir):
     import torch
     from mss_tf_locoformer_tpu_torch.cli import separate as cli
     from mss_tf_locoformer_tpu_torch.models import build_model
-    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
-    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
-    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     from mss_tf_locoformer_tpu_torch.utils.audio import load_audio, save_audio
     cfg = base_model_config()
     model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -289,8 +303,7 @@ def phase_slice(workdir):
     argv = ["--input", wav, "--output_dir", out_dir, "--checkpoint", ckpt,
             "--config", cfg_path, "--device", "cuda", "--batch_size", str(BATCH)]
 
-    counters = {"stft": SK.stft_fused, "ffn_step": FB.fused_norm_ffn_residual,
-                "attention_step": AB.fused_attention_block}
+    counters = _counters()
     for fn in counters.values():
         fn.launches = 0
     cli.main(argv)
@@ -300,10 +313,12 @@ def phase_slice(workdir):
     forwards = 2  # 3 chunks in batches of 2
     need = {"stft": 1 * forwards, "ffn_step": 16 * forwards,
             "attention_step": 8 * forwards}
-    for name, n in launches.items():
-        print(f"[slice] {name}: {n} launches (need >= {need[name]})")
-        if n < need[name]:
-            raise AssertionError(f"{name} launched {n} times, fewer than {need[name]}")
+    for name, n in need.items():
+        print(f"[slice] {name}: {launches[name]} launches (need >= {n})")
+        if launches[name] < n:
+            raise AssertionError(f"{name} launched {launches[name]} times, fewer than {n}")
+    if launches["ffn_step_backward"] or launches["attention_step_backward"]:
+        raise AssertionError(f"serving launched backward kernels: {launches}")
     for stem in ("vocals", "drums", "bass", "other"):
         path = os.path.join(out_dir, f"mix_{stem}.wav")
         audio, sr = load_audio(path)
@@ -346,6 +361,401 @@ def phase_forward(reps: int = 3):
     return {path: (1e3 * sum(t) / len(t), peak[path]) for path, t in times.items()}
 
 
+# ------------------------------------------------------------ training
+
+# H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds of the
+# kernels: bf16 tensor cores, fp32 outside them, device memory.
+PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
+SEGMENT = 132300     # 3 s training segments (configs/musdb18.yaml)
+TRAIN_MB = 2         # micro-batch of the base config (batch 8 = 4 x 2)
+# Gradient bounds.  Weight and gamma gradients are sums over ~5e5
+# positions whose summands the kernels take from bf16-rounded operands (xn,
+# the SwiGLU output, dy, P, dS, as the TPU kernels do); the rounding errors
+# are independent, so the sums' relative L2 error stays near the bf16 step
+# (2^-9) and 2e-2 leaves a factor of ~10.  The train step's gradients
+# (kernel path against plain path, both bf16, rounding at different places
+# through 4 blocks forward and back) get 1e-1, the loss 2e-2.
+GRAD_REL_L2, STEP_GRAD_REL_L2, STEP_LOSS_REL = 2e-2, 1e-1, 2e-2
+
+
+def _bound(flop: float, nbytes: float, peak: float = PEAK_BF16):
+    """(least ms, what bounds it) for ``flop`` at ``peak`` and ``nbytes``
+    moved once at the device memory rate."""
+    t_op, t_b = flop / peak, nbytes / HBM_RATE
+    return 1e3 * max(t_op, t_b), ("operations" if t_op >= t_b else "bytes")
+
+
+def ffn_work(r, l, c=96, inner=384, k=4):
+    """(forward FLOP, forward bytes, backward FLOP, backward bytes) of one
+    FFN step: the conv has L+k-1 outputs, the cropped deconv L; the
+    backward recomputes the conv and takes both products' two adjoints."""
+    conv = 2.0 * r * (l + k - 1) * k * c * 2 * inner
+    deconv = 2.0 * r * l * k * inner * c
+    w = (3 * inner * c * k + 2 * inner + c) * 4.0
+    rows = r * l * c * 2.0
+    return conv + deconv, 2 * rows + w, 3 * conv + 2 * deconv, 3 * rows + 2 * w
+
+
+def attn_work(r, l, c=96, a=96, h=4):
+    """(forward FLOP, forward bytes, backward FLOP, backward bytes) of one
+    attention step at the true head_dim: QK^T and PV forward; dP, dS K,
+    dS^T Q and P^T dO backward; the projections' products; the backward
+    reads the stashed q, k, v, o and log-sum-exp."""
+    d = a // h
+    core = 2.0 * 2 * r * h * l * l * d
+    proj = 2.0 * r * l * c * 3 * a + 2.0 * r * l * a * c
+    w = 4.0 * a * c * 4
+    rows = r * l * c * 2.0
+    stash = r * l * (4 * a * 2.0 + 4 * h)
+    return core + proj, 2 * rows + w, 2 * core + 2 * proj, 3 * rows + stash + 2 * w
+
+
+def _train_steps(cfg):
+    """(path, rows, sequence) of the steps in one training micro-batch."""
+    n_frames = 1 + SEGMENT // cfg.hop_length
+    return (("freq", TRAIN_MB * n_frames, cfg.n_freqs),
+            ("time", TRAIN_MB * cfg.n_freqs, n_frames))
+
+
+def _rel_l2(got, ref) -> float:
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm()).item()
+
+
+def _check_grads(name, got, ref, g):
+    """dx against ``STEP_TOL x max|ref|`` (the cotangent alone, what a
+    kernel that only passed the residual through would give, must fail);
+    the other gradients by relative L2 (an all-zero gradient gives 1.0)."""
+    dx_err = _compare(f"{name} dx", got[0], ref[0], STEP_TOL, null=g)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got[1:], ref[1:]), 1):
+        if not torch_isfinite(a):
+            raise AssertionError(f"{name}: gradient {i} is not finite")
+        rel = _rel_l2(a, b)
+        worst = max(worst, rel)
+        if not rel <= GRAD_REL_L2:
+            raise AssertionError(f"{name}: gradient {i} relative L2 {rel:.3e} "
+                                 f"above {GRAD_REL_L2:g}")
+    print(f"[train-kernels] {name}: weight/gamma gradients relative L2 <= "
+          f"{worst:.3e} (bound {GRAD_REL_L2:g})")
+    return dx_err, worst
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def _autograd(fn, x, params, g):
+    """``(out, grads)`` of ``fn(x, *params)`` for the cotangent ``g``."""
+    import torch
+    x = x.detach().requires_grad_(True)
+    ps = [p.detach().requires_grad_(True) for p in params]
+    out = fn(x, *ps)
+    return out, torch.autograd.grad(out, [x, *ps], g)
+
+
+def _timed_grad(fn, x, params, g, iters=5):
+    """(forward ms, backward ms) of ``fn`` with autograd."""
+    import torch
+    x = x.detach().requires_grad_(True)
+    ps = [p.detach().requires_grad_(True) for p in params]
+    fwd = _time_ms(lambda: fn(x, *ps), iters)
+    out = fn(x, *ps)
+    bwd = _time_ms(lambda: torch.autograd.grad(out, [x, *ps], g, retain_graph=True), iters)
+    return fwd, bwd
+
+
+def phase_train_kernels(results):
+    """Forward (training stash) and backward of both steps at the training
+    path's full rows against their plain versions (fp32 autograd on the
+    same bf16 inputs) at dropout 0, and at dropout 0.1 on a 16-row slice
+    (row offset passed, so the masks are those rows' masks of a full call)."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    cfg = base_model_config()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    fargs = (cfg.conv1d_kernel, cfg.num_groups, cfg.eps)
+    aargs = (cfg.n_heads, cfg.num_groups, cfg.eps, True, 10000.0)
+    for path, rows, seq in _train_steps(cfg):
+        x, gamma, ffn, attn = _step_inputs(gen, rows, seq, dev)
+        g = _rand(gen, (rows, seq, 96)).to(dev, torch.bfloat16)
+        for name, kfn, pfn, params, work in (
+                ("ffn_step", FB.fused_norm_ffn_residual, FB.reference_norm_ffn_residual,
+                 [gamma, *ffn], lambda: ffn_work(rows, seq)),
+                ("attention_step", AB.fused_attention_block, AB.reference_attention_block,
+                 [gamma, *attn], lambda: attn_work(rows, seq))):
+            args = fargs if name == "ffn_step" else aargs
+            out, got = _autograd(lambda *a: kfn(*a, *args), x, params, g)
+            torch.cuda.synchronize()
+            ref_out, ref = _autograd(lambda *a: pfn(*a, *args), x.float(), params, g.float())
+            label = f"{name} {path} [{rows}, {seq}, 96]"
+            _compare(f"{label} forward (training)", out, ref_out, STEP_TOL, null=x)
+            gerr, grel = _check_grads(f"{label} backward", got, ref, g)
+            del out, got, ref_out, ref
+            torch.cuda.empty_cache()
+
+            r0 = rows // 2
+            xs, gs = x[r0:r0 + 16].contiguous(), g[r0:r0 + 16].contiguous()
+            dargs = args + (0.1, 777, r0)
+            out, got = _autograd(lambda *a: kfn(*a, *dargs), xs, params, gs)
+            torch.cuda.synchronize()
+            ref_out, ref = _autograd(lambda *a: pfn(*a, *dargs), xs.float(), params, gs.float())
+            _compare(f"{name} {path} rows {r0}..{r0 + 16}, dropout 0.1 forward", out, ref_out,
+                     STEP_TOL, null=xs)
+            _check_grads(f"{name} {path} rows {r0}..{r0 + 16}, dropout 0.1", got, ref, gs)
+            del out, got, ref_out, ref
+
+            kf, kb = _timed_grad(lambda *a: kfn(*a, *args, 0.1, 777), x, params, g)
+            pf, pb = _timed_grad(lambda *a: pfn(*a, *args, 0.1, 777), x, params, g, iters=1)
+            fflop, fbytes, bflop, bbytes = work()
+            r = results.setdefault(name + "_backward", dict(err=0.0, rel_l2=0.0))
+            r["err"] = max(r["err"], gerr)
+            r["rel_l2"] = max(r["rel_l2"], grel)
+            r[path] = dict(rows=rows, seq=seq, fwd_ms=kf, ms=kb, plain_fwd_ms=pf, plain_ms=pb,
+                           bound=_bound(bflop, bbytes), fwd_bound=_bound(fflop, fbytes))
+            torch.cuda.empty_cache()
+        del x, g, ffn, attn
+        torch.cuda.empty_cache()
+
+
+def _write_musdb(root, n_train=16, n_test=2, seconds=4.0, seed=SEED):
+    """A synthetic MUSDB18-HQ tree: stereo 44.1 kHz 16-bit WAV, 4 stems of
+    tones and noise plus their mixture per track."""
+    import numpy as np
+    from mss_tf_locoformer_tpu_torch.data.audio_io import write
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    for subset, count in (("train", n_train), ("test", n_test)):
+        for i in range(count):
+            d = os.path.join(root, subset, f"track{i:02d}")
+            os.makedirs(d)
+            stems = {}
+            for j, stem in enumerate(("vocals", "drums", "bass", "other")):
+                f = 110.0 * (j + 1) * (1 + 0.1 * rng.random())
+                tone = 0.1 * np.sin(2 * np.pi * f * t)[:, None]
+                stems[stem] = (tone + 0.02 * rng.standard_normal((n, 2))).astype(np.float32)
+                write(os.path.join(d, f"{stem}.wav"), stems[stem], SR)
+            write(os.path.join(d, "mixture.wav"), sum(stems.values()), SR)
+
+
+def _train_config(root, epochs):
+    """configs/musdb18.yaml's dataset, model, loss and training sections
+    (one epoch = 2 optimizer steps on 16 tracks), as JSON-ready dicts."""
+    import dataclasses
+    return {"dataset": {"root_dir": root, "sample_rate": SR, "segment_length": SEGMENT,
+                        "sources": ["vocals", "drums", "bass", "other"]},
+            "model": dataclasses.asdict(base_model_config()),
+            "loss": {"loss_type": "combined", "si_sdr_weight": 1.0, "l1_weight": 0.1,
+                     "spectral_weight": 0.1, "eps": 1.0e-8},
+            "training": {"batch_size": 8, "num_epochs": epochs, "gradient_clip": 5.0,
+                         "num_workers": 4,
+                         "optimizer": {"type": "adamw", "lr": 5e-4, "weight_decay": 0.01,
+                                       "eps": 1e-8, "betas": [0.9, 0.999]},
+                         "scheduler": {"type": "reducelronplateau", "mode": "min",
+                                       "factor": 0.5, "patience": 8, "min_lr": 1e-7,
+                                       "cooldown": 5},
+                         "use_amp": True, "amp_dtype": "bfloat16",
+                         "gradient_accumulation_steps": 4, "save_interval": 1,
+                         "keep_last": 10, "save_best": True, "val_interval": 1,
+                         "log_interval": 1},
+            "mesh": {"dp": -1, "mp": 1}, "seed": 42}
+
+
+def phase_train(workdir):
+    """The training CLI on the card: one epoch, then ``--resume`` for one
+    more; returns the training path's launch counts and step times."""
+    import numpy as np
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import separate as sep_cli
+    from mss_tf_locoformer_tpu_torch.cli import train as train_cli
+    from mss_tf_locoformer_tpu_torch.core.precision import BF16
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    from mss_tf_locoformer_tpu_torch.utils.audio import load_audio
+    root = os.path.join(workdir, "musdb")
+    _write_musdb(root)
+    cfg_path = os.path.join(workdir, "train.json")
+    out_dir = os.path.join(workdir, "exp")
+    argv = ["--config", cfg_path, "--device", "cuda", "--output_dir", out_dir]
+    counters = _counters()
+    launches, wall = {}, {}
+    for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
+        with open(cfg_path, "w") as f:
+            json.dump(_train_config(root, epochs), f)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv + extra)
+        torch.cuda.synchronize()
+        wall[epochs] = time.perf_counter() - t0
+        launches[epochs] = {k: fn.launches for k, fn in counters.items()}
+        micro = 2 * 4   # one epoch: 2 optimizer steps of 4 micro-batches
+        need = {"ffn_step": 16 * micro, "attention_step": 8 * micro,
+                "ffn_step_backward": 16 * micro, "attention_step_backward": 8 * micro,
+                "stft": micro}
+        print(f"[train] epoch {epochs - 1}: {trainer.step} optimizer steps so far, "
+              f"{micro} micro-batches this run, {wall[epochs]:.1f} s wall (build, "
+              f"data, validation and checkpoint included)")
+        for k, n in need.items():
+            got = launches[epochs][k]
+            print(f"[train] {k}: {got} launches (need >= {n})")
+            if got < n:
+                raise AssertionError(f"training launched {k} {got} times, fewer than {n}")
+    if trainer.step != 4 or trainer.start_epoch != 1:
+        raise AssertionError(f"resume: step {trainer.step}, start epoch {trainer.start_epoch}")
+    blob = torch.load(trainer.ckpt.path(1), map_location="cpu", weights_only=True)
+    meta = blob["metadata"]
+    for key in ("train_loss", "val_loss"):
+        if not np.isfinite(meta[key]):
+            raise AssertionError(f"checkpoint {key} {meta[key]} is not finite")
+    init = build_model(base_model_config(), BF16, torch.Generator().manual_seed(42)).state_dict()
+    for name, p in trainer.model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"parameter {name}: gradient missing or not finite")
+        if torch.equal(p.detach().cpu(), init[name]):
+            raise AssertionError(f"parameter {name} did not change in training")
+    n_params = sum(1 for _ in trainer.model.parameters())
+    print(f"[train] losses: train {meta['train_loss']:.4f}, val {meta['val_loss']:.4f}; "
+          f"all {n_params} parameters have finite gradients and changed")
+    wav = os.path.join(workdir, "train_check.wav")
+    from mss_tf_locoformer_tpu_torch.utils.audio import save_audio
+    save_audio(wav, np.random.default_rng(SEED).standard_normal((2, 3 * SR)).astype(
+        np.float32) * 0.1, SR)
+    model_cfg = os.path.join(workdir, "model.json")
+    with open(model_cfg, "w") as f:
+        json.dump({"model": _train_config(root, 1)["model"]}, f)
+    stems_dir = os.path.join(workdir, "train_stems")
+    sep_cli.main(["--input", wav, "--output_dir", stems_dir, "--checkpoint",
+                  trainer.ckpt.path(1), "--config", model_cfg, "--device", "cuda"])
+    for stem in ("vocals", "drums", "bass", "other"):
+        audio, _ = load_audio(os.path.join(stems_dir, f"train_check_{stem}.wav"))
+        if audio.shape != (2, 3 * SR) or not np.isfinite(audio).all():
+            raise AssertionError(f"trained checkpoint separated {stem} as {audio.shape}")
+    print("[train] the trained checkpoint separates a WAV through the separation CLI")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches[1], wall
+
+
+def _counters():
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    return {"stft": SK.stft_fused, "ffn_step": FB.fused_norm_ffn_residual,
+            "attention_step": AB.fused_attention_block,
+            "ffn_step_backward": FB.ffn_step_backward,
+            "attention_step_backward": AB.attention_step_backward}
+
+
+def _train_models():
+    """The bf16 base model twice on the same weights, kernel and plain, in
+    training mode."""
+    fused, plain = _model_pair()
+    return fused.train(), plain.train()
+
+
+def _batch(gen, b, n, dev):
+    import torch
+    stems = {s: _rand(gen, (b, n), 0.1).to(dev) for s in ("vocals", "drums", "bass", "other")}
+    return sum(stems.values()), stems
+
+
+def phase_train_parity():
+    """One micro-batch (1 x 1 s, dropout 0.1) through the kernel path and the
+    plain path with the same seeds: loss and every parameter's gradient."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig
+    from mss_tf_locoformer_tpu_torch.losses.mss_loss import mss_loss
+    fused, plain = _train_models()
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 4), 1, SR, fused.deconv.weight.device)
+    losses, grads = [], []
+    for model in (fused, plain):
+        model.zero_grad(set_to_none=True)
+        loss = mss_loss(model(mix, generator=torch.Generator().manual_seed(9)), tg,
+                        LossConfig())["total_loss"]
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    rel_loss = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst, worst_name = 0.0, ""
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        if got is None or ref is None or not torch.isfinite(got).all():
+            raise AssertionError(f"train-step parity: gradient of {name} missing or not finite")
+        rel = _rel_l2(got, ref)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"[train-parity] loss kernel {losses[0]:.5f} plain {losses[1]:.5f} (relative "
+          f"{rel_loss:.2e}, bound {STEP_LOSS_REL:g}); worst gradient relative L2 "
+          f"{worst:.3e} at {worst_name} (bound {STEP_GRAD_REL_L2:g})")
+    if not (rel_loss <= STEP_LOSS_REL and worst <= STEP_GRAD_REL_L2):
+        raise AssertionError("train-step parity outside its bounds")
+    del fused, plain, grads
+    torch.cuda.empty_cache()
+    return rel_loss, worst
+
+
+def _plain_micro_batch(cfg) -> tuple:
+    """Micro-batch of the plain path's timed step: 2 if the tensors its
+    attention keeps for the backward (fp32 and bf16 probabilities and the
+    boolean mask, 7 bytes per score, every layer) leave room in 80 GB, else 1."""
+    est = {}
+    for m in (2, 1):
+        n_frames = 1 + SEGMENT // cfg.hop_length
+        per = (m * n_frames * cfg.n_freqs ** 2 + m * cfg.n_freqs * n_frames ** 2)
+        est[m] = 7.0 * cfg.n_heads * cfg.n_layers * per
+    return (2 if est[2] < 60e9 else 1), est
+
+
+def phase_train_timing(reps: int = 1):
+    """One optimizer step (AdamW, clip 5, dropout 0.1) on one micro-batch of
+    3 s segments, kernel path at micro-batch 2 against plain path, in turns
+    (plain, kernel, kernel, plain), after a warm-up step of each (its peak
+    device memory kept)."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    cfg = base_model_config()
+    models = dict(zip(("kernel", "plain"), _train_models()))
+    mb_plain, est = _plain_micro_batch(cfg)
+    print(f"[train-timing] plain path at micro-batch {mb_plain} (its attention keeps "
+          f"~{est[2] / 1e9:.0f} GB for the backward at micro-batch 2, "
+          f"~{est[1] / 1e9:.0f} GB at 1)")
+    mbs = {"kernel": TRAIN_MB, "plain": mb_plain}
+    dev = models["kernel"].deconv.weight.device
+    gen = torch.Generator().manual_seed(SEED + 5)
+    batches = {p: _batch(gen, mbs[p], SEGMENT, dev) for p in models}
+    opts = {p: make_optimizer(m.parameters(), TrainingConfig()) for p, m in models.items()}
+    gens = {p: torch.Generator().manual_seed(11) for p in models}
+
+    def step(path):
+        mix, tg = batches[path]
+        train_step(models[path], opts[path], mix, tg, 5e-4, gens[path], LossConfig(),
+                   accum=1, gradient_clip=5.0)
+
+    peak, times = {}, {"kernel": [], "plain": []}
+    for path in models:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(path)
+        torch.cuda.synchronize()
+        peak[path] = torch.cuda.max_memory_allocated()
+    for path in ("plain", "kernel", "kernel", "plain"):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(path)
+        torch.cuda.synchronize()
+        times[path].append((time.perf_counter() - t0) / reps)
+    out = {p: (sum(t) / len(t), peak[p], mbs[p]) for p, t in times.items()}
+    del models, opts, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mss_tf_locoformer_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
@@ -353,14 +763,24 @@ def main():
     sys.path.insert(0, HERE)
     import torch
 
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    # the plain versions are the oracle: full fp32 in their matmuls and
+    # convolutions (importing the port's core.precision turns TF32 off too)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     results = {}
     phase_kernels(results)
     phase_slice_parity()
     with tempfile.TemporaryDirectory() as workdir:
         launches, wall, seconds = phase_slice(workdir)
     forward = phase_forward()
+    phase_train_kernels(results)
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches, train_wall = phase_train(workdir)
+    phase_train_parity()
+    train_time = phase_train_timing()
 
     card = f"({smi})"
     print(f"[timing] stft [{BATCH}, {CHUNK}]: kernel {results['stft']['ms']:.3f} ms, "
@@ -370,26 +790,64 @@ def main():
             rows, ms, plain_ms = results[k][path]
             print(f"[timing] {k} {path} ({rows} rows): kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms {card}")
+    for k in ("ffn_step_backward", "attention_step_backward"):
+        for path in ("freq", "time"):
+            r = results[k][path]
+            print(f"[timing] training {k[:-9]} {path} [{r['rows']}, {r['seq']}, 96], dropout "
+                  f"0.1: forward (stash) {r['fwd_ms']:.3f} ms (plain {r['plain_fwd_ms']:.3f}, "
+                  f"bound {r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f}, bound {r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
     audio_s = BATCH * CHUNK / SR
     for path, (ms, peak) in forward.items():
         print(f"[timing] forward [{BATCH}, {CHUNK}], {path} path: {ms:.1f} ms, "
               f"{1e3 * audio_s / ms:.2f}x realtime, peak {peak / 2**30:.2f} GiB {card}")
     print(f"[timing] separation of {seconds} s: {wall:.3f} s wall, "
           f"{seconds / wall:.2f}x realtime {card}")
+    for path, (sec, peak, mb) in train_time.items():
+        print(f"[timing] train step, {path} path, micro-batch {mb} x 3 s, dropout 0.1: "
+              f"{sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, peak "
+              f"{peak / 2**30:.2f} GiB {card}")
+    print(f"[timing] training CLI, base config (batch 8 = 4 x 2 x 3 s): first run "
+          f"{train_wall[1]:.1f} s for 2 steps, resumed run {train_wall[2]:.1f} s for 2 "
+          f"steps (data, validation, checkpoint included) {card}")
 
-    sources = {"stft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:150"),
-               "ffn_step": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:279"),
-               "attention_step": ("csrc/attention_block.cu",
-                                  "ops/pallas/attention_block.py:393")}
+    # per kernel: the shape its ms, plain_ms and bound_ms are taken at
+    fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
+    aflop, abytes, _, _ = attn_work(BATCH * (1 + CHUNK // 512), 1025)
+    n_bins, n_frames = 1025, 1 + CHUNK // 512
+    sbytes = BATCH * CHUNK * 4 + BATCH * n_bins * n_frames * 8
+    sflop = BATCH * n_frames * 5 * 2048 * 11   # an FFT's work per frame
+    stft_bound = _bound(sflop, sbytes, PEAK_FP32)
+    sources = {
+        "stft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:150", stft_bound,
+                 results["stft"]["plain_ms"]),
+        "ffn_step": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:279",
+                     _bound(fflop, fbytes), None),
+        "ffn_step_backward": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:456",
+                              None, None),
+        "attention_step": ("csrc/attention_block.cu", "ops/pallas/attention_block.py:393",
+                           _bound(aflop, abytes), None),
+        "attention_step_backward": ("csrc/attention_block.cu",
+                                    "ops/pallas/attention_block.py:626", None, None)}
     kernels = []
-    for k, (src, tpu) in sources.items():
+    for k, (src, tpu, bound, library_ms) in sources.items():
         r = results[k]
-        ms, plain_ms = (r["ms"], r["plain_ms"]) if k == "stft" else r["freq"][1:]
-        kernels.append({"name": k, "route": "cuda",
-                        "source": f"mss_tf_locoformer_tpu_torch/{src}",
-                        "replaces": f"mss_tf_locoformer_tpu/{tpu}",
-                        "launches": launches[k], "max_abs_err": r["err"],
-                        "ms": ms, "plain_ms": plain_ms})
+        if k == "stft":
+            ms, plain_ms = r["ms"], r["plain_ms"]
+        elif k.endswith("_backward"):
+            ms, plain_ms, bound = r["freq"]["ms"], r["freq"]["plain_ms"], r["freq"]["bound"]
+        else:
+            ms, plain_ms = r["freq"][1:]
+        entry = {"name": k, "route": "cuda",
+                 "source": f"mss_tf_locoformer_tpu_torch/{src}",
+                 "replaces": f"mss_tf_locoformer_tpu/{tpu}",
+                 "launches": (train_launches if k.endswith("_backward") else launches)[k],
+                 "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+        if not k.endswith("_backward"):
+            entry["launches_training"] = train_launches[k]
+        kernels.append(entry)
+    print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

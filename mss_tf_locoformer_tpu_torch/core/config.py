@@ -1,23 +1,28 @@
-"""Model configuration (the ``model:`` section of ``configs/*.yaml``).
+"""Typed configuration (the JAX package's ``core/config.py``, MSS part).
 
-``ModelConfig`` carries the fields, defaults and validation of the JAX
-package's ``core/config.py::ModelConfig`` so that one YAML file configures
-both packages identically.  Only the model section is ported: training,
-data and evaluation sections belong to later slices.
+Every section of ``configs/musdb18*.yaml`` is a frozen dataclass with the
+fields, defaults and validation of the JAX package, so one file configures
+both packages identically; unknown keys raise.  ``mesh`` is parsed, and the
+trainer refuses a mesh of more than one device (ROADMAP.md, Queue 1 item 6:
+parallel runs are not ported yet).  BS-Locoformer model sections and the
+speech configs are later items.
 
-PyYAML is imported inside :func:`load_model_config` only, so building a
-config in code needs nothing beyond the standard library.
+PyYAML is imported inside the loaders only, and a ``.json`` file of the same
+structure needs none: the GPU machine may have no PyYAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple, Union
 
 __all__ = ["ModelConfig", "SOURCE_NAMES", "model_config_from_dict",
-           "load_model_config"]
+           "load_model_config", "LossConfig", "DatasetConfig",
+           "OptimizerConfig", "SchedulerConfig", "EarlyStoppingConfig",
+           "TrainingConfig", "EvaluationConfig", "PathsConfig", "MeshConfig",
+           "Config", "config_from_dict", "load_config"]
 
 SOURCE_NAMES = ("vocals", "drums", "bass", "other")
 
@@ -90,6 +95,223 @@ class ModelConfig:
         return self.n_fft // 2 + 1
 
 
+@dataclass(frozen=True)
+class LossConfig:
+    loss_type: str = "combined"  # {"si_sdr", "l1", "l2", "combined"}
+    si_sdr_weight: float = 1.0
+    l1_weight: float = 0.1
+    spectral_weight: float = 0.1
+    eps: float = 1.0e-8
+    # the reference's SpectralLoss is fixed at 2048/1024 whatever the model's STFT
+    spectral_n_fft: int = 2048
+    spectral_hop_length: int = 1024
+
+    def __post_init__(self):
+        if self.loss_type not in ("si_sdr", "l1", "l2", "combined"):
+            raise ValueError(f"invalid loss_type {self.loss_type}")
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    name: str = "musdb18hq"
+    root_dir: str = ""
+    sample_rate: int = 44100
+    segment_length: Optional[int] = 132300
+    sources: Tuple[str, ...] = SOURCE_NAMES
+    augmentation: bool = False
+    random_chunks: bool = True
+    min_loudness: float = 1.0e-4
+    max_chunk_attempts: int = 8
+    rebuild_mixture: bool = True
+    cache_dir: Optional[str] = None
+    precompute_chunks: bool = False
+    chunk_hop: Optional[int] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "sources", tuple(self.sources))
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    type: str = "adamw"
+    lr: float = 5.0e-4
+    weight_decay: float = 0.01
+    eps: float = 1.0e-8
+    betas: Tuple[float, float] = (0.9, 0.999)
+    fused: bool = True  # accepted for YAML compatibility
+
+    def __post_init__(self):
+        object.__setattr__(self, "betas", tuple(self.betas))
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    type: str = "reducelronplateau"
+    mode: str = "min"
+    factor: float = 0.5
+    patience: int = 8
+    min_lr: float = 1.0e-7
+    cooldown: int = 0
+    warmup_steps: int = 0
+    warmup_start_lr: float = 0.0
+
+
+@dataclass(frozen=True)
+class EarlyStoppingConfig:
+    enabled: bool = False
+    patience: int = 20
+    min_delta: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    batch_size: int = 1
+    num_epochs: int = 300
+    gradient_clip: float = 5.0
+    num_workers: int = 4
+    pin_memory: bool = True
+    prefetch_factor: int = 2
+    persistent_workers: bool = True   # accepted for YAML compatibility
+    gradient_checkpointing: bool = False
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    use_amp: bool = True
+    amp_dtype: str = "bfloat16"
+    gradient_accumulation_steps: int = 1
+    save_interval: int = 5
+    keep_last: int = 10
+    save_best: bool = True
+    save_optimizer: bool = True
+    val_interval: int = 1
+    # validation on fixed-length chunks: None -> segment_length (or 10 s)
+    val_segment_length: Optional[int] = None
+    val_batch_size: int = 4
+    early_stopping: EarlyStoppingConfig = field(default_factory=EarlyStoppingConfig)
+    log_interval: int = 50
+    profile_steps: int = 0
+    profile_start_step: int = 5
+
+    def __post_init__(self):
+        if self.amp_dtype not in ("bfloat16", "float16", "float32"):
+            raise ValueError(f"amp_dtype must be bfloat16|float16|float32, got {self.amp_dtype}")
+
+
+@dataclass(frozen=True)
+class EvaluationConfig:
+    batch_size: int = 1
+    save_outputs: bool = False
+    metrics: Tuple[str, ...] = ("si_sdr", "sdr", "sar", "sir")
+
+    def __post_init__(self):
+        object.__setattr__(self, "metrics", tuple(self.metrics))
+
+
+@dataclass(frozen=True)
+class PathsConfig:
+    output_dir: str = "./experiments"
+    checkpoint_dir: str = "./experiments/checkpoints"
+    log_dir: str = "./experiments/logs"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device layout: ``dp`` data-parallel (-1: all devices), ``mp`` model
+    axis."""
+
+    dp: int = -1
+    mp: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        mp = max(1, self.mp)
+        dp = self.dp if self.dp > 0 else max(1, n_devices // mp)
+        return dp, mp
+
+
+@dataclass(frozen=True)
+class Config:
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    paths: PathsConfig = field(default_factory=PathsConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    seed: int = 42
+
+
+def _build(cls, data: Optional[Mapping[str, Any]], ctx: str):
+    """A dataclass from a mapping, rejecting unknown keys."""
+    data = dict(data or {})
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(data) - names
+    if unknown:
+        raise ValueError(f"Unknown key(s) {sorted(unknown)} in config section '{ctx}'. "
+                         f"Valid keys: {sorted(names)}")
+    return cls(**{k: _as_tuple(v) for k, v in data.items()})
+
+
+_SECTIONS = {"dataset": DatasetConfig, "loss": LossConfig,
+             "evaluation": EvaluationConfig, "paths": PathsConfig,
+             "mesh": MeshConfig}
+# top-level keys of the reference's YAMLs that configure nothing here
+_IGNORED_TOP_LEVEL = {"device", "num_gpu", "gpu_id", "performance", "memory"}
+
+
+def _training(val: Mapping[str, Any]) -> TrainingConfig:
+    val = dict(val or {})
+    # warmup at the training level (the reference's xlarge config) folds
+    # into the scheduler, as the JAX loader does
+    sched = dict(val.get("scheduler") or {})
+    for wk in ("warmup_steps", "warmup_start_lr"):
+        if wk in val:
+            sched.setdefault(wk, val.pop(wk))
+    if sched:
+        val["scheduler"] = sched
+    if "optimizer" in val:
+        val["optimizer"] = _build(OptimizerConfig, val["optimizer"], "training.optimizer")
+    if "scheduler" in val:
+        val["scheduler"] = _build(SchedulerConfig, val["scheduler"], "training.scheduler")
+    if "early_stopping" in val:
+        es = dict(val["early_stopping"])
+        es.setdefault("enabled", True)
+        val["early_stopping"] = _build(EarlyStoppingConfig, es, "training.early_stopping")
+    return _build(TrainingConfig, val, "training")
+
+
+def config_from_dict(raw: Mapping[str, Any]) -> Config:
+    """The whole config from a mapping of sections."""
+    kwargs: dict = {}
+    for key, val in raw.items():
+        if key == "seed":
+            kwargs["seed"] = int(val)
+        elif key == "model":
+            kwargs["model"] = model_config_from_dict(val)
+        elif key == "training":
+            kwargs["training"] = _training(val)
+        elif key in _SECTIONS:
+            kwargs[key] = _build(_SECTIONS[key], val, key)
+        elif key not in _IGNORED_TOP_LEVEL:
+            raise ValueError(f"Unknown top-level config key: {key!r}")
+    return Config(**kwargs)
+
+
+def _read(path: str) -> Mapping[str, Any]:
+    with open(path) as f:
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml  # imported here: the CUDA machine may have no PyYAML
+            raw = yaml.safe_load(f) or {}
+    if not isinstance(raw, Mapping):
+        raise ValueError(f"{path}: top level is not a mapping")
+    return raw
+
+
+def load_config(path: str) -> Config:
+    """Every section of a YAML config file (or JSON of the same structure)."""
+    return config_from_dict(_read(path))
+
+
 def model_config_from_dict(data: Optional[Mapping[str, Any]]) -> ModelConfig:
     """Build a ``ModelConfig`` from a mapping, rejecting unknown keys."""
     data = dict(data or {})
@@ -108,12 +330,4 @@ def model_config_from_dict(data: Optional[Mapping[str, Any]]) -> ModelConfig:
 def load_model_config(path: str) -> ModelConfig:
     """Read the ``model:`` section of a YAML config file (or of the same
     structure as JSON, which needs no PyYAML)."""
-    with open(path) as f:
-        if path.endswith(".json"):
-            raw = json.load(f)
-        else:
-            import yaml  # imported here: the CUDA machine may have no PyYAML
-            raw = yaml.safe_load(f) or {}
-    if not isinstance(raw, Mapping):
-        raise ValueError(f"{path}: top level is not a mapping")
-    return model_config_from_dict(raw.get("model"))
+    return model_config_from_dict(_read(path).get("model"))

@@ -22,7 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["Precision", "FP32", "BF16", "precision_from_name"]
+__all__ = ["Precision", "FP32", "BF16", "precision_from_name",
+           "precision_from_amp"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -49,3 +50,13 @@ def precision_from_name(name: str) -> Precision:
     if name == "fp32":
         return FP32
     raise ValueError(f"unknown precision {name!r} (expected bf16|fp32)")
+
+
+def precision_from_amp(use_amp: bool, amp_dtype: str = "bfloat16") -> Precision:
+    """The training config's ``use_amp``/``amp_dtype`` as a policy; float16
+    maps to bf16, as in the JAX package."""
+    if not use_amp or amp_dtype == "float32":
+        return FP32
+    if amp_dtype in ("bfloat16", "float16"):
+        return BF16
+    raise ValueError(f"unknown amp_dtype {amp_dtype}")

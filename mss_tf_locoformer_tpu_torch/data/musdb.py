@@ -1,0 +1,195 @@
+"""MUSDB18-HQ dataset on the host with numpy (the JAX package's
+``data/musdb.py``, the part the base config uses):
+
+  * layout ``<root>/<subset>/<track>/{mixture,vocals,drums,bass,other}.wav``,
+    track metadata scanned from the WAV headers;
+  * training samples are random chunks of ``segment_length`` with the
+    loudness filter (mean |x| of the stems >= ``min_loudness``, at most
+    ``max_chunk_attempts`` draws, then the first chunk of a random track),
+    drawn from ``random.Random(seed)`` exactly as the JAX dataset draws them;
+  * missing stems are zeros; with ``rebuild_mixture`` the mixture is the sum
+    of the stems;
+  * ``segment_length=None`` gives full tracks (validation).
+
+Augmentation, the precomputed chunk index and the metadata cache raise
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 3).  Samples are
+``{'mixture': [C, T] float32, '<stem>': [C, T], ...}``.
+"""
+
+from __future__ import annotations
+
+import random
+from dataclasses import dataclass
+from math import gcd
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from . import audio_io
+
+__all__ = ["TrackInfo", "MUSDBDataset", "collate_fn"]
+
+_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 3)"
+
+
+@dataclass(frozen=True)
+class TrackInfo:
+    name: str
+    directory: Path
+    length: int
+    sample_rate: int
+    channels: int
+    mixture_path: Path
+    source_paths: Dict[str, Optional[Path]]
+
+
+def _pad_or_trim(audio: np.ndarray, target: int) -> np.ndarray:
+    if audio.shape[-1] == target:
+        return audio
+    if audio.shape[-1] > target:
+        return audio[..., :target]
+    pad = [(0, 0)] * (audio.ndim - 1) + [(0, target - audio.shape[-1])]
+    return np.pad(audio, pad)
+
+
+def _resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resample of ``[C, T]`` along time (scipy, as the JAX package)."""
+    from scipy.signal import resample_poly
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+class MUSDBDataset:
+    def __init__(self, root_dir: str, subset: str = "train",
+                 sample_rate: int = 44100, segment_length: Optional[int] = None,
+                 sources: Optional[Sequence[str]] = None,
+                 augmentation: bool = False, random_chunks: bool = True,
+                 min_loudness: float = 1e-4, max_chunk_attempts: int = 8,
+                 rebuild_mixture: bool = True, precompute_chunks: bool = False,
+                 cache_dir: Optional[str] = None, verbose: bool = True,
+                 seed: Optional[int] = None):
+        if augmentation:
+            raise NotImplementedError(f"dataset augmentation {_LATER}")
+        if precompute_chunks:
+            raise NotImplementedError(f"dataset precompute_chunks {_LATER}")
+        if cache_dir:
+            raise NotImplementedError(f"dataset cache_dir {_LATER}")
+        if segment_length is not None and segment_length <= 0:
+            raise ValueError("segment_length must be positive")
+        self.root_dir = Path(root_dir)
+        self.subset = subset
+        self.sample_rate = sample_rate
+        self.segment_length = segment_length
+        self.sources = list(sources or ["vocals", "other"])
+        self.random_chunks = random_chunks
+        self.min_loudness = max(0.0, float(min_loudness))
+        self.max_chunk_attempts = max(1, int(max_chunk_attempts))
+        self.rebuild_mixture = rebuild_mixture
+        self._rng = random.Random(seed)
+        self.subset_dir = self.root_dir / subset
+        if not self.subset_dir.exists():
+            raise FileNotFoundError(f"Subset directory not found: {self.subset_dir}")
+        self.track_infos = self._scan()
+        if not self.track_infos:
+            raise ValueError(f"No tracks found in {self.subset_dir}")
+        if verbose:
+            print(f"Loaded {len(self.track_infos)} tracks from {subset} subset")
+
+    def _scan(self) -> List[TrackInfo]:
+        tracks = []
+        for directory in sorted(d for d in self.subset_dir.iterdir() if d.is_dir()):
+            mixture = directory / "mixture.wav"
+            if not mixture.exists():
+                continue
+            meta = audio_io.info(str(mixture))
+            paths = {}
+            for s in self.sources:
+                p = directory / f"{s}.wav"
+                paths[s] = p if p.exists() else None
+            tracks.append(TrackInfo(directory.name, directory, meta.frames,
+                                    meta.sample_rate, meta.channels, mixture, paths))
+        return tracks
+
+    def __len__(self) -> int:
+        return len(self.track_infos)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        if self.segment_length is None:
+            sample = self._load_chunk(self.track_infos[idx % len(self)], 0, full=True)
+        elif self.random_chunks and self.subset == "train":
+            sample = self._sample_random_chunk()
+        else:
+            sample = self._load_chunk(self.track_infos[idx % len(self)], 0)
+        if self.rebuild_mixture:
+            sample["mixture"] = self._sum_stems(sample)
+        return sample
+
+    def _frames(self, sr: int) -> Optional[int]:
+        if self.segment_length is None:
+            return None
+        return max(int(round(self.segment_length * sr / self.sample_rate)), 1)
+
+    def _sample_random_chunk(self) -> Dict[str, np.ndarray]:
+        for _ in range(self.max_chunk_attempts):
+            track = self._rng.choice(self.track_infos)
+            frames = self._frames(track.sample_rate)
+            off = 0 if track.length <= frames else self._rng.randint(0, track.length - frames)
+            sample = self._load_chunk(track, off)
+            if self._passes_loudness(sample):
+                return sample
+        return self._load_chunk(self._rng.choice(self.track_infos), 0)
+
+    def _passes_loudness(self, sample: Dict[str, np.ndarray]) -> bool:
+        if self.min_loudness <= 0:
+            return True
+        stats = [float(np.mean(np.abs(sample[s]))) for s in self.sources if s in sample]
+        if not stats:
+            stats = [float(np.mean(np.abs(sample["mixture"])))]
+        return max(stats) >= self.min_loudness
+
+    def _read(self, path: Path, offset: int, frames: Optional[int]) -> np.ndarray:
+        data, sr = audio_io.read(str(path), start=offset, frames=frames)
+        audio = data.T  # [C, T]
+        if sr != self.sample_rate:
+            audio = _resample(audio, sr, self.sample_rate)
+        if self.segment_length is not None and (frames is not None or sr != self.sample_rate):
+            audio = _pad_or_trim(audio, self.segment_length)
+        return np.ascontiguousarray(audio, dtype=np.float32)
+
+    def _load_chunk(self, track: TrackInfo, offset: int,
+                    full: bool = False) -> Dict[str, np.ndarray]:
+        frames = None if full else self._frames(track.sample_rate)
+        sample = {"mixture": self._read(track.mixture_path, offset, frames)}
+        for stem, path in track.source_paths.items():
+            if path is None:
+                sample[stem] = np.zeros_like(sample["mixture"])
+            else:
+                sample[stem] = _pad_or_trim(self._read(path, offset, frames),
+                                            sample["mixture"].shape[-1])
+        return sample
+
+    def _sum_stems(self, sample: Dict[str, np.ndarray]) -> np.ndarray:
+        stems = [sample[s] for s in self.sources if s in sample]
+        if not stems:
+            return sample["mixture"]
+        if self.segment_length is not None:
+            stems = [_pad_or_trim(a, self.segment_length) for a in stems]
+        total = stems[0].copy()
+        for a in stems[1:]:
+            total = total + a
+        return total
+
+
+def collate_fn(batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Pad every array to the batch's longest and stack; other values become
+    lists."""
+    out: Dict[str, Any] = {}
+    for key in batch[0]:
+        vals = [item[key] for item in batch]
+        if isinstance(vals[0], np.ndarray):
+            n = max(v.shape[-1] for v in vals)
+            out[key] = np.stack([_pad_or_trim(v, n) for v in vals])
+        else:
+            out[key] = vals
+    return out

@@ -13,8 +13,10 @@ package's ``models/mss_tflocoformer.py::TFLocoformerMSS``).
   * ``torch.istft`` with ``length`` back to ``[B, T_samples]`` per stem.
 
 Direct spectral mapping; stem order ``vocals, drums, bass, other``.
-Inference only: dropout is not applied (the slice serves; training is a
-later slice, ROADMAP.md).
+``train()``/``eval()`` decide dropout: in training mode the config's rate
+applies at the four reference sites (two per FFN step, two per attention
+step), with one seed per step drawn from the ``generator`` the caller passes
+to ``forward`` -- the model keeps no random state of its own.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class TFLocoformerMSS(nn.Module):
             attention_dim=cfg.attention_dim, use_rope=cfg.pos_enc == "rope",
             ffn_type=cfg.ffn_type, ffn_hidden_dim=cfg.ffn_hidden_dim,
             conv1d_kernel=cfg.conv1d_kernel, conv1d_shift=cfg.conv1d_shift,
-            fused_ffn=cfg.fused_ffn, eps=cfg.eps)
+            fused_ffn=cfg.fused_ffn, eps=cfg.eps, dropout=cfg.dropout)
         self.blocks = nn.ModuleList(
             TFLocoformerBlock(tf_order=cfg.tf_order, **block)
             for _ in range(cfg.n_layers))
@@ -79,10 +81,12 @@ class TFLocoformerMSS(nn.Module):
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
-    def forward(self, mixture: torch.Tensor,
-                return_time_domain: bool = True) -> Dict[str, torch.Tensor]:
+    def forward(self, mixture: torch.Tensor, return_time_domain: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``mixture [B, T_samples]`` -> stems ``[B, T_samples]`` each (or
-        complex ``[B, F, N]`` spectrograms with ``return_time_domain=False``)."""
+        complex ``[B, F, N]`` spectrograms with ``return_time_domain=False``).
+        ``generator`` (a CPU ``torch.Generator``) supplies the dropout seeds
+        in training mode."""
         cfg = self.config
         b, length = mixture.shape
         transform = stft_fused if cfg.fused_stft else stft
@@ -92,7 +96,7 @@ class TFLocoformerMSS(nn.Module):
         x = x.permute(0, 2, 3, 1).contiguous()                      # [B, T, F, C]
         x = self.precision.cast_compute(x)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x = self.deconv(x.to(torch.float32).permute(0, 3, 1, 2))    # fp32 island
         n_frames, n_freqs = x.shape[-2], x.shape[-1]
         x = x.reshape(b, cfg.n_sources, 2, n_frames, n_freqs)

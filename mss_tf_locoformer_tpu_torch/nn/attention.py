@@ -8,7 +8,9 @@ reference's keys.
 
 ``forward`` is the unfused path (plain torch); ``fused_step`` runs
 ``x + MHSA(RMSGroupNorm(x))`` through the fused attention-step kernel
-(``ops/cuda/attention_block.py``).
+(``ops/cuda/attention_block.py``).  Both take a dropout rate and an int32
+seed (drawn per call by the block) for the reference's two sites, the
+attention probabilities and the out-projection, with the kernel's masks.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import dropout as D
 from ..ops.attention import dot_product_attention
-from ..ops.cuda.attention_block import fused_attention_block
+from ..ops.cuda.attention_block import fused_attention_block, probability_mask
 from ..ops.rope import apply_rope
 
 __all__ = ["MultiHeadSelfAttention"]
@@ -32,7 +35,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.aggregate_heads = nn.Sequential(
             nn.Linear(attention_dim, emb_dim, bias=False))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
         """``x [B, L, C]`` -> ``[B, L, C]``, attention over L, in ``x.dtype``."""
         b, l, _ = x.shape
         dt = x.dtype
@@ -40,14 +44,22 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                  # [B, H, L, D]
         if self.use_rope:
             q, k = apply_rope(q), apply_rope(k)
-        out = dot_product_attention(q, k, v).transpose(1, 2).reshape(b, l, -1)
-        return out @ self.aggregate_heads[0].weight.to(dt).T
+        keep = None
+        if drop_rate > 0.0:
+            keep = probability_mask(seed, torch.arange(b, device=x.device),
+                                    self.n_heads, l, drop_rate, x.device)
+        out = dot_product_attention(q, k, v, keep, drop_rate)
+        out = out.transpose(1, 2).reshape(b, l, -1) @ self.aggregate_heads[0].weight.to(dt).T
+        if drop_rate > 0.0:
+            out = D.apply_mask(out, D.row_mask(seed, D.SITE_ATTN_PROJ, out, 0, drop_rate),
+                               drop_rate)
+        return out
 
     def fused_step(self, x: torch.Tensor, gamma: torch.Tensor, num_groups: int,
-                   eps: float) -> torch.Tensor:
+                   eps: float, drop_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
         """``x + MHSA(RMSGroupNorm(x))`` for rows ``x [B, L, C]`` in one
         kernel step; ``gamma`` is the pre-norm's scale."""
         return fused_attention_block(
             x.contiguous(), gamma, self.qkv.weight,
             self.aggregate_heads[0].weight, self.n_heads, num_groups, eps,
-            self.use_rope)
+            self.use_rope, 10000.0, drop_rate, seed)

@@ -11,14 +11,22 @@ the JAX package: with ``rmsgroupnorm`` pre-norms, ``fused_ffn`` (and stride
 1) makes each FFN step the fused FFN-step kernel, and ``flash_attention``
 makes the attention step the fused attention-step kernel.  Otherwise the
 steps run as plain torch modules.
+
+Dropout: in training mode (``module.train()``) with a rate above 0, each
+step draws one int32 seed from the caller's ``torch.Generator`` (FFN before
+attention, attention, FFN after, as the JAX block draws one per call from
+``make_rng("dropout")``), and fused and unfused steps apply the same masks
+from it.  The rows of a step are numbered from 0 within the call.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
+
+from ..ops.dropout import draw_seed
 
 from .attention import MultiHeadSelfAttention
 from .ffn import SwiGLUConvDeconv1d
@@ -32,7 +40,8 @@ class LocoformerBlock(nn.Module):
                  n_heads: int, flash_attention: bool, attention_dim: int,
                  use_rope: bool, ffn_type: Union[str, Sequence[str]],
                  ffn_hidden_dim: Union[int, Sequence[int]], conv1d_kernel: int,
-                 conv1d_shift: int, fused_ffn: bool, eps: float):
+                 conv1d_shift: int, fused_ffn: bool, eps: float,
+                 dropout: float = 0.0):
         super().__init__()
         macaron = isinstance(ffn_type, (tuple, list))
         types = tuple(ffn_type)[::-1] if macaron else (ffn_type,)
@@ -40,7 +49,7 @@ class LocoformerBlock(nn.Module):
         if any(t != "swiglu_conv1d" for t in types):
             raise NotImplementedError(
                 "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1)")
-        self.num_groups, self.eps = num_groups, eps
+        self.num_groups, self.eps, self.dropout = num_groups, eps, dropout
 
         def norm():
             if norm_type == "rmsgroupnorm":
@@ -58,24 +67,36 @@ class LocoformerBlock(nn.Module):
         self.fuse_ffn = fused_ffn and rms and conv1d_shift == 1
         self.fuse_attn = flash_attention and rms
 
-    def _ffn_step(self, x: torch.Tensor, i: int) -> torch.Tensor:
+    def _drop(self, generator: Optional[torch.Generator]):
+        """``(rate, seed)`` for one step: a fresh seed in training mode."""
+        if not (self.training and self.dropout > 0.0):
+            return 0.0, 0
+        if generator is None:
+            raise ValueError("dropout in training mode needs a torch.Generator "
+                             "(the model's forward takes generator=...)")
+        return self.dropout, draw_seed(generator)
+
+    def _ffn_step(self, x: torch.Tensor, i: int, generator) -> torch.Tensor:
+        rate, seed = self._drop(generator)
         if self.fuse_ffn:
             return self.ffn[i].fused_step(x, self.ffn_norm[i].gamma,
-                                          self.num_groups, self.eps)
-        return x + self.ffn[i](self.ffn_norm[i](x))
+                                          self.num_groups, self.eps, rate, seed)
+        return x + self.ffn[i](self.ffn_norm[i](x), rate, seed)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``x [B, S1, S2, C]``; attention and conv along S2."""
         if len(self.ffn) == 2:  # pre-attention FFN: the last stored one
-            x = self._ffn_step(x, 1)
+            x = self._ffn_step(x, 1, generator)
         b, s1, s2, c = x.shape
         rows = x.reshape(b * s1, s2, c)
+        rate, seed = self._drop(generator)
         if self.fuse_attn:
             rows = self.attn.fused_step(rows, self.attn_norm.gamma,
-                                        self.num_groups, self.eps)
+                                        self.num_groups, self.eps, rate, seed)
         else:
-            rows = rows + self.attn(self.attn_norm(rows))
-        return self._ffn_step(rows.reshape(b, s1, s2, c), 0)
+            rows = rows + self.attn(self.attn_norm(rows), rate, seed)
+        return self._ffn_step(rows.reshape(b, s1, s2, c), 0, generator)
 
 
 class TFLocoformerBlock(nn.Module):
@@ -88,10 +109,11 @@ class TFLocoformerBlock(nn.Module):
         self.freq_path = LocoformerBlock(**kwargs)
         self.frame_path = LocoformerBlock(**kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.tf_order == "ft":
-            x = self.freq_path(x)
-            x = self.frame_path(x.transpose(1, 2).contiguous())   # [B, F, T, C]
+            x = self.freq_path(x, generator)
+            x = self.frame_path(x.transpose(1, 2).contiguous(), generator)  # [B, F, T, C]
             return x.transpose(1, 2).contiguous()
-        x = self.frame_path(x.transpose(1, 2).contiguous())
-        return self.freq_path(x.transpose(1, 2).contiguous())
+        x = self.frame_path(x.transpose(1, 2).contiguous(), generator)
+        return self.freq_path(x.transpose(1, 2).contiguous(), generator)

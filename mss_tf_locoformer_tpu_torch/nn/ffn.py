@@ -9,8 +9,11 @@ they are.
 
 ``forward`` is the unfused path (plain torch, any stride); ``fused_step``
 runs ``x + FFN(RMSGroupNorm(x))`` through the fused FFN-step kernel
-(``ops/cuda/swiglu_block.py``), stride 1 only.  The ``conv1d`` FFN type (the
-reference's ``ConvDeconv1d``) is not ported yet.
+(``ops/cuda/swiglu_block.py``), stride 1 only.  Both take a dropout rate and
+an int32 seed (drawn per call by the block): the unfused path applies the
+kernel's masks (``ops/dropout.py``) at the same two sites, the SwiGLU output
+and the cropped output.  The ``conv1d`` FFN type (the reference's
+``ConvDeconv1d``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.swiglu_block import fused_norm_ffn_residual
+from ..ops import dropout as D
+from ..ops.cuda.swiglu_block import fused_norm_ffn_residual, inner_mask
 
 __all__ = ["SwiGLUConvDeconv1d"]
 
@@ -41,9 +45,12 @@ class SwiGLUConvDeconv1d(nn.Module):
         self.deconv1d = nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel,
                                            stride=conv1d_shift)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
         """``x [B, S1, S2, C]`` -> FFN output ``[B, S1, S2, C]`` (conv along
-        S2), computed in ``x.dtype``."""
+        S2), computed in ``x.dtype``; dropout of ``drop_rate`` at the inner
+        site (row, conv position, inner channel) and the outer one (row,
+        position, channel), rows ``B*S1``."""
         b, s1, s2, c = x.shape
         diff_ks = self.kernel - self.shift
         dt = x.dtype
@@ -52,18 +59,22 @@ class SwiGLUConvDeconv1d(nn.Module):
         y = F.conv1d(y, self.conv1d.weight.to(dt), self.conv1d.bias.to(dt),
                      stride=self.shift)
         y = y[:, :self.dim_inner] * F.silu(y[:, self.dim_inner:])
+        if drop_rate > 0.0:
+            y = D.apply_mask(y, inner_mask(seed, y, 0, drop_rate), drop_rate)
         y = F.conv_transpose1d(y, self.deconv1d.weight.to(dt),
                                self.deconv1d.bias.to(dt), stride=self.shift)
         y = y[:, :, diff_ks:diff_ks + s2].transpose(1, 2)
+        if drop_rate > 0.0:
+            y = D.apply_mask(y, D.row_mask(seed, D.SITE_FFN_OUTER, y, 0, drop_rate), drop_rate)
         return y.reshape(b, s1, s2, c)
 
     def fused_step(self, x: torch.Tensor, gamma: torch.Tensor, num_groups: int,
-                   eps: float) -> torch.Tensor:
+                   eps: float, drop_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
         """``x + FFN(RMSGroupNorm(x))`` for ``x [B, S1, S2, C]`` in one
-        kernel (stride 1); ``gamma`` is the pre-norm's scale."""
+        kernel step (stride 1); ``gamma`` is the pre-norm's scale."""
         b, s1, s2, c = x.shape
         y = fused_norm_ffn_residual(
             x.reshape(b * s1, s2, c).contiguous(), gamma, self.conv1d.weight,
             self.conv1d.bias, self.deconv1d.weight, self.deconv1d.bias,
-            self.kernel, num_groups, eps)
+            self.kernel, num_groups, eps, drop_rate, seed)
         return y.reshape(b, s1, s2, c)

@@ -31,7 +31,7 @@ from typing import Dict
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "load", "build_all", "check", "ptr",
-           "stream_handle"]
+           "stream_handle", "wgrad_splits"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,3 +107,11 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def wgrad_splits(m: int, taps: int, positions: int) -> int:
+    """Position splits of a weight-gradient product (``csrc/wgrad.cuh``):
+    enough blocks to fill the card's 132 SMs about four times over, and at
+    least 4 chunks of 32 positions per block."""
+    blocks = -(-m // 64) * taps
+    return max(1, min(-(-4 * 132 // blocks), positions // (4 * 32)))

@@ -1,17 +1,25 @@
-"""Fused attention-step kernel wrapper (``csrc/attention_block.cu``) and its
-plain PyTorch version.
+"""Fused attention-step kernels (``csrc/attention_block.cu``), their
+autograd Function and their plain PyTorch version.
 
 Replaces the JAX package's Pallas
-``ops/pallas/attention_block.py::fused_attention_block`` (forward, dropout 0):
+``ops/pallas/attention_block.py::fused_attention_block`` (forward
+``_attn_forward`` and backward ``_attn_backward_pallas``):
 
-    x + OutProj(softmax(RoPE(q) RoPE(k)^T / sqrt(D)) v),  q, k, v = QKV(RMSGroupNorm(x))
+    x + drop_proj(OutProj(drop_prob(softmax(RoPE(q) RoPE(k)^T / sqrt(D))) v)),
+    q, k, v = QKV(RMSGroupNorm(x))
 
-on rows ``x [R, L, C]``, attention over L.
+on rows ``x [R, L, C]``, attention over L.  The probability site drops after
+normalising (the softmax denominator is the undropped sum, as in torch and
+the JAX kernel); masks come from ``ops/dropout.py`` at (row, head, key,
+query) and (row, position, channel); ``row0`` is the absolute row of
+``x[0]``.
 
-Dispatch: a CPU tensor takes :func:`reference_attention_block`; a CUDA
-tensor launches the kernel (two launches: norm+QKV+RoPE, then flash
-attention+out-projection+residual) or raises.  The kernel takes bf16 rows
-only (fp32 rows on the card are a later item, ROADMAP.md).
+Dispatch: a CPU tensor takes :func:`reference_attention_block` (autograd
+through plain ops); a CUDA tensor runs the kernels through
+:class:`FusedAttentionStep` or raises.  The forward keeps what the backward
+needs only when a gradient is asked for: q/k/v after RoPE, the head outputs
+o and the per-query log-sum-exp.  The kernels take bf16 rows only (fp32 rows
+on the card are a later item, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,21 +30,36 @@ import functools
 import torch
 
 from ...nn.norms import rms_group_norm
+from .. import dropout as D
 from ..attention import dot_product_attention
 from ..rope import apply_rope, rope_angles
-from . import check, load, ptr, stream_handle
+from . import check, load, ptr, stream_handle, wgrad_splits
 
-__all__ = ["fused_attention_block", "reference_attention_block"]
+__all__ = ["fused_attention_block", "reference_attention_block",
+           "FusedAttentionStep", "probability_mask"]
 
 _DP = 32   # head dim padded for the MMA depth
 _TQ = 64   # positions per kernel tile
+_CHANNELS = (32, 64, 96, 128)
+
+
+def probability_mask(seed: int, rows, n_heads: int, seq: int, p: float,
+                     device=None):
+    """Keep mask ``[R, H, L(query), L(key)]`` of the probability site for
+    the absolute ``rows`` (an int64 tensor)."""
+    ar = torch.arange(seq, device=device)
+    return D.keep_mask(seed, D.SITE_ATTN_PROB, rows.reshape(-1, 1, 1, 1),
+                       torch.arange(n_heads, device=device)[None, :, None, None],
+                       ar[None, None, None, :], ar[None, None, :, None], p=p)
 
 
 def reference_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
                               num_groups: int, eps: float, rope: bool = True,
-                              theta: float = 10000.0):
-    """Plain version: norm, QKV, RoPE, explicit fp32 ``softmax(QK^T/sqrt(D))V``,
-    out-projection, residual.  Holds ``[R, H, L, L]`` fp32 scores."""
+                              theta: float = 10000.0, drop_rate: float = 0.0,
+                              seed: int = 0, row0: int = 0):
+    """Plain version: norm, QKV, RoPE, explicit fp32 ``softmax(QK^T/sqrt(D))V``
+    with the kernels' probability mask, out-projection with its mask,
+    residual.  Holds ``[R, H, L, L]`` fp32 scores."""
     dt = x.dtype
     r, seq, _ = x.shape
     a = w_qkv.shape[0] // 3
@@ -46,8 +69,15 @@ def reference_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
     q, k, v = qkv.permute(2, 0, 3, 1, 4)                       # [R, H, L, D]
     if rope:
         q, k = apply_rope(q, theta), apply_rope(k, theta)
-    o = dot_product_attention(q, k, v).transpose(1, 2).reshape(r, seq, a)
-    return x + o @ w_out.to(dt).T
+    keep = None
+    if drop_rate > 0.0:
+        keep = probability_mask(seed, torch.arange(row0, row0 + r, device=x.device),
+                                n_heads, seq, drop_rate, x.device)
+    o = dot_product_attention(q, k, v, keep, drop_rate).transpose(1, 2).reshape(r, seq, a)
+    z = o @ w_out.to(dt).T
+    if drop_rate > 0.0:
+        z = D.apply_mask(z, D.row_mask(seed, D.SITE_ATTN_PROJ, x, row0, drop_rate), drop_rate)
+    return x + z
 
 
 @functools.lru_cache(maxsize=16)
@@ -60,24 +90,26 @@ def _rope_tables(seq: int, d: int, theta: float, rope: bool, device):
     return cos, torch.zeros_like(cos)
 
 
-def _lib():
+def _fwd_fn():
     fn = load("attention_block").attention_step_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_uint32] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
-def fused_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
-                          num_groups: int, eps: float, rope: bool = True,
-                          theta: float = 10000.0):
-    """``x [R, L, C]`` -> ``x + MHSA(RMSGroupNorm(x))``; ``w_qkv [3A, C]`` and
-    ``w_out [C, A]`` in torch ``Linear`` layouts."""
-    if x.device.type == "cpu":
-        return reference_attention_block(x, gamma, w_qkv, w_out, n_heads,
-                                         num_groups, eps, rope, theta)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+def _bwd_fn():
+    fn = load("attention_block").attention_step_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_uint32] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _check(x, gamma, w_qkv, w_out, n_heads, num_groups):
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads
@@ -86,7 +118,7 @@ def fused_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
                         f"rows, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_attention_block: x must be contiguous")
-    if (c % 16 or a % 16 or d % 2 or d > _DP or a != n_heads * d
+    if (c not in _CHANNELS or a % 16 or d % 2 or d > _DP or a != n_heads * d
             or c % num_groups or w_qkv.shape != (3 * a, c)
             or w_out.shape != (c, a)):
         raise ValueError(f"fused_attention_block: unsupported shape C={c} "
@@ -94,23 +126,136 @@ def fused_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
     for t in (gamma, w_qkv, w_out):
         if t.device != x.device:
             raise ValueError("fused_attention_block: tensors on different devices")
+
+
+def _panels(w_qkv, w_out, n_heads):
+    """bf16 kernel weights: ``wqkv [3A, C]``; the out-projection as
+    ``[H*32, C]`` (row h*32 + j is head h, dim j; zero for j >= D)."""
+    c, a = w_out.shape
+    d = a // n_heads
+    wo = torch.zeros(n_heads, _DP, c, dtype=torch.bfloat16, device=w_out.device)
+    wo[:, :d] = w_out.to(torch.bfloat16).T.reshape(n_heads, d, c)
+    return w_qkv.to(torch.bfloat16).contiguous(), wo.reshape(n_heads * _DP, c)
+
+
+def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
+                           rope=True, theta=10000.0, drop_rate=0.0, seed=0,
+                           row0=0, stash=False):
+    """The forward kernels (no autograd).  Returns ``out`` or, with
+    ``stash``, ``(out, (q, k, v, o, lse))`` for the backward."""
+    r, seq, c = x.shape
+    a = w_qkv.shape[0] // 3
+    d = a // n_heads
     dev = x.device
     lpad = -(-seq // _TQ) * _TQ
-    wqkv = w_qkv.to(torch.bfloat16).contiguous()
-    # out-projection as [H*32, C]: row h*32 + j is head h, dim j (zero for j >= D)
-    wo = torch.zeros(n_heads, _DP, c, dtype=torch.bfloat16, device=dev)
-    wo[:, :d] = w_out.to(torch.bfloat16).T.reshape(n_heads, d, c)
+    wqkv, wo = _panels(w_qkv, w_out, n_heads)
     g32 = gamma.to(torch.float32).contiguous()
     cos, sin = _rope_tables(seq, d, float(theta), bool(rope), dev)
     q, k, v = (torch.empty(r, n_heads, lpad, _DP, dtype=torch.bfloat16, device=dev)
                for _ in range(3))
+    o = lse = None
+    if stash:
+        o = torch.empty(r, lpad, n_heads * _DP, dtype=torch.bfloat16, device=dev)
+        lse = torch.empty(r, n_heads, lpad, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
-    check(_lib()(ptr(x), ptr(g32), ptr(wqkv), ptr(wo), ptr(cos), ptr(sin),
-                 ptr(q), ptr(k), ptr(v), ptr(out), r, seq, lpad, c, n_heads, d,
-                 num_groups, float(eps), int(rope), stream_handle(dev)),
+    nul = ctypes.c_void_p(None)
+    check(_fwd_fn()(ptr(x), ptr(g32), ptr(wqkv), ptr(wo), ptr(cos), ptr(sin),
+                    ptr(q), ptr(k), ptr(v), ptr(out),
+                    ptr(o) if stash else nul, ptr(lse) if stash else nul,
+                    r, seq, lpad, c, n_heads, d, num_groups, float(eps), int(rope),
+                    *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),
           "attention_step")
     fused_attention_block.launches += 1
-    return out
+    return (out, (q, k, v, o, lse)) if stash else out
+
+
+def attention_step_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
+                            num_groups, eps, rope=True, theta=10000.0,
+                            drop_rate=0.0, seed=0, row0=0):
+    """The backward kernels (one counted launch) from the forward's stash:
+    returns ``(dx, dgamma, dw_qkv, dw_out)`` in torch layouts (fp32 for the
+    weights, ``x.dtype`` for dx)."""
+    r, seq, c = x.shape
+    a = w_qkv.shape[0] // 3
+    d = a // n_heads
+    dev = x.device
+    q, k, v, o, lse = stash
+    lpad = q.shape[2]
+    hd = n_heads * _DP
+    g = g.to(x.dtype).contiguous()
+    wqkv, wo = _panels(w_qkv, w_out, n_heads)
+    g32 = gamma.to(torch.float32).contiguous()
+    cos, sin = _rope_tables(seq, d, float(theta), bool(rope), dev)
+    tiles = lpad // _TQ
+    s1 = wgrad_splits(3 * a, 1, r * seq)
+    s2 = wgrad_splits(hd, 1, r * seq)
+    mq, mo = -(-3 * a // 64) * 64, -(-hd // 64) * 64
+    f32, bf = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(x)
+    dproj = torch.empty(r, lpad, c, **bf)
+    dout = torch.empty(r, n_heads, lpad, _DP, **bf)
+    dsum = torch.empty(r, n_heads, lpad, **f32)
+    dqkv = torch.empty(r, lpad, 3 * a, **bf)
+    xn = torch.empty(r, lpad, c, **bf)
+    part = torch.empty(r * tiles, c, **f32)
+    wpart_q, wpart_o = torch.empty(s1, mq, c, **f32), torch.empty(s2, mo, c, **f32)
+    out_qkv, out_o, out_g = (torch.empty(mq, c, **f32), torch.empty(mo, c, **f32),
+                             torch.empty(c, **f32))
+    check(_bwd_fn()(ptr(x), ptr(g), ptr(g32), ptr(wqkv), ptr(wo), ptr(cos),
+                    ptr(sin), ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(dx),
+                    ptr(dproj), ptr(dout), ptr(dsum), ptr(dqkv), ptr(xn),
+                    ptr(part), ptr(wpart_q), ptr(wpart_o), ptr(out_qkv),
+                    ptr(out_o), ptr(out_g), r, seq, lpad, c, n_heads, d,
+                    num_groups, float(eps), s1, s2,
+                    *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),
+          "attention_step_backward")
+    attention_step_backward.launches += 1
+    dw_out = out_o[:hd].reshape(n_heads, _DP, c)[:, :d].reshape(a, c).T.contiguous()
+    return dx, out_g, out_qkv[:3 * a].clone(), dw_out
+
+
+class FusedAttentionStep(torch.autograd.Function):
+    """The attention step through its kernels; the forward keeps q/k/v, o
+    and the log-sum-exp for the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w_qkv, w_out, n_heads, num_groups, eps, rope,
+                theta, drop_rate, seed, row0):
+        args = (n_heads, num_groups, eps, rope, theta, drop_rate, seed, row0)
+        if not any(ctx.needs_input_grad[:4]):
+            return attention_step_forward(x, gamma, w_qkv, w_out, *args)
+        out, stash = attention_step_forward(x, gamma, w_qkv, w_out, *args, stash=True)
+        ctx.args = args
+        ctx.save_for_backward(x, gamma, w_qkv, w_out, *stash)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, w_qkv, w_out, *stash = ctx.saved_tensors
+        dx, dgamma, dw_qkv, dw_out = attention_step_backward(
+            g, x, gamma, w_qkv, w_out, stash, *ctx.args)
+        return (dx, dgamma.to(gamma.dtype), dw_qkv.to(w_qkv.dtype),
+                dw_out.to(w_out.dtype)) + (None,) * 8
+
+
+def fused_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
+                          num_groups: int, eps: float, rope: bool = True,
+                          theta: float = 10000.0, drop_rate: float = 0.0,
+                          seed: int = 0, row0: int = 0):
+    """``x [R, L, C]`` -> ``x + drop(MHSA_drop(RMSGroupNorm(x)))``; ``w_qkv
+    [3A, C]`` and ``w_out [C, A]`` in torch ``Linear`` layouts; ``seed`` an
+    int32 drawn per call, ``row0`` the absolute row of ``x[0]``."""
+    if x.device.type == "cpu":
+        return reference_attention_block(x, gamma, w_qkv, w_out, n_heads,
+                                         num_groups, eps, rope, theta,
+                                         drop_rate, seed, row0)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+    _check(x, gamma, w_qkv, w_out, n_heads, num_groups)
+    return FusedAttentionStep.apply(x, gamma, w_qkv, w_out, n_heads, num_groups,
+                                    eps, bool(rope), float(theta), float(drop_rate),
+                                    int(seed), int(row0))
 
 
 fused_attention_block.launches = 0
+attention_step_backward.launches = 0

@@ -7,7 +7,10 @@ signal, by the window-folded DFT tables ``W[k, f] = w[k] e^{-2 pi i k f / n}``
 them), all in fp32.
 
 Dispatch: a CPU tensor takes :func:`reference_stft` (``torch.stft``); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  On the card the kernel sits in
+an autograd Function whose backward is the adjoint of the plain version (as
+the JAX ``stft_pallas`` differentiates through its plain transform), so a
+gradient through the STFT is never silently dropped.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from .. import stft as plain
 from . import check, load, ptr, stream_handle
 
-__all__ = ["stft_fused", "reference_stft", "dft_tables"]
+__all__ = ["stft_fused", "reference_stft", "dft_tables", "FusedSTFT"]
 
 
 def reference_stft(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
@@ -52,20 +55,9 @@ def _lib():
     return fn
 
 
-def stft_fused(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """STFT of ``audio [..., T]`` -> complex64 ``[..., F, N]`` (torch.stft
-    semantics: periodic Hann, reflect centre pad, onesided, un-normalised)."""
-    if audio.device.type == "cpu":
-        return reference_stft(audio, n_fft, hop_length)
-    if audio.device.type != "cuda":
-        raise ValueError(f"stft_fused: unsupported device {audio.device}")
-    if audio.dtype != torch.float32:
-        raise TypeError(f"stft_fused: fp32 audio expected, got {audio.dtype}")
+def _launch(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     lead, t = audio.shape[:-1], audio.shape[-1]
     pad = n_fft // 2
-    if t <= pad:
-        raise ValueError(f"stft_fused: {t} samples is too short for reflect "
-                         f"padding of {pad}")
     x = audio.reshape(-1, t)
     xpad = torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
     xpad = xpad.contiguous()
@@ -79,6 +71,39 @@ def stft_fused(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor
                  stream_handle(audio.device)), "stft")
     stft_fused.launches += 1
     return torch.view_as_complex(out).reshape(lead + (n_bins, n_frames))
+
+
+class FusedSTFT(torch.autograd.Function):
+    """The STFT kernel forward; backward = the adjoint of the plain version."""
+
+    @staticmethod
+    def forward(ctx, audio, n_fft, hop_length):
+        ctx.args = (n_fft, hop_length)
+        ctx.save_for_backward(audio)
+        return _launch(audio, n_fft, hop_length)
+
+    @staticmethod
+    def backward(ctx, g):
+        (audio,) = ctx.saved_tensors
+        with torch.enable_grad():
+            a = audio.detach().requires_grad_(True)
+            (da,) = torch.autograd.grad(reference_stft(a, *ctx.args), a, g)
+        return da, None, None
+
+
+def stft_fused(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """STFT of ``audio [..., T]`` -> complex64 ``[..., F, N]`` (torch.stft
+    semantics: periodic Hann, reflect centre pad, onesided, un-normalised)."""
+    if audio.device.type == "cpu":
+        return reference_stft(audio, n_fft, hop_length)
+    if audio.device.type != "cuda":
+        raise ValueError(f"stft_fused: unsupported device {audio.device}")
+    if audio.dtype != torch.float32:
+        raise TypeError(f"stft_fused: fp32 audio expected, got {audio.dtype}")
+    if audio.shape[-1] <= n_fft // 2:
+        raise ValueError(f"stft_fused: {audio.shape[-1]} samples is too short for "
+                         f"reflect padding of {n_fft // 2}")
+    return FusedSTFT.apply(audio, n_fft, hop_length)
 
 
 stft_fused.launches = 0

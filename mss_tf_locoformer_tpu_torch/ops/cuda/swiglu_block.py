@@ -1,16 +1,22 @@
-"""Fused FFN-step kernel wrapper (``csrc/swiglu_block.cu``) and its plain
-PyTorch version.
+"""Fused FFN-step kernels (``csrc/swiglu_block.cu``), their autograd Function
+and their plain PyTorch version.
 
 Replaces the JAX package's Pallas
-``ops/pallas/swiglu_block.py::fused_norm_ffn_residual`` (forward, dropout 0):
+``ops/pallas/swiglu_block.py::fused_norm_ffn_residual`` (forward
+``_blk_forward`` and backward ``_blk_backward``):
 
-    x + Deconv1d(SwiGLU(Conv1d(RMSGroupNorm(x))))
+    x + drop_outer(Deconv1d(drop_inner(SwiGLU(Conv1d(RMSGroupNorm(x))))))
 
-on rows ``x [R, L, C]``; stride 1, lead pad and crop of ``k - 1``.
+on rows ``x [R, L, C]``; stride 1, lead pad and crop of ``k - 1``.  Dropout
+masks come from ``ops/dropout.py`` (the kernels' Philox in plain torch):
+the inner site at (row, conv position, inner channel), the outer one at
+(row, position, channel); ``row0`` is the absolute row of ``x[0]``.
 
-Dispatch: a CPU tensor takes :func:`reference_norm_ffn_residual`; a CUDA
-tensor launches the kernel or raises.  The kernel takes bf16 rows only
-(fp32 rows on the card are a later item, ROADMAP.md).
+Dispatch: a CPU tensor takes :func:`reference_norm_ffn_residual` (autograd
+through plain ops); a CUDA tensor runs the kernels through
+:class:`FusedFFNStep` (forward kernel, and the backward kernels when a
+gradient is asked for) or raises.  The kernels take bf16 rows only (fp32
+rows on the card are a later item, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,19 +27,24 @@ import torch
 import torch.nn.functional as F
 
 from ...nn.norms import rms_group_norm
-from . import check, load, ptr, stream_handle
+from .. import dropout as D
+from . import check, load, ptr, stream_handle, wgrad_splits
 
 __all__ = ["fused_norm_ffn_residual", "reference_norm_ffn_residual",
-           "ffn_panels", "IC"]
+           "ffn_panels", "inner_mask", "FusedFFNStep", "IC"]
 
 IC = 32                       # inner channels per kernel chunk
+_M = 64                       # conv outputs per kernel tile
 _CHANNELS = (32, 64, 96, 128)  # template instantiations in the .cu file
 
 
 def reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
-                                kernel: int, num_groups: int, eps: float):
-    """Plain version (the JAX ``reference_norm_ffn_residual`` in torch):
-    normed rows rounded to ``x.dtype``, convs in ``x.dtype``."""
+                                kernel: int, num_groups: int, eps: float,
+                                drop_rate: float = 0.0, seed: int = 0,
+                                row0: int = 0):
+    """Plain version (the JAX ``reference_norm_ffn_residual`` in torch, with
+    the kernels' dropout masks): normed rows rounded to ``x.dtype``, convs in
+    ``x.dtype``."""
     dt = x.dtype
     diff = kernel - 1
     inner = deconv_w.shape[0]
@@ -41,8 +52,25 @@ def reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
     xp = F.pad(xn.transpose(1, 2), (diff, diff))              # [R, C, L+2(k-1)]
     y = F.conv1d(xp, conv_w.to(dt), conv_b.to(dt))            # [R, 2I, L+k-1]
     h = y[:, :inner] * F.silu(y[:, inner:])
+    if drop_rate > 0.0:
+        h = D.apply_mask(h, inner_mask(seed, h, row0, drop_rate), drop_rate)
     z = F.conv_transpose1d(h, deconv_w.to(dt), deconv_b.to(dt))  # [R, C, L+2(k-1)]
-    return x + z[:, :, diff:diff + x.shape[1]].transpose(1, 2)
+    z = z[:, :, diff:diff + x.shape[1]].transpose(1, 2)
+    if drop_rate > 0.0:
+        z = D.apply_mask(z, D.row_mask(seed, D.SITE_FFN_OUTER, x, row0, drop_rate), drop_rate)
+    return x + z
+
+
+def inner_mask(seed: int, h: torch.Tensor, row0: int, p: float) -> torch.Tensor:
+    """Keep mask of the inner site for the SwiGLU output ``h [R, I, L+k-1]``
+    (channels first, as torch's convolutions give it), at (absolute row,
+    conv position, inner channel)."""
+    r, inner, lc = h.shape
+    dev = h.device
+    return D.keep_mask(seed, D.SITE_FFN_INNER,
+                       torch.arange(row0, row0 + r, device=dev)[:, None, None],
+                       torch.arange(lc, device=dev)[None, None],
+                       torch.arange(inner, device=dev)[None, :, None], p=p)
 
 
 def ffn_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16):
@@ -64,23 +92,26 @@ def ffn_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16):
             wd.to(dtype).contiguous())
 
 
-def _lib():
+def _fwd_fn():
     fn = load("swiglu_block").ffn_step_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_uint32] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
-def fused_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
-                            kernel: int, num_groups: int, eps: float):
-    """``x [R, L, C]`` -> ``x + FFN(RMSGroupNorm(x))`` ``[R, L, C]``; weights in
-    torch layouts (``conv_w [2I, C, k]``, ``deconv_w [I, C, k]``)."""
-    if x.device.type == "cpu":
-        return reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w,
-                                           deconv_b, kernel, num_groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_norm_ffn_residual: unsupported device {x.device}")
+def _bwd_fn():
+    fn = load("swiglu_block").ffn_step_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_uint32] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups):
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     if x.dtype != torch.bfloat16:
@@ -96,15 +127,106 @@ def fused_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
     for t in (gamma, conv_w, conv_b, deconv_w, deconv_b):
         if t.device != x.device:
             raise ValueError("fused_norm_ffn_residual: tensors on different devices")
+
+
+def ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
+                     num_groups, eps, drop_rate=0.0, seed=0, row0=0):
+    """One launch of the forward kernel (no autograd)."""
+    r, seq, c = x.shape
+    inner = deconv_w.shape[0]
     wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
     g32 = gamma.to(torch.float32).contiguous()
     bd32 = deconv_b.to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    check(_lib()(ptr(x), ptr(g32), ptr(wc), ptr(bc), ptr(wd), ptr(bd32),
-                 ptr(out), r, seq, c, inner, kernel, num_groups, float(eps),
-                 stream_handle(x.device)), "ffn_step")
+    check(_fwd_fn()(ptr(x), ptr(g32), ptr(wc), ptr(bc), ptr(wd), ptr(bd32),
+                    ptr(out), r, seq, c, inner, kernel, num_groups, float(eps),
+                    *D.kernel_args(drop_rate, seed, row0), stream_handle(x.device)),
+          "ffn_step")
     fused_norm_ffn_residual.launches += 1
     return out
 
 
+def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
+                      num_groups, eps, drop_rate=0.0, seed=0, row0=0):
+    """The backward kernels (one counted launch): returns ``(dx, dgamma,
+    dconv_w, dconv_b, ddeconv_w, ddeconv_b)`` in torch layouts (fp32 for the
+    weights, ``x.dtype`` for dx)."""
+    r, seq, c = x.shape
+    inner = deconv_w.shape[0]
+    k = kernel
+    dev = x.device
+    g = g.to(x.dtype).contiguous()
+    wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
+    g32 = gamma.to(torch.float32).contiguous()
+    lt = _M - (k - 1)
+    tiles = -(-seq // lt)
+    lc = seq + k - 1
+    n = r * lc
+    s1 = wgrad_splits(2 * inner, k, n)
+    s2 = wgrad_splits(inner, k, n)
+    mc, md = -(-2 * inner // 64) * 64, -(-inner // 64) * 64
+    f32, bf = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(x)
+    xn, dz = torch.empty(r, seq, c, **bf), torch.empty(r, seq, c, **bf)
+    dy, hd = torch.empty(r, lc, 2 * inner, **bf), torch.empty(r, lc, inner, **bf)
+    part = torch.empty(r * tiles, 2 * c, **f32)
+    wpart_c, colsum_c = torch.empty(k, s1, mc, c, **f32), torch.empty(s1, mc, **f32)
+    wpart_d = torch.empty(k, s2, md, c, **f32)
+    out_c, out_cb = torch.empty(k, mc, c, **f32), torch.empty(mc, **f32)
+    out_d, out_gb = torch.empty(k, md, c, **f32), torch.empty(2 * c, **f32)
+    check(_bwd_fn()(ptr(x), ptr(g), ptr(g32), ptr(wc), ptr(bc), ptr(wd), ptr(dx),
+                    ptr(xn), ptr(dz), ptr(dy), ptr(hd), ptr(part), ptr(wpart_c),
+                    ptr(colsum_c), ptr(wpart_d), ptr(out_c), ptr(out_cb),
+                    ptr(out_d), ptr(out_gb), r, seq, c, inner, k, num_groups,
+                    float(eps), s1, s2, *D.kernel_args(drop_rate, seed, row0),
+                    stream_handle(dev)), "ffn_step_backward")
+    ffn_step_backward.launches += 1
+    return (dx, out_gb[:c].clone(), out_c[:, :2 * inner].permute(1, 2, 0).contiguous(),
+            out_cb[:2 * inner].clone(), out_d[:, :inner].permute(1, 2, 0).contiguous(),
+            out_gb[c:].clone())
+
+
+class FusedFFNStep(torch.autograd.Function):
+    """The FFN step through its kernels: the forward kernel, and the backward
+    kernels, which recompute from the saved inputs (nothing else is kept)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
+                num_groups, eps, drop_rate, seed, row0):
+        ctx.args = (kernel, num_groups, eps, drop_rate, seed, row0)
+        ctx.bias_dtype = deconv_b.dtype
+        ctx.save_for_backward(x, gamma, conv_w, conv_b, deconv_w)
+        return ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
+                                kernel, num_groups, eps, drop_rate, seed, row0)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, conv_w, conv_b, deconv_w = ctx.saved_tensors
+        dx, dgamma, dcw, dcb, ddw, ddb = ffn_step_backward(
+            g, x, gamma, conv_w, conv_b, deconv_w, *ctx.args)
+        return (dx, dgamma.to(gamma.dtype), dcw.to(conv_w.dtype),
+                dcb.to(conv_b.dtype), ddw.to(deconv_w.dtype), ddb.to(ctx.bias_dtype),
+                None, None, None, None, None, None)
+
+
+def fused_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
+                            kernel: int, num_groups: int, eps: float,
+                            drop_rate: float = 0.0, seed: int = 0,
+                            row0: int = 0):
+    """``x [R, L, C]`` -> ``x + drop(FFN(drop(RMSGroupNorm(x))))`` ``[R, L, C]``;
+    weights in torch layouts (``conv_w [2I, C, k]``, ``deconv_w [I, C, k]``);
+    ``seed`` an int32 drawn per call, ``row0`` the absolute row of ``x[0]``."""
+    if x.device.type == "cpu":
+        return reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w,
+                                           deconv_b, kernel, num_groups, eps,
+                                           drop_rate, seed, row0)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_norm_ffn_residual: unsupported device {x.device}")
+    _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups)
+    return FusedFFNStep.apply(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
+                              kernel, num_groups, eps, float(drop_rate),
+                              int(seed), int(row0))
+
+
 fused_norm_ffn_residual.launches = 0
+ffn_step_backward.launches = 0

@@ -1,0 +1,220 @@
+"""End-to-end trainer on one device (the JAX package's ``train/loop.py``).
+
+Kept from the JAX trainer: stereo -> mono channel mean of mixture and
+targets; random training chunks through the threaded loader with device
+prefetch; AdamW with warmup x ReduceLROnPlateau on the validation loss;
+fixed-length chunked validation (every test track cut into segments, the
+last zero-padded and weighted by its valid fraction, scored in groups of
+``val_batch_size``); a checkpoint every ``save_interval`` epochs and on a
+new best; early stopping; ``--resume`` from the newest checkpoint.
+
+The device is the caller's (``device`` is required; nothing moves to the
+CPU on its own).  Dropout seeds come from a ``torch.Generator`` seeded with
+``seed + 1`` (the JAX trainer's ``PRNGKey(seed + 1)``); initial weights from
+one seeded with ``seed``.  Importing ``core.precision`` turns TF32 off, so
+the fp32 encoder and decoder convolutions run in full fp32 on the card.
+Not ported yet (ROADMAP.md): mesh layouts of more than one device (Queue 1
+item 6), the step profiler, orbax checkpoints.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import Config
+from ..core.precision import precision_from_amp
+from ..data.loader import DataLoader
+from ..data.musdb import MUSDBDataset
+from ..models import build_model
+from ..utils.common import AverageMeter, count_parameters, format_time, set_seed
+from .checkpoint import CheckpointManager
+from .engine import Scalars, make_writer, run_train_epoch
+from .schedule import EarlyStopping
+from .state import LRController, make_optimizer
+from .step import eval_step, train_step
+
+__all__ = ["Trainer"]
+
+
+def _mono(x: np.ndarray) -> np.ndarray:
+    """[B, C, T] -> [B, T] channel mean."""
+    return x.mean(axis=1) if x.ndim == 3 else x
+
+
+class Trainer:
+    def __init__(self, config: Config, device, output_dir: Optional[str] = None,
+                 resume: Optional[str] = None, verbose: bool = True):
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device}: CUDA is not available")
+        dp, mp = config.mesh.axis_sizes(1)
+        if config.mesh.dp > 1 or dp * mp > 1:
+            raise NotImplementedError(
+                f"mesh dp={config.mesh.dp} mp={config.mesh.mp} asks for more "
+                f"than one device: parallel runs are not ported yet "
+                f"(ROADMAP.md, Queue 1 item 6)")
+        if config.training.gradient_checkpointing or config.training.profile_steps:
+            raise NotImplementedError("gradient_checkpointing and the step profiler "
+                                      "are not ported yet (ROADMAP.md, Queue 1 item 3)")
+        self.verbose = verbose
+        set_seed(config.seed)
+        self.output_dir = output_dir or config.paths.output_dir
+        self.log_dir = os.path.join(self.output_dir, "logs")
+        os.makedirs(self.log_dir, exist_ok=True)
+
+        tcfg = config.training
+        self.precision = precision_from_amp(tcfg.use_amp, tcfg.amp_dtype)
+        self.model = build_model(config.model, self.precision,
+                                 torch.Generator().manual_seed(config.seed)).to(self.device)
+        self.optimizer = make_optimizer(self.model.parameters(), tcfg)
+        self.lr_ctl = LRController(tcfg)
+        self.early_stop = EarlyStopping(tcfg.early_stopping)
+        self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"),
+                                      keep_last=tcfg.keep_last, save_best=tcfg.save_best)
+        self.scalars = Scalars(make_writer(self.log_dir))
+        self.generator = torch.Generator().manual_seed(config.seed + 1)
+        self.step = 0
+        self.start_epoch = 0
+        self.best_val_loss = float("inf")
+        self._resume = resume
+        self._log(f"Device: {self.device}  precision={self.precision.compute_dtype}  "
+                  f"parameters {count_parameters(self.model) / 1e6:.2f} M")
+
+    def _log(self, msg: str):
+        if self.verbose:
+            print(msg, flush=True)
+
+    def _datasets(self):
+        d = self.config.dataset
+        common = dict(sample_rate=d.sample_rate, sources=list(d.sources),
+                      min_loudness=d.min_loudness, rebuild_mixture=d.rebuild_mixture,
+                      cache_dir=d.cache_dir, verbose=self.verbose)
+        train = MUSDBDataset(d.root_dir, "train", segment_length=d.segment_length,
+                             augmentation=d.augmentation, random_chunks=d.random_chunks,
+                             max_chunk_attempts=d.max_chunk_attempts,
+                             precompute_chunks=d.precompute_chunks,
+                             seed=self.config.seed, **common)
+        val = MUSDBDataset(d.root_dir, "test", segment_length=None, **common)
+        return train, val
+
+    def _host_batches(self, loader):
+        sources = self.config.dataset.sources
+        for batch in loader:
+            yield {"mixture": _mono(np.asarray(batch["mixture"])),
+                   **{k: _mono(np.asarray(batch[k])) for k in sources if k in batch}}
+
+    def _train_step(self, batch: Dict[str, torch.Tensor], lr: float):
+        b = dict(batch)
+        mixture = b.pop("mixture")
+        tcfg = self.config.training
+        return train_step(self.model, self.optimizer, mixture, b, lr, self.generator,
+                          self.config.loss, tcfg.gradient_accumulation_steps,
+                          tcfg.gradient_clip)
+
+    def validate(self, loader) -> float:
+        """Weighted mean validation loss over fixed-length chunks."""
+        tcfg, d = self.config.training, self.config.dataset
+        seg = tcfg.val_segment_length or d.segment_length or 10 * d.sample_rate
+        group = max(1, tcfg.val_batch_size)
+        meter = AverageMeter()
+        mix, tgt, wts = [], [], []
+
+        def flush():
+            if not mix:
+                return
+            to = lambda xs: torch.from_numpy(np.stack(xs)).to(self.device)
+            ld = eval_step(self.model, to(mix),
+                           {k: to([t[k] for t in tgt]) for k in tgt[0]},
+                           self.config.loss,
+                           weights=torch.tensor(wts, device=self.device))
+            meter.update(float(ld["total_loss"]), sum(wts))
+            mix.clear()
+            tgt.clear()
+            wts.clear()
+
+        def pad(x):
+            return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, seg - x.shape[-1])])
+
+        for batch in loader:
+            mixture = _mono(np.asarray(batch["mixture"]))
+            targets = {k: _mono(np.asarray(batch[k])) for k in d.sources if k in batch}
+            n_chunks = max(1, -(-mixture.shape[-1] // seg))
+            for b in range(mixture.shape[0]):
+                for c in range(n_chunks):
+                    sl = slice(c * seg, (c + 1) * seg)
+                    m = mixture[b][..., sl]
+                    mix.append(pad(m))
+                    tgt.append({k: pad(v[b][..., sl]) for k, v in targets.items()})
+                    wts.append(m.shape[-1] / seg)
+                    if len(mix) == group:
+                        flush()
+        flush()
+        return meter.avg
+
+    def fit(self, train_loader=None, val_loader=None) -> int:
+        """Train to ``num_epochs`` (or an early stop); returns the step count."""
+        tcfg = self.config.training
+        if train_loader is None:
+            train_ds, val_ds = self._datasets()
+            train_loader = DataLoader(train_ds, batch_size=tcfg.batch_size, shuffle=True,
+                                      num_workers=tcfg.num_workers,
+                                      prefetch_factor=tcfg.prefetch_factor,
+                                      seed=self.config.seed)
+            val_loader = DataLoader(val_ds, batch_size=1, shuffle=False,
+                                    num_workers=min(2, tcfg.num_workers))
+        if self._resume:
+            meta, epoch = self._restore()
+            self.start_epoch = epoch + 1
+            self.step = meta["step"]
+            self.best_val_loss = meta.get("best_val_loss", float("inf"))
+            self.lr_ctl.load_state_dict(meta["lr_controller"])
+            self.early_stop.load_state_dict(meta["early_stop"])
+            self._log(f"Resumed from epoch {epoch} (step {self.step})")
+
+        for epoch in range(self.start_epoch, tcfg.num_epochs):
+            t0 = time.time()
+            self.step, train_loss = run_train_epoch(
+                self._train_step, self._host_batches(train_loader), device=self.device,
+                prefetch=tcfg.prefetch_factor, lr_ctl=self.lr_ctl, step=self.step,
+                epoch=epoch, log_interval=tcfg.log_interval, log=self._log,
+                scalars=self.scalars)
+            self.scalars("train/loss_epoch", train_loss, epoch)
+            msg = f"epoch {epoch}: train {train_loss:.4f} ({format_time(time.time() - t0)})"
+            val_loss = None
+            if (epoch + 1) % tcfg.val_interval == 0:
+                val_loss = self.validate(val_loader)
+                self.scalars("val/loss", val_loss, epoch)
+                self.lr_ctl.on_validation(val_loss)
+                msg += f" val {val_loss:.4f}"
+            self._log(msg)
+            is_best = val_loss is not None and val_loss < self.best_val_loss
+            if is_best:
+                self.best_val_loss = val_loss
+            if (epoch + 1) % tcfg.save_interval == 0 or is_best:
+                self.ckpt.save(epoch, self.model,
+                               self.optimizer if tcfg.save_optimizer else None, {
+                                   "epoch": epoch, "step": self.step,
+                                   "train_loss": train_loss, "val_loss": val_loss,
+                                   "best_val_loss": self.best_val_loss,
+                                   "lr_controller": self.lr_ctl.state_dict(),
+                                   "early_stop": self.early_stop.state_dict()},
+                               is_best=is_best)
+            if val_loss is not None and self.early_stop.step(val_loss):
+                self._log(f"Early stopping at epoch {epoch}")
+                break
+        self.scalars.close()
+        return self.step
+
+    def _restore(self):
+        """``--resume``: a checkpoint directory (its newest epoch), or any
+        other value for this trainer's own newest checkpoint."""
+        mgr = self.ckpt
+        if os.path.isdir(str(self._resume)):
+            mgr = CheckpointManager(self._resume, self.ckpt.keep_last, self.ckpt.save_best)
+        return mgr.restore(self.model, self.optimizer)

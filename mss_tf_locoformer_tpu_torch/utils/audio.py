@@ -41,31 +41,35 @@ def _header(path: str):
     raise ValueError(f"No data chunk in {path}")
 
 
+def _decode(raw: bytes, fmt) -> np.ndarray:
+    """Interleaved samples of a WAV data chunk as flat float32."""
+    bits, code = fmt["bits"], fmt["format"]
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    if code == 3 and bits == 32:
+        return buf.view("<f4").astype(np.float32)
+    if code == 3 and bits == 64:
+        return buf.view("<f8").astype(np.float32)
+    if bits == 16:
+        return buf.view("<i2").astype(np.float32) / 32768.0
+    if bits == 24:
+        b = buf.reshape(-1, 3).astype(np.uint32)
+        v = (b[:, 0] << 8) | (b[:, 1] << 16) | (b[:, 2] << 24)
+        return (v.view(np.int32) >> 8).astype(np.float32) / 8388608.0
+    if bits == 32:
+        return (buf.view("<i4").astype(np.float64) / 2147483648.0).astype(np.float32)
+    raise ValueError(f"Unsupported WAV: bits={bits} format={code}")
+
+
 def _read_wav(path: str) -> Tuple[np.ndarray, int]:
     """``[frames, channels]`` float32 and the sample rate."""
     fmt, offset, size = _header(path)
-    ch, bits, code = fmt["channels"], fmt["bits"], fmt["format"]
-    frame_bytes = bits // 8 * ch
+    ch = fmt["channels"]
+    frame_bytes = fmt["bits"] // 8 * ch
     with open(path, "rb") as f:
         f.seek(offset)
         raw = f.read(size // frame_bytes * frame_bytes)
     n = len(raw) // frame_bytes
-    buf = np.frombuffer(raw[:n * frame_bytes], dtype=np.uint8)
-    if code == 3 and bits == 32:
-        x = buf.view("<f4").astype(np.float32)
-    elif code == 3 and bits == 64:
-        x = buf.view("<f8").astype(np.float32)
-    elif bits == 16:
-        x = buf.view("<i2").astype(np.float32) / 32768.0
-    elif bits == 24:
-        b = buf.reshape(-1, 3).astype(np.uint32)
-        v = (b[:, 0] << 8) | (b[:, 1] << 16) | (b[:, 2] << 24)
-        x = (v.view(np.int32) >> 8).astype(np.float32) / 8388608.0
-    elif bits == 32:
-        x = (buf.view("<i4").astype(np.float64) / 2147483648.0).astype(np.float32)
-    else:
-        raise ValueError(f"Unsupported WAV: bits={bits} format={code}")
-    return x.reshape(n, ch), fmt["sample_rate"]
+    return _decode(raw[:n * frame_bytes], fmt).reshape(n, ch), fmt["sample_rate"]
 
 
 def _write_wav(path: str, data: np.ndarray, sample_rate: int, bits: int) -> None:

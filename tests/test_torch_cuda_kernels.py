@@ -24,6 +24,9 @@ STEP_TOL = 2e-2
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the plain versions are the oracle: full fp32 in their convs and matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -96,3 +99,107 @@ def test_launch_counters_count_launches(dev):
     before = SK.stft_fused.launches
     SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
     assert SK.stft_fused.launches == before + 1
+
+
+# Backward and dropout.  The kernels run on bf16 rows; their plain versions
+# run autograd in fp32 on the same (bf16-valued) inputs.  The kernels round
+# xn, the SwiGLU output, dy, P and dS to bf16 on the way (as the TPU kernels
+# do), about 2^-9 relative per element; dx is held to STEP_TOL x max|ref|,
+# the weight and gamma gradients (sums over every position) to a relative
+# L2 error of GRAD_REL_L2.
+GRAD_REL_L2 = 2e-2
+
+
+def _rel_l2(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm()).item()
+
+
+def _grads(fn, x, params, g):
+    x = x.detach().requires_grad_(True)
+    ps = [p.detach().requires_grad_(True) for p in params]
+    out = fn(x, *ps)
+    grads = torch.autograd.grad(out, [x, *ps], g)
+    return out, grads
+
+
+def _check_grads(got, ref, names):
+    for name, a, b in zip(names, got, ref):
+        assert b.abs().max().item() > 0, name
+        assert torch.isfinite(a).all(), name
+        if name == "dx":
+            _close(a, b, STEP_TOL)
+        else:
+            assert _rel_l2(a, b) <= GRAD_REL_L2, (name, _rel_l2(a, b))
+
+
+def _ffn_inputs(dev, r, seq, c, inner, k, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    b = (c * k) ** -0.5
+    x = torch.randn(r, seq, c, generator=gen).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    w = [((torch.rand(*s, generator=gen) * 2 - 1) * b).to(dev)
+         for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+    g = torch.randn(r, seq, c, generator=gen).to(dev, torch.bfloat16)
+    return x, [gamma, *w], g
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(2, 1, 96, 384, 4), (3, 37, 32, 64, 4),
+                                             (2, 130, 64, 96, 3), (2, 130, 96, 384, 4)])
+def test_ffn_step_backward_kernel(dev, r, seq, c, inner, k, drop):
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    args = (k, 4, 1e-5, drop, 1234, 7)
+    out, got = _grads(lambda *a: FB.fused_norm_ffn_residual(*a, *args), x, params, g)
+    ref_out, ref = _grads(lambda *a: FB.reference_norm_ffn_residual(*a, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+def _attn_inputs(dev, r, seq, c, a, seed=4):
+    gen = torch.Generator().manual_seed(seed)
+    x = (0.5 * torch.randn(r, seq, c, generator=gen)).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    w_qkv = ((torch.rand(3 * a, c, generator=gen) * 2 - 1) * 2 * c ** -0.5).to(dev)
+    w_out = ((torch.rand(c, a, generator=gen) * 2 - 1) * a ** -0.5).to(dev)
+    g = torch.randn(r, seq, c, generator=gen).to(dev, torch.bfloat16)
+    return x, [gamma, w_qkv, w_out], g
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,a,h,rope", [(1, 1, 96, 96, 4, True),
+                                              (2, 37, 32, 32, 2, True),
+                                              (2, 130, 96, 96, 4, True),
+                                              (3, 130, 64, 96, 3, False)])
+def test_attention_step_backward_kernel(dev, r, seq, c, a, h, rope, drop):
+    x, params, g = _attn_inputs(dev, r, seq, c, a)
+    args = (h, 4, 1e-5, rope, 10000.0, drop, 4321, 5)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
+
+
+def test_dropout_masks_change_with_the_seed_and_replay(dev):
+    """Two seeds give two outputs; one seed gives the same output twice."""
+    x, params, _ = _ffn_inputs(dev, 2, 50, 64, 64, 4)
+    f = lambda s: FB.fused_norm_ffn_residual(x, *params, 4, 4, 1e-5, 0.1, s)
+    assert torch.equal(f(1), f(1))
+    assert not torch.equal(f(1), f(2))
+    xa, pa, _ = _attn_inputs(dev, 2, 50, 64, 64)
+    fa = lambda s: AB.fused_attention_block(xa, *pa, 4, 4, 1e-5, True, 10000.0, 0.1, s)
+    assert torch.equal(fa(1), fa(1))
+    assert not torch.equal(fa(1), fa(2))
+
+
+def test_stft_kernel_passes_gradients(dev):
+    audio = torch.randn(2, 5000, device=dev, requires_grad=True)
+    spec = SK.stft_fused(audio, 1024, 256)
+    (ga,) = torch.autograd.grad(spec.abs().sum(), audio)
+    ref = audio.detach().requires_grad_(True)
+    (gr,) = torch.autograd.grad(SK.reference_stft(ref, 1024, 256).abs().sum(), ref)
+    assert _rel_l2(ga, gr) < 1e-3
