@@ -4,25 +4,39 @@
     python3 chip_smoke.py
 
 Drives the port (``mss_tf_locoformer_tpu_torch``) at the base config of
-``configs/musdb18.yaml`` (built here in code: the GPU machine may have no
-PyYAML), with seeded random weights, through its two main paths: serving
-(the separation CLI) and training (the training CLI).  Phases, each of
-which raises on failure (exit code != 0, no result line):
+``configs/musdb18.yaml`` and the xlarge config of
+``configs/musdb18_xlarge.yaml`` (both built here in code: the GPU machine may
+have no PyYAML), with seeded random weights, through its main paths: base
+serving (the separation CLI), xlarge serving (the separation CLI, through
+the unfused route's kernels) and base training (the training CLI).  Phases,
+each of which raises on failure (exit code != 0, no result line):
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
-  3. kernels: each forward kernel against its plain PyTorch version at the
-     shapes the serving path gives it (one engine batch: 2 chunks of 8 s;
-     the plain attention's [R, H, L, L] fp32 scores take ~23 GB at the freq
-     path);
+     gates: the route the step gates give the base config (fused steps)
+     and the xlarge config (unfused route), in eval and in training;
+  3. kernels: each base forward kernel against its plain PyTorch version at
+     the shapes the serving path gives it (one engine batch: 2 chunks of
+     8 s);
   4. slice parity: the whole model with its kernels against the same model
      with every kernel replaced by its plain version (1 s, batch 1, bf16);
+     the check must reject the model with its blocks skipped;
   5. serving: the separation CLI on a 20 s stereo WAV (3 chunks of 8 s in
-     2 batches of 2), 4 stereo stems checked, launch counters checked;
+     2 batches of 2), 4 stereo stems checked, launch counts checked exactly;
   6. timings: each kernel against its plain version, one model forward of
      the engine batch on the kernel path against the plain path (in turns,
      with peak device memory), and the separation's wall time and realtime
-     factor;
+     factor; a ``torch.profiler`` trace of one kernel-path forward (device
+     time by kernel, the library's matrix products, the device's busy
+     share), base and xlarge;
+  X. xlarge serving, phases 3-6 again: the flash-attention and FFN-core
+     kernels against their plain versions at the engine batch's freq and
+     time shapes (flash attention compared on row slices: the plain fp32
+     scores of all 690 freq rows would take ~185 GB), with the library
+     time of ``scaled_dot_product_attention`` beside flash attention's;
+     slice parity at full width and depth; the separation CLI with exact
+     launch counts (per forward 24 flash-attention and 48 FFN-core
+     launches, no fused step); the forward in turns;
   7. training kernels: forward (with the training stash) and backward of
      the FFN and attention steps at the training path's full rows (micro-
      batch 2 of 3 s: freq [518, 1025, 96], time [2050, 259, 96]) against
@@ -70,6 +84,20 @@ def base_model_config():
         conv1d_kernel=4, conv1d_shift=1, dropout=0.1, eps=1.0e-5)
 
 
+def xlarge_model_config():
+    """The model section of ``configs/musdb18_xlarge.yaml``: C 256 and 16 heads
+    of 16, which the fused steps' gates refuse, so every step takes the
+    unfused route through the flash-attention and FFN-core kernels."""
+    from mss_tf_locoformer_tpu_torch.core.config import ModelConfig
+    return ModelConfig(
+        n_fft=4096, hop_length=1024, n_sources=4, n_layers=12, emb_dim=256,
+        norm_type="rmsgroupnorm", num_groups=8, tf_order="ft", n_heads=16,
+        flash_attention=True, fused_ffn=True, fused_stft=True,
+        attention_dim=256, pos_enc="rope",
+        ffn_type=("swiglu_conv1d", "swiglu_conv1d"), ffn_hidden_dim=(1024, 1024),
+        conv1d_kernel=4, conv1d_shift=1, dropout=0.1, eps=1.0e-5)
+
+
 def _plain_config(cfg):
     import dataclasses
     return dataclasses.replace(cfg, fused_stft=False, fused_ffn=False,
@@ -112,6 +140,28 @@ def phase_build():
         for line in log.splitlines():
             if "Used" in line and "registers" in line:
                 print(f"[build] {name}: {line.split(':', 1)[1].strip()}")
+
+
+def phase_gates():
+    """The route the step gates give the base and xlarge configs (shapes
+    only, the same answer on the CPU): the fused steps for base, the unfused
+    route for xlarge, in eval and in training."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import SMEM_OPTIN
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    for name, cfg, fused in (("base", base_model_config(), True),
+                             ("xlarge", xlarge_model_config(), False)):
+        c, a, h, k = cfg.emb_dim, cfg.attention_dim, cfg.n_heads, cfg.conv1d_kernel
+        for training in (False, True):
+            routes = ([FB.supports_step(c, i, k, training) for i in cfg.ffn_hidden_dim]
+                      + [AB.supports_block(c, a, h, training)])
+            print(f"[gates] {name} (C {c}, H {h}), {'training' if training else 'eval'}: "
+                  f"FFN step {FB.step_bytes(c, k, training)} B, attention step "
+                  f"{max(AB.launch_bytes(c, a, h, training).values())} B of {SMEM_OPTIN}: "
+                  f"fused steps {routes}")
+            if routes != [fused] * len(routes):
+                raise AssertionError(f"gates: {name} should take the "
+                                     f"{'fused' if fused else 'unfused'} route")
 
 
 def _rand(gen, shape, scale=1.0):
@@ -238,18 +288,21 @@ def phase_kernels(results):
 
 
 # Slice parity bound: per-stem relative L2 error between the kernel path and
-# the plain path through the whole bf16 model (four blocks of bf16 rounding
-# taken at different places).
+# the plain path through the whole bf16 model (bf16 rounding taken at
+# different places in every block).  Measured ~1e-2 at the base config's 4
+# layers; the xlarge config's 12 layers may add up to ~3x that, so one bound
+# of 5e-2 serves both.  The model with its blocks skipped must miss it.
 SLICE_REL_L2 = 5e-2
 
 
-def _model_pair():
-    """The bf16 base model on the card twice, on the same seeded weights: with
-    its kernels, and with every kernel replaced by its plain version."""
+def _model_pair(cfg=None):
+    """The bf16 model (the base config by default) on the card twice, on the
+    same seeded weights: with its kernels, and with every kernel replaced by
+    its plain version."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import build_model
-    cfg = base_model_config()
+    cfg = cfg or base_model_config()
     dev = torch.device("cuda", 0)
     fused = build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to(dev).eval()
     plain = build_model(_plain_config(cfg), BF16).to(dev).eval()
@@ -257,27 +310,41 @@ def _model_pair():
     return fused, plain
 
 
-def phase_slice_parity():
+def phase_slice_parity(cfg=None):
     import torch
-    fused, plain = _model_pair()
+    fused, plain = _model_pair(cfg)
     gen = torch.Generator().manual_seed(SEED + 1)
     mix = _rand(gen, (1, SR), 0.1).to(fused.deconv.weight.device)
     with torch.inference_mode():
         a = fused(mix)
         torch.cuda.synchronize()
         b = plain(mix)
-    worst = 0.0
+        blocks, plain.blocks = plain.blocks, torch.nn.ModuleList()
+        skipped = plain(mix)
+        plain.blocks = blocks
+    worst, least_skip = 0.0, float("inf")
     for name in a:
         if a[name].shape != (1, SR) or not torch.isfinite(a[name]).all():
             raise AssertionError(f"slice parity: stem {name} is not finite [1, {SR}]")
         rel = ((a[name] - b[name]).norm() / b[name].norm()).item()
-        worst = max(worst, rel)
-        print(f"[parity] {name}: relative L2 {rel:.3e} (bound {SLICE_REL_L2:g})")
+        skip = ((skipped[name] - b[name]).norm() / b[name].norm()).item()
+        worst, least_skip = max(worst, rel), min(least_skip, skip)
+        print(f"[parity] {name}: relative L2 {rel:.3e} (bound {SLICE_REL_L2:g}); "
+              f"blocks skipped {skip:.3e}")
     if not worst <= SLICE_REL_L2:
         raise AssertionError(f"slice parity: relative L2 {worst:.3e} above {SLICE_REL_L2:g}")
+    if not least_skip > SLICE_REL_L2:
+        raise AssertionError("slice parity: the check cannot tell the model from the "
+                             "model with its blocks skipped")
+    del fused, plain
+    torch.cuda.empty_cache()
+    return worst, least_skip
 
 
-def phase_slice(workdir):
+def phase_slice(workdir, cfg=None):
+    """The separation CLI on a 20 s stereo WAV with a seeded random-init
+    checkpoint of ``cfg`` (the base config by default): the launch counts of
+    the first run, then the wall time of a second."""
     import dataclasses
 
     import numpy as np
@@ -285,11 +352,12 @@ def phase_slice(workdir):
     from mss_tf_locoformer_tpu_torch.cli import separate as cli
     from mss_tf_locoformer_tpu_torch.models import build_model
     from mss_tf_locoformer_tpu_torch.utils.audio import load_audio, save_audio
-    cfg = base_model_config()
+    cfg = cfg or base_model_config()
     model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
-    ckpt = os.path.join(workdir, "base_random.pth")
+    ckpt = os.path.join(workdir, "model_random.pth")
     torch.save(model.state_dict(), ckpt)
-    cfg_path = os.path.join(workdir, "musdb18_model.json")
+    del model
+    cfg_path = os.path.join(workdir, "model.json")
     with open(cfg_path, "w") as f:
         json.dump({"model": dataclasses.asdict(cfg)}, f)
     seconds = 20
@@ -309,16 +377,6 @@ def phase_slice(workdir):
     cli.main(argv)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-
-    forwards = 2  # 3 chunks in batches of 2
-    need = {"stft": 1 * forwards, "ffn_step": 16 * forwards,
-            "attention_step": 8 * forwards}
-    for name, n in need.items():
-        print(f"[slice] {name}: {launches[name]} launches (need >= {n})")
-        if launches[name] < n:
-            raise AssertionError(f"{name} launched {launches[name]} times, fewer than {n}")
-    if launches["ffn_step_backward"] or launches["attention_step_backward"]:
-        raise AssertionError(f"serving launched backward kernels: {launches}")
     for stem in ("vocals", "drums", "bass", "other"):
         path = os.path.join(out_dir, f"mix_{stem}.wav")
         audio, sr = load_audio(path)
@@ -334,14 +392,24 @@ def phase_slice(workdir):
     return launches, wall, seconds
 
 
-def phase_forward(reps: int = 3):
+def _check_launches(tag, launches, need):
+    """Launch counts of a run against the exact counts ``need`` (every
+    counter not named must be 0)."""
+    for name, got in launches.items():
+        want = need.get(name, 0)
+        print(f"[{tag}] {name}: {got} launches (need {want})")
+        if got != want:
+            raise AssertionError(f"{tag}: {name} launched {got} times, not {want}")
+
+
+def phase_forward(cfg=None, reps: int = 3):
     """One model forward of an engine batch, kernel path against plain path
     on the same weights: a warm-up forward of each (its peak device memory
     kept), then ``reps`` forwards per turn in the order plain, kernel,
     kernel, plain, host clock around synchronised forwards.  Returns
     ``{path: (mean ms per forward, peak bytes)}``."""
     import torch
-    models = dict(zip(("kernel", "plain"), _model_pair()))
+    models = dict(zip(("kernel", "plain"), _model_pair(cfg)))
     mix = _rand(torch.Generator().manual_seed(SEED + 2), (BATCH, CHUNK), 0.1).to(
         models["kernel"].deconv.weight.device)
     peak, times = {}, {"kernel": [], "plain": []}
@@ -358,7 +426,144 @@ def phase_forward(reps: int = 3):
                 models[path](mix)
             torch.cuda.synchronize()
             times[path].append((time.perf_counter() - t0) / reps)
+    del models, mix
+    torch.cuda.empty_cache()
     return {path: (1e3 * sum(t) / len(t), peak[path]) for path, t in times.items()}
+
+
+def phase_profile(cfg=None, top: int = 8):
+    """Where one engine-batch forward of the kernel path spends the device's
+    time: ``torch.profiler`` over one forward after a warm-up, the self
+    device time of each kernel (and copy) by name, and their sum over the
+    forward's wall time (the device's busy share).  Returns ``(busy share,
+    [(name, ms, share of device time), ...])``, or None when the profiler
+    saw no device activity.  The last row sums the library's matrix
+    products (cuBLAS/cuDNN, by kernel name): on the xlarge path the QKV and
+    out-projection products run there, around #6."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mss_tf_locoformer_tpu_torch.core.precision import BF16
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    model = build_model(cfg or base_model_config(), BF16,
+                        torch.Generator().manual_seed(SEED)).to("cuda").eval()
+    mix = _rand(torch.Generator().manual_seed(SEED + 2), (BATCH, CHUNK), 0.1).to("cuda")
+    with torch.inference_mode():
+        model(mix)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(mix)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    del model, mix
+    torch.cuda.empty_cache()
+    total = sum(ms for _, ms in device)
+    if not total:
+        print("[profile] the profiler saw no device activity")
+        return None
+    device.sort(key=lambda kv: -kv[1])
+    short = lambda name: name.replace("void ", "").replace("(anonymous namespace)::", "")[:60]
+    rows = [(short(name), ms, ms / total) for name, ms in device[:top]]
+    gemm = sum(ms for name, ms in device
+               if any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass")))
+    rows.append(("all library matrix products (cuBLAS/cuDNN)", gemm, gemm / total))
+    return total / (1e3 * wall), rows
+
+
+# ------------------------------------------------------------ xlarge
+
+
+def flash_work(r, h, l, d):
+    """(FLOP, bytes) of one flash-attention call: QK^T and PV at the true
+    head_dim; q, k and v read and o written once, bf16."""
+    return 4.0 * r * h * l * l * d, 4 * r * h * l * d * 2.0
+
+
+def ffn_core_work(r, l, c, inner, k):
+    """(FLOP, bytes) of one FFN-core call on rows padded to L + 2(k-1): both
+    products over the L + k - 1 conv positions; x read and the output
+    written once (bf16), the bf16 weight panels and fp32 biases once."""
+    lin, l1 = l + 2 * (k - 1), l + k - 1
+    return (6.0 * r * l1 * k * c * inner,
+            2 * r * lin * c * 2.0 + 3 * inner * c * k * 2.0 + (2 * inner + c) * 4.0)
+
+
+def phase_xlarge_kernels(results):
+    """The flash-attention (#6) and FFN-core (#8) kernels against their plain
+    versions at the xlarge engine batch's freq and time shapes, and timed
+    beside their bounds (and, for #6, ``scaled_dot_product_attention`` on the
+    pre-rotated q and k)."""
+    import torch
+    import torch.nn.functional as F
+    from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
+    from mss_tf_locoformer_tpu_torch.ops.rope import apply_rope
+    cfg = xlarge_model_config()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    c, h, k = cfg.emb_dim, cfg.n_heads, cfg.conv1d_kernel
+    d, inner = cfg.attention_dim // h, cfg.ffn_hidden_dim[0]
+    for path, rows, seq in _main_path_steps(cfg):
+        # #6 on the views of a QKV product [R, L, 3, H, D], as the MHSA hands
+        # them over; q and k at 1.5x unit scale give a peaked softmax, so the
+        # uniform-attention output (the null) is far from the right one
+        qkv = (1.5 * torch.randn(rows, seq, 3, h, d, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        q, kk, v = qkv.permute(2, 0, 3, 1, 4)
+        got = FA.flash_attention(q, kk, v, True)
+        torch.cuda.synchronize()
+        n, err = (8 if path == "freq" else 64), 0.0
+        for r0 in (0, rows - n):
+            sl = slice(r0, r0 + n)
+            ref = FA.reference_flash_attention(q[sl], kk[sl], v[sl], True)
+            null = v[sl].float().mean(-2, keepdim=True).expand(ref.shape)
+            err = max(err, _compare(
+                f"flash_attention {path} rows {r0}..{r0 + n} of [{rows}, {h}, {seq}, {d}]",
+                got[sl], ref, STEP_TOL, null=null))
+        del got, ref, null
+        ms = _time_ms(lambda: FA.flash_attention(q, kk, v, True), iters=3)
+        plain_ms = _time_ms(lambda: FA.reference_flash_attention(q, kk, v, True), iters=1)
+        qr, kr = apply_rope(q), apply_rope(kk)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), iters=3)
+        r = results.setdefault("flash_attention", dict(err=0.0))
+        r["err"] = max(r["err"], err)
+        r[path] = dict(shape=(rows, h, seq, d), ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound=_bound(*flash_work(rows, h, seq, d)))
+        del qkv, q, kk, v, qr, kr
+        torch.cuda.empty_cache()
+
+        # #8 on rows pre-padded by k-1 zeros each side
+        lin = seq + 2 * (k - 1)
+        x = torch.zeros(rows, lin, c, dtype=torch.bfloat16, device=dev)
+        x[:, k - 1:k - 1 + seq] = torch.randn(rows, seq, c, generator=gen, device=dev)
+        b = (c * k) ** -0.5
+        w = [(torch.rand(*s, generator=gen, device=dev) * 2 - 1) * b
+             for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+        got = SF.swiglu_conv_deconv(x, *w, k)
+        torch.cuda.synchronize()
+        ref = SF.reference_swiglu_conv_deconv(x, *w, k)
+        err = _compare(f"swiglu_ffn {path} [{rows}, {lin}, {c}], I {inner}", got, ref,
+                       STEP_TOL, null=torch.zeros_like(ref) + w[3])
+        del got, ref
+        r0 = rows // 2
+        xs = x[r0:r0 + 16].contiguous()
+        got = SF.swiglu_conv_deconv(xs, *w, k, 0.1, 777, r0)
+        ref = SF.reference_swiglu_conv_deconv(xs, *w, k, 0.1, 777, r0)
+        _compare(f"swiglu_ffn {path} rows {r0}..{r0 + 16}, dropout 0.1", got, ref, STEP_TOL,
+                 null=SF.reference_swiglu_conv_deconv(xs, *w, k))
+        del got, ref
+        torch.cuda.empty_cache()
+        ms = _time_ms(lambda: SF.swiglu_conv_deconv(x, *w, k), iters=3)
+        plain_ms = _time_ms(lambda: SF.reference_swiglu_conv_deconv(x, *w, k), iters=2)
+        r = results.setdefault("swiglu_ffn", dict(err=0.0))
+        r["err"] = max(r["err"], err)
+        r[path] = dict(shape=(rows, lin, c), ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound=_bound(*ffn_core_work(rows, seq, c, inner, k)))
+        del x, w
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ training
@@ -604,6 +809,8 @@ def phase_train(workdir):
             print(f"[train] {k}: {got} launches (need >= {n})")
             if got < n:
                 raise AssertionError(f"training launched {k} {got} times, fewer than {n}")
+        if launches[epochs]["flash_attention"] or launches[epochs]["swiglu_ffn"]:
+            raise AssertionError(f"base training left the fused steps: {launches[epochs]}")
     if trainer.step != 4 or trainer.start_epoch != 1:
         raise AssertionError(f"resume: step {trainer.step}, start epoch {trainer.start_epoch}")
     blob = torch.load(trainer.ckpt.path(1), map_location="cpu", weights_only=True)
@@ -642,12 +849,15 @@ def phase_train(workdir):
 
 def _counters():
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
     from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
     return {"stft": SK.stft_fused, "ffn_step": FB.fused_norm_ffn_residual,
             "attention_step": AB.fused_attention_block,
             "ffn_step_backward": FB.ffn_step_backward,
-            "attention_step_backward": AB.attention_step_backward}
+            "attention_step_backward": AB.attention_step_backward,
+            "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv}
 
 
 def _train_models():
@@ -770,12 +980,27 @@ def main():
     # convolutions (importing the port's core.precision turns TF32 off too)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_gates()
     results = {}
     phase_kernels(results)
     phase_slice_parity()
     with tempfile.TemporaryDirectory() as workdir:
         launches, wall, seconds = phase_slice(workdir)
+    # the fused steps and nothing else: 2 forwards (3 chunks in batches of 2)
+    _check_launches("slice", launches, {"stft": 2, "ffn_step": 32, "attention_step": 16})
     forward = phase_forward()
+
+    xl = xlarge_model_config()
+    phase_xlarge_kernels(results)
+    phase_slice_parity(xl)
+    with tempfile.TemporaryDirectory() as workdir:
+        xl_launches, xl_wall, _ = phase_slice(workdir, xl)
+    # per forward 2 paths x 12 layers: 1 flash attention and 2 FFN cores each
+    _check_launches("xlarge slice", xl_launches,
+                    {"stft": 2, "flash_attention": 48, "swiglu_ffn": 96})
+    xl_forward = phase_forward(xl, reps=1)
+    profiles = {"base": phase_profile(), "xlarge": phase_profile(xl)}
+
     phase_train_kernels(results)
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, train_wall = phase_train(workdir)
@@ -797,12 +1022,28 @@ def main():
                   f"0.1: forward (stash) {r['fwd_ms']:.3f} ms (plain {r['plain_fwd_ms']:.3f}, "
                   f"bound {r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
+    for k in ("flash_attention", "swiglu_ffn"):
+        for path in ("freq", "time"):
+            r = results[k][path]
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+            print(f"[timing] xlarge {k} {path} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
+                  f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
+                  f"({r['bound'][1]}) {card}")
     audio_s = BATCH * CHUNK / SR
-    for path, (ms, peak) in forward.items():
-        print(f"[timing] forward [{BATCH}, {CHUNK}], {path} path: {ms:.1f} ms, "
-              f"{1e3 * audio_s / ms:.2f}x realtime, peak {peak / 2**30:.2f} GiB {card}")
-    print(f"[timing] separation of {seconds} s: {wall:.3f} s wall, "
-          f"{seconds / wall:.2f}x realtime {card}")
+    for tag, fwd in (("base", forward), ("xlarge", xl_forward)):
+        for path, (ms, peak) in fwd.items():
+            print(f"[timing] {tag} forward [{BATCH}, {CHUNK}], {path} path: {ms:.1f} ms, "
+                  f"{1e3 * audio_s / ms:.2f}x realtime, peak {peak / 2**30:.2f} GiB {card}")
+    for tag, prof in profiles.items():
+        if prof is not None:
+            busy, rows = prof
+            print(f"[profile] {tag} forward [{BATCH}, {CHUNK}], kernel path: device busy "
+                  f"{100 * busy:.1f}% of the wall time; by self device time: " + "; ".join(
+                      f"{name} {ms:.1f} ms ({100 * share:.1f}%)" for name, ms, share in rows)
+                  + f" {card}")
+    for tag, w in (("base", wall), ("xlarge", xl_wall)):
+        print(f"[timing] {tag} separation of {seconds} s: {w:.3f} s wall, "
+              f"{seconds / w:.2f}x realtime {card}")
     for path, (sec, peak, mb) in train_time.items():
         print(f"[timing] train step, {path} path, micro-batch {mb} x 3 s, dropout 0.1: "
               f"{sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, peak "
@@ -828,23 +1069,32 @@ def main():
         "attention_step": ("csrc/attention_block.cu", "ops/pallas/attention_block.py:393",
                            _bound(aflop, abytes), None),
         "attention_step_backward": ("csrc/attention_block.cu",
-                                    "ops/pallas/attention_block.py:626", None, None)}
+                                    "ops/pallas/attention_block.py:626", None, None),
+        "flash_attention": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:207",
+                            None, None),
+        "swiglu_ffn": ("csrc/swiglu_ffn.cu", "ops/pallas/swiglu_ffn.py:221", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         r = results[k]
+        main_path = launches
         if k == "stft":
             ms, plain_ms = r["ms"], r["plain_ms"]
         elif k.endswith("_backward"):
             ms, plain_ms, bound = r["freq"]["ms"], r["freq"]["plain_ms"], r["freq"]["bound"]
+            main_path = train_launches
+        elif k in ("flash_attention", "swiglu_ffn"):
+            f = r["freq"]
+            ms, plain_ms, bound, library_ms = f["ms"], f["plain_ms"], f["bound"], f["library_ms"]
+            main_path = xl_launches
         else:
             ms, plain_ms = r["freq"][1:]
         entry = {"name": k, "route": "cuda",
                  "source": f"mss_tf_locoformer_tpu_torch/{src}",
                  "replaces": f"mss_tf_locoformer_tpu/{tpu}",
-                 "launches": (train_launches if k.endswith("_backward") else launches)[k],
+                 "launches": main_path[k],
                  "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
-        if not k.endswith("_backward"):
+        if main_path is launches:
             entry["launches_training"] = train_launches[k]
         kernels.append(entry)
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

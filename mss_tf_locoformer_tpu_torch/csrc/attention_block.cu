@@ -734,7 +734,33 @@ __global__ void __launch_bounds__(FIN_NT) attn_bwd_final_kernel(
   }
 }
 
+// Dynamic shared memory of the backward launches 3-6.
+size_t bwd_pre_bytes(int C, int H) {
+  return (size_t)TQ * (C + 16) * 2 + (size_t)TQ * (H * DP + 4) * 4;
+}
+size_t bwd_dq_bytes() { return (size_t)2 * TQ * LDK * 2 + (size_t)BW_NW * BW_WARP_BYTES; }
+size_t bwd_dkdv_bytes() { return bwd_dq_bytes() + (size_t)2 * TQ * 4; }
+size_t bwd_final_bytes(int C, int A) {
+  return (size_t)3 * A * (C + 8) * 2 + (size_t)TQ * (3 * A + 16) * 2 + (size_t)TQ * (C + 4) * 4;
+}
+
 }  // namespace
+
+// Dynamic shared memory of one launch at width C, attention width A and H
+// heads: which = 0 QKV, 1 core, 2-5 the backward's pre, dq, dk/dv and final
+// launches.  ops/cuda/attention_block.py::launch_bytes computes the same in
+// Python for the block's gate; chip_smoke.py holds the two against each other.
+extern "C" long long attention_step_smem_bytes(int C, int A, int H, int which) {
+  switch (which) {
+    case 0: return (long long)QkvLay(C, A).bytes();
+    case 1: return (long long)CoreLay(C, H).bytes();
+    case 2: return (long long)bwd_pre_bytes(C, H);
+    case 3: return (long long)bwd_dq_bytes();
+    case 4: return (long long)bwd_dkdv_bytes();
+    case 5: return (long long)bwd_final_bytes(C, A);
+    default: return -1;
+  }
+}
 
 static DropParams drop_params(unsigned seed, unsigned thr, unsigned row0,
                               float scale, int on) {
@@ -808,7 +834,7 @@ extern "C" int attention_step_backward(
   const int tiles = Lpad / TQ;
   const int A = H * D, HD = H * DP;
   cudaError_t e;
-  const size_t pre_smem = (size_t)TQ * (C + 16) * 2 + (size_t)TQ * (HD + 4) * 4;
+  const size_t pre_smem = bwd_pre_bytes(C, H);
   if ((e = cudaFuncSetAttribute(attn_bwd_pre_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)pre_smem)) != cudaSuccess)
@@ -818,7 +844,7 @@ extern "C" int attention_step_backward(
       (bf16*)dout, (float*)Dsum, L, Lpad, C, H, tiles, dp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const size_t dq_smem = (size_t)2 * TQ * LDK * 2 + (size_t)BW_NW * BW_WARP_BYTES;
+  const size_t dq_smem = bwd_dq_bytes();
   if ((e = cudaFuncSetAttribute(attn_bwd_dq_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)dq_smem)) != cudaSuccess)
@@ -830,7 +856,7 @@ extern "C" int attention_step_backward(
       tiles, dp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const size_t kv_smem = dq_smem + (size_t)2 * TQ * 4;
+  const size_t kv_smem = bwd_dkdv_bytes();
   if ((e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)kv_smem)) != cudaSuccess)
@@ -841,8 +867,7 @@ extern "C" int attention_step_backward(
       (const float*)sinv, (bf16*)dqkv, L, Lpad, H, D, tiles, dp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const size_t fin_smem = (size_t)3 * A * (C + 8) * 2 + (size_t)TQ * (3 * A + 16) * 2 +
-                          (size_t)TQ * (C + 4) * 4;
+  const size_t fin_smem = bwd_final_bytes(C, A);
   if ((e = cudaFuncSetAttribute(attn_bwd_final_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)fin_smem)) != cudaSuccess)

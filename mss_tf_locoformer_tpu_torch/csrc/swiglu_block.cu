@@ -529,6 +529,28 @@ int launch_bwd(const bf16* x, const bf16* g, const float* gamma, const bf16* wc,
       return (int)cudaErrorInvalidValue; \
   }
 
+// Dynamic shared memory of the forward (Lay<C>) and, with training, the
+// larger of it and the backward's (BLay<C>) at width C and K taps; 0 for a
+// width with no instantiation.  ops/cuda/swiglu_block.py::step_bytes computes
+// the same in Python for the block's gate; chip_smoke.py holds the two
+// against each other.
+extern "C" long long ffn_step_smem_bytes(int C, int K, int training) {
+#define FFN_BYTES_CASE(CC)                                              \
+  case CC: {                                                            \
+    const size_t f = Lay<CC>::bytes(K), b = BLay<CC>::bytes(K);         \
+    return (long long)(training && b > f ? b : f);                      \
+  }
+  switch (C) {
+    FFN_BYTES_CASE(32)
+    FFN_BYTES_CASE(64)
+    FFN_BYTES_CASE(96)
+    FFN_BYTES_CASE(128)
+    default:
+      return 0;
+  }
+#undef FFN_BYTES_CASE
+}
+
 static DropParams drop_params(unsigned seed, unsigned thr, unsigned row0,
                               float scale, int on) {
   DropParams dp;

@@ -6,11 +6,16 @@ fp32-softmax attention, bias-free output projection.  Parameters are
 ``qkv.weight [3A, C]`` and ``aggregate_heads.0.weight [C, A]``, the
 reference's keys.
 
-``forward`` is the unfused path (plain torch); ``fused_step`` runs
-``x + MHSA(RMSGroupNorm(x))`` through the fused attention-step kernel
-(``ops/cuda/attention_block.py``).  Both take a dropout rate and an int32
-seed (drawn per call by the block) for the reference's two sites, the
-attention probabilities and the out-projection, with the kernel's masks.
+``forward`` is the unfused path: the projections are ``torch.matmul``
+(as the JAX package leaves them to XLA) and, with ``flash`` (the config's
+``flash_attention``), no dropout and a head_dim the kernel takes, the core
+goes to the flash-attention kernel with RoPE fused
+(``ops/cuda/flash_attention.py``); otherwise RoPE and the plain attention
+run in torch.  ``fused_step`` runs ``x + MHSA(RMSGroupNorm(x))`` through
+the fused attention-step kernel (``ops/cuda/attention_block.py``).  Both
+take a dropout rate and an int32 seed (drawn per call by the block) for the
+reference's two sites, the attention probabilities and the out-projection,
+with the kernel's masks.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from ..ops import dropout as D
 from ..ops.attention import dot_product_attention
+from ..ops.cuda import flash_attention as FA
 from ..ops.cuda.attention_block import fused_attention_block, probability_mask
 from ..ops.rope import apply_rope
 
@@ -28,9 +34,10 @@ __all__ = ["MultiHeadSelfAttention"]
 
 class MultiHeadSelfAttention(nn.Module):
     def __init__(self, emb_dim: int, attention_dim: int, n_heads: int,
-                 use_rope: bool = True):
+                 use_rope: bool = True, flash: bool = False):
         super().__init__()
         self.n_heads, self.use_rope = n_heads, use_rope
+        self.flash = flash and FA.supports_shape(attention_dim // n_heads)
         self.qkv = nn.Linear(emb_dim, attention_dim * 3, bias=False)
         self.aggregate_heads = nn.Sequential(
             nn.Linear(attention_dim, emb_dim, bias=False))
@@ -42,13 +49,16 @@ class MultiHeadSelfAttention(nn.Module):
         dt = x.dtype
         qkv = (x @ self.qkv.weight.to(dt).T).reshape(b, l, 3, self.n_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                  # [B, H, L, D]
-        if self.use_rope:
-            q, k = apply_rope(q), apply_rope(k)
-        keep = None
-        if drop_rate > 0.0:
-            keep = probability_mask(seed, torch.arange(b, device=x.device),
-                                    self.n_heads, l, drop_rate, x.device)
-        out = dot_product_attention(q, k, v, keep, drop_rate)
+        if self.flash and drop_rate == 0.0:
+            out = FA.flash_attention(q, k, v, self.use_rope, 10000.0)
+        else:
+            if self.use_rope:
+                q, k = apply_rope(q), apply_rope(k)
+            keep = None
+            if drop_rate > 0.0:
+                keep = probability_mask(seed, torch.arange(b, device=x.device),
+                                        self.n_heads, l, drop_rate, x.device)
+            out = dot_product_attention(q, k, v, keep, drop_rate)
         out = out.transpose(1, 2).reshape(b, l, -1) @ self.aggregate_heads[0].weight.to(dt).T
         if drop_rate > 0.0:
             out = D.apply_mask(out, D.row_mask(seed, D.SITE_ATTN_PROJ, out, 0, drop_rate),

@@ -6,11 +6,18 @@ stored *reversed* (``ffn.1`` runs before attention, ``ffn.0`` after) and
 there is no 1/2 macaron factor.  Activations are channels-last
 ``[B, S1, S2, C]``; both sub-steps work along S2 on rows ``B*S1``.
 
-The fused kernel steps are a deliberate choice made from the config, as in
-the JAX package: with ``rmsgroupnorm`` pre-norms, ``fused_ffn`` (and stride
-1) makes each FFN step the fused FFN-step kernel, and ``flash_attention``
-makes the attention step the fused attention-step kernel.  Otherwise the
-steps run as plain torch modules.
+Each step picks its route from the config and its shape, as the JAX
+block does (``block_step_applicable``, ``attn_step_applicable``): with
+``rmsgroupnorm`` pre-norms, an FFN step with ``fused_ffn`` and stride 1 is
+the fused FFN-step kernel, and the attention step with ``flash_attention``
+the fused attention-step kernel, when their gates admit the step's widths
+(``supports_step``, ``supports_block``: the kernels' shared-memory layouts
+on an H100, the backward's too in training mode).  Otherwise the step runs
+as norm + module + residual, and the modules take the flash-attention and
+FFN-core kernels under the same flags (``nn/attention.py``,
+``nn/ffn.py``); that is the xlarge config's route (C 256) and every
+LayerNorm config's.  The route is decided from shapes and ``self.training``
+before any launch, never from a failure.
 
 Dropout: in training mode (``module.train()``) with a rate above 0, each
 step draws one int32 seed from the caller's ``torch.Generator`` (FFN before
@@ -26,6 +33,8 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ..ops.cuda.attention_block import supports_block
+from ..ops.cuda.swiglu_block import supports_step
 from ..ops.dropout import draw_seed
 
 from .attention import MultiHeadSelfAttention
@@ -58,14 +67,24 @@ class LocoformerBlock(nn.Module):
 
         self.ffn_norm = nn.ModuleList(norm() for _ in types)
         self.ffn = nn.ModuleList(
-            SwiGLUConvDeconv1d(emb_dim, d, conv1d_kernel, conv1d_shift)
+            SwiGLUConvDeconv1d(emb_dim, d, conv1d_kernel, conv1d_shift, fused=fused_ffn)
             for d in dims)
         self.attn_norm = norm()
         self.attn = MultiHeadSelfAttention(emb_dim, attention_dim, n_heads,
-                                           use_rope=use_rope)
+                                           use_rope=use_rope, flash=flash_attention)
         rms = norm_type == "rmsgroupnorm"
-        self.fuse_ffn = fused_ffn and rms and conv1d_shift == 1
-        self.fuse_attn = flash_attention and rms
+        # (training?) -> route of each FFN step and of the attention step
+        self._step_routes = {
+            training: ([fused_ffn and rms and conv1d_shift == 1
+                        and supports_step(emb_dim, d, conv1d_kernel, training)
+                        for d in dims],
+                       flash_attention and rms
+                       and supports_block(emb_dim, attention_dim, n_heads, training))
+            for training in (False, True)}
+
+    def fused_steps(self):
+        """``([fused FFN step i], fused attention step)`` in the current mode."""
+        return self._step_routes[self.training]
 
     def _drop(self, generator: Optional[torch.Generator]):
         """``(rate, seed)`` for one step: a fresh seed in training mode."""
@@ -78,7 +97,7 @@ class LocoformerBlock(nn.Module):
 
     def _ffn_step(self, x: torch.Tensor, i: int, generator) -> torch.Tensor:
         rate, seed = self._drop(generator)
-        if self.fuse_ffn:
+        if self.fused_steps()[0][i]:
             return self.ffn[i].fused_step(x, self.ffn_norm[i].gamma,
                                           self.num_groups, self.eps, rate, seed)
         return x + self.ffn[i](self.ffn_norm[i](x), rate, seed)
@@ -91,7 +110,7 @@ class LocoformerBlock(nn.Module):
         b, s1, s2, c = x.shape
         rows = x.reshape(b * s1, s2, c)
         rate, seed = self._drop(generator)
-        if self.fuse_attn:
+        if self.fused_steps()[1]:
             rows = self.attn.fused_step(rows, self.attn_norm.gamma,
                                         self.num_groups, self.eps, rate, seed)
         else:

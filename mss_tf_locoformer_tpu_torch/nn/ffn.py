@@ -7,12 +7,15 @@ to the input length.  Submodules ``conv1d``/``deconv1d`` are the torch layers
 whose layouts the JAX package emulates, so reference checkpoints load as
 they are.
 
-``forward`` is the unfused path (plain torch, any stride); ``fused_step``
-runs ``x + FFN(RMSGroupNorm(x))`` through the fused FFN-step kernel
-(``ops/cuda/swiglu_block.py``), stride 1 only.  Both take a dropout rate and
-an int32 seed (drawn per call by the block): the unfused path applies the
-kernel's masks (``ops/dropout.py``) at the same two sites, the SwiGLU output
-and the cropped output.  The ``conv1d`` FFN type (the reference's
+``forward`` is the unfused path: with ``fused`` (the config's
+``fused_ffn``), stride 1 and a shape the kernel takes, the padded rows go
+through the FFN-core kernel (``ops/cuda/swiglu_ffn.py``), as the JAX
+package's ``swiglu_conv_deconv``; otherwise through torch's convolutions
+(any stride).  ``fused_step`` runs ``x + FFN(RMSGroupNorm(x))`` through the
+fused FFN-step kernel (``ops/cuda/swiglu_block.py``), stride 1 only.  Both
+take a dropout rate and an int32 seed (drawn per call by the block): the
+unfused path applies the kernels' masks (``ops/dropout.py``) at the same two
+sites, the SwiGLU output and the cropped output.  The ``conv1d`` FFN type (the reference's
 ``ConvDeconv1d``) is not ported yet.
 """
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import dropout as D
+from ..ops.cuda import swiglu_ffn
 from ..ops.cuda.swiglu_block import fused_norm_ffn_residual, inner_mask
 
 __all__ = ["SwiGLUConvDeconv1d"]
@@ -37,10 +41,12 @@ def _pad_len(s2: int, kernel: int, shift: int) -> int:
 
 class SwiGLUConvDeconv1d(nn.Module):
     def __init__(self, dim: int, dim_inner: int, conv1d_kernel: int,
-                 conv1d_shift: int):
+                 conv1d_shift: int, fused: bool = False):
         super().__init__()
         self.dim_inner = dim_inner
         self.kernel, self.shift = conv1d_kernel, conv1d_shift
+        self.fused = (fused and conv1d_shift == 1
+                      and swiglu_ffn.supports_shape(dim, dim_inner, conv1d_kernel))
         self.conv1d = nn.Conv1d(dim, dim_inner * 2, conv1d_kernel, stride=conv1d_shift)
         self.deconv1d = nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel,
                                            stride=conv1d_shift)
@@ -54,16 +60,23 @@ class SwiGLUConvDeconv1d(nn.Module):
         b, s1, s2, c = x.shape
         diff_ks = self.kernel - self.shift
         dt = x.dtype
-        y = x.reshape(b * s1, s2, c).transpose(1, 2)
-        y = F.pad(y, (diff_ks, _pad_len(s2, self.kernel, self.shift) - s2 - diff_ks))
-        y = F.conv1d(y, self.conv1d.weight.to(dt), self.conv1d.bias.to(dt),
-                     stride=self.shift)
-        y = y[:, :self.dim_inner] * F.silu(y[:, self.dim_inner:])
-        if drop_rate > 0.0:
-            y = D.apply_mask(y, inner_mask(seed, y, 0, drop_rate), drop_rate)
-        y = F.conv_transpose1d(y, self.deconv1d.weight.to(dt),
-                               self.deconv1d.bias.to(dt), stride=self.shift)
-        y = y[:, :, diff_ks:diff_ks + s2].transpose(1, 2)
+        rows = x.reshape(b * s1, s2, c)
+        if self.fused:
+            xp = F.pad(rows, (0, 0, diff_ks, diff_ks))        # [R, L + 2(k-1), C]
+            y = swiglu_ffn.swiglu_conv_deconv(
+                xp, self.conv1d.weight, self.conv1d.bias, self.deconv1d.weight,
+                self.deconv1d.bias, self.kernel, drop_rate, seed)[:, diff_ks:diff_ks + s2]
+        else:
+            y = F.pad(rows.transpose(1, 2),
+                      (diff_ks, _pad_len(s2, self.kernel, self.shift) - s2 - diff_ks))
+            y = F.conv1d(y, self.conv1d.weight.to(dt), self.conv1d.bias.to(dt),
+                         stride=self.shift)
+            y = y[:, :self.dim_inner] * F.silu(y[:, self.dim_inner:])
+            if drop_rate > 0.0:
+                y = D.apply_mask(y, inner_mask(seed, y, 0, drop_rate), drop_rate)
+            y = F.conv_transpose1d(y, self.deconv1d.weight.to(dt),
+                                   self.deconv1d.bias.to(dt), stride=self.shift)
+            y = y[:, :, diff_ks:diff_ks + s2].transpose(1, 2)
         if drop_rate > 0.0:
             y = D.apply_mask(y, D.row_mask(seed, D.SITE_FFN_OUTER, y, 0, drop_rate), drop_rate)
         return y.reshape(b, s1, s2, c)

@@ -30,13 +30,17 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "load", "build_all", "check", "ptr",
-           "stream_handle", "wgrad_splits"]
+__all__ = ["SOURCES", "BUILD_DIR", "SMEM_OPTIN", "load", "build_all", "check",
+           "ptr", "stream_handle", "wgrad_splits"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("stft", "swiglu_block", "attention_block")
+SOURCES = ("stft", "swiglu_block", "attention_block", "flash_attention",
+           "swiglu_ffn")
+# Shared memory one block may opt into on an H100 (227 KB): the ceiling the
+# step gates (``supports_step``, ``supports_block``) hold the layouts to.
+SMEM_OPTIN = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

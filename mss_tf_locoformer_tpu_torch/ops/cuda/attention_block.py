@@ -20,6 +20,11 @@ through plain ops); a CUDA tensor runs the kernels through
 needs only when a gradient is asked for: q/k/v after RoPE, the head outputs
 o and the per-query log-sum-exp.  The kernels take bf16 rows only (fp32 rows
 on the card are a later item, ROADMAP.md).
+
+:func:`supports_block` is the block's gate: whether the kernels serve a step
+of width C, attention width A and H heads, decided from the shared-memory
+layouts of the .cu file (``QkvLay``, ``CoreLay`` and, in training, the four
+backward launches) before any launch, the same on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -33,14 +38,53 @@ from ...nn.norms import rms_group_norm
 from .. import dropout as D
 from ..attention import dot_product_attention
 from ..rope import apply_rope, rope_angles
-from . import check, load, ptr, stream_handle, wgrad_splits
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, wgrad_splits
 
 __all__ = ["fused_attention_block", "reference_attention_block",
-           "FusedAttentionStep", "probability_mask"]
+           "FusedAttentionStep", "probability_mask", "launch_bytes",
+           "compiled_launch_bytes", "supports_block"]
 
 _DP = 32   # head dim padded for the MMA depth
 _TQ = 64   # positions per kernel tile
 _CHANNELS = (32, 64, 96, 128)
+
+
+def launch_bytes(c: int, a: int, h: int, training: bool = False) -> dict:
+    """Dynamic shared memory of each attention-step launch at width ``c``,
+    attention width ``a`` and ``h`` heads (csrc/attention_block.cu): the QKV
+    launch (``QkvLay``) and the core (``CoreLay``); in training also the
+    backward's pre, dq, dk/dv and final launches."""
+    ldk, lds, ldp, ldo = _DP + 8, _TQ + 4, _TQ + 16, _DP + 4
+    work = 16 * lds * 4 + 16 * ldp * 2 + 2 * 16 * ldo * 4
+    warp = -(-max(work, 16 * (c + 4) * 4) // 128) * 128
+    out = {"qkv": _TQ * (c + 16) * 2 + a * (c + 8) * 2 + _TQ * (a + 4) * 4,
+           "core": 2 * _TQ * ldk * 2 + 4 * warp + _TQ * (h * _DP + 16) * 2}
+    if training:
+        dq = 2 * _TQ * ldk * 2 + 4 * (2 * 16 * lds * 4 + 2 * 16 * ldp * 2 + 16 * ldo * 4)
+        out.update(
+            bwd_pre=_TQ * (c + 16) * 2 + _TQ * (h * _DP + 4) * 4, bwd_dq=dq,
+            bwd_dkdv=dq + 2 * _TQ * 4,
+            bwd_final=3 * a * (c + 8) * 2 + _TQ * (3 * a + 16) * 2 + _TQ * (c + 4) * 4)
+    return out
+
+
+def compiled_launch_bytes(c: int, a: int, h: int, training: bool = False) -> dict:
+    """:func:`launch_bytes` as the compiled kernels count it (needs the built
+    library)."""
+    fn = load("attention_block").attention_step_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 4
+    names = ("qkv", "core", "bwd_pre", "bwd_dq", "bwd_dkdv", "bwd_final")
+    return {n: fn(c, a, h, i) for i, n in enumerate(names[:6 if training else 2])}
+
+
+def supports_block(c: int, a: int, h: int, training: bool) -> bool:
+    """Whether the attention-step kernels serve a step: an instantiated
+    width, even head_dim <= 32 over whole 16-wide attention tiles, and
+    layouts within :data:`SMEM_OPTIN`."""
+    d = a // h if a % h == 0 else 0
+    return (c in _CHANNELS and a % 16 == 0 and d % 2 == 0 and 0 < d <= _DP
+            and max(launch_bytes(c, a, h, training).values()) <= SMEM_OPTIN)
 
 
 def probability_mask(seed: int, rows, n_heads: int, seq: int, p: float,

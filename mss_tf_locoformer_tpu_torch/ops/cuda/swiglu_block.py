@@ -17,6 +17,11 @@ through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedFFNStep` (forward kernel, and the backward kernels when a
 gradient is asked for) or raises.  The kernels take bf16 rows only (fp32
 rows on the card are a later item, ROADMAP.md).
+
+:func:`supports_step` is the block's gate: whether the kernels serve a step
+of width C, inner I and k taps, decided from the shared-memory layouts
+(``Lay<C>`` and, in training, ``BLay<C>`` of the .cu file) before any
+launch, with the same answer on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -28,14 +33,47 @@ import torch.nn.functional as F
 
 from ...nn.norms import rms_group_norm
 from .. import dropout as D
-from . import check, load, ptr, stream_handle, wgrad_splits
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, wgrad_splits
 
 __all__ = ["fused_norm_ffn_residual", "reference_norm_ffn_residual",
-           "ffn_panels", "inner_mask", "FusedFFNStep", "IC"]
+           "ffn_panels", "inner_mask", "FusedFFNStep", "IC", "step_bytes",
+           "compiled_step_bytes", "supports_step"]
 
 IC = 32                       # inner channels per kernel chunk
 _M = 64                       # conv outputs per kernel tile
 _CHANNELS = (32, 64, 96, 128)  # template instantiations in the .cu file
+
+
+def step_bytes(c: int, k: int, training: bool = False) -> int:
+    """Dynamic shared memory of the FFN-step kernels at width ``c`` and ``k``
+    taps: the forward's ``Lay<C>::bytes(k)`` and, in training, the larger of
+    it and the backward's ``BLay<C>::bytes(k)`` (csrc/swiglu_block.cu)."""
+    rows = _M + 16
+    wc = max(k * c * (2 * IC + 8) * 2, _M * (c + 4) * 4)   # panel or staging
+    tail = wc + k * IC * (c + 8) * 2 + 2 * IC * 4
+    fwd = (rows * (c + 16) * 2 + rows * (IC + 16) * 2 + _M * (2 * IC + 4) * 4
+           + tail)
+    if not training:
+        return fwd
+    bwd = (2 * rows * (c + 16) * 2 + _M * (2 * IC + 4) * 4 + _M * (IC + 4) * 4
+           + rows * (2 * IC + 16) * 2 + tail)
+    return max(fwd, bwd)
+
+
+def compiled_step_bytes(c: int, k: int, training: bool = False) -> int:
+    """:func:`step_bytes` as the compiled kernels count it (needs the built
+    library; 0 for a width with no instantiation)."""
+    fn = load("swiglu_block").ffn_step_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(c, k, int(training))
+
+
+def supports_step(c: int, inner: int, k: int, training: bool) -> bool:
+    """Whether the FFN-step kernels serve a step: an instantiated width, whole
+    inner chunks, 2 <= k <= 8, and layouts within :data:`SMEM_OPTIN`."""
+    return (c in _CHANNELS and inner % IC == 0 and 2 <= k <= 8
+            and step_bytes(c, k, training) <= SMEM_OPTIN)
 
 
 def reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
@@ -73,22 +111,28 @@ def inner_mask(seed: int, h: torch.Tensor, row0: int, p: float) -> torch.Tensor:
                        torch.arange(inner, device=dev)[None, :, None], p=p)
 
 
-def ffn_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16):
-    """Kernel weight layouts, chunked by ``IC`` inner channels:
+def ffn_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16, ic: int = IC):
+    """Kernel weight layouts, chunked by ``ic`` inner channels (the inner
+    dimension zero-padded to a multiple of ``ic``: a zero channel gives
+    ``h = 0`` and adds nothing):
 
-    * conv ``[I/IC, k*C, 2*IC]``: rows tap-major ``t*C + c``, columns the
-      chunk's IC value channels then its IC gate channels;
-    * conv bias ``[I/IC, 2*IC]`` fp32, same column order;
-    * deconv ``[I/IC, k, IC, C]``.
+    * conv ``[I/ic, k*C, 2*ic]``: rows tap-major ``t*C + c``, columns the
+      chunk's ic value channels then its ic gate channels;
+    * conv bias ``[I/ic, 2*ic]`` fp32, same column order;
+    * deconv ``[I/ic, k, ic, C]``.
     """
     two_i, c, k = conv_w.shape
     inner = two_i // 2
-    nch = inner // IC
-    w = conv_w.to(torch.float32).reshape(2, nch, IC, c, k)   # [vg, ch, i, c, t]
-    wc = w.permute(1, 4, 3, 0, 2).reshape(nch, k * c, 2 * IC)
-    bc = conv_b.to(torch.float32).reshape(2, nch, IC).permute(1, 0, 2)
-    wd = deconv_w.to(torch.float32).reshape(nch, IC, c, k).permute(0, 3, 1, 2)
-    return (wc.to(dtype).contiguous(), bc.reshape(nch, 2 * IC).contiguous(),
+    nch = -(-inner // ic)
+    pad = nch * ic - inner
+    w = F.pad(conv_w.to(torch.float32).reshape(2, inner, c, k), (0, 0, 0, 0, 0, pad))
+    b = F.pad(conv_b.to(torch.float32).reshape(2, inner), (0, pad))
+    d = F.pad(deconv_w.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    w = w.reshape(2, nch, ic, c, k)                          # [vg, ch, i, c, t]
+    wc = w.permute(1, 4, 3, 0, 2).reshape(nch, k * c, 2 * ic)
+    bc = b.reshape(2, nch, ic).permute(1, 0, 2)
+    wd = d.reshape(nch, ic, c, k).permute(0, 3, 1, 2)
+    return (wc.to(dtype).contiguous(), bc.reshape(nch, 2 * ic).contiguous(),
             wd.to(dtype).contiguous())
 
 

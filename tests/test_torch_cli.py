@@ -19,20 +19,22 @@ from mss_tf_locoformer_tpu_torch.convert.torch_ckpt import load_torch_checkpoint
 from mss_tf_locoformer_tpu_torch.core.config import ModelConfig, load_model_config
 from mss_tf_locoformer_tpu_torch.models import build_model
 from mss_tf_locoformer_tpu_torch.utils.audio import load_audio, save_audio
+from torch_routes import spy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MSS_CONFIGS = sorted(p for p in glob.glob(os.path.join(REPO, "configs", "musdb18*.yaml"))
                      if "bslocoformer" not in p)
 
+# widths the fused steps' gates admit, so that the CLI runs the fused steps
 _TINY_YAML = """\
 model:
   n_fft: 256
   hop_length: 64
   n_layers: 1
-  emb_dim: 16
+  emb_dim: 32
   num_groups: 4
   n_heads: 2
-  attention_dim: 16
+  attention_dim: 32
   ffn_type: [swiglu_conv1d, swiglu_conv1d]
   ffn_hidden_dim: [32, 32]
   flash_attention: true
@@ -41,7 +43,7 @@ model:
 """
 
 
-def test_cli_separates_to_four_stems(tmp_path, rng):
+def test_cli_separates_to_four_stems(tmp_path, rng, monkeypatch):
     cfg_path = tmp_path / "tiny.yaml"
     cfg_path.write_text(_TINY_YAML)
     model = build_model(load_model_config(str(cfg_path)),
@@ -52,10 +54,14 @@ def test_cli_separates_to_four_stems(tmp_path, rng):
     wav = tmp_path / "song.wav"
     save_audio(str(wav), (0.3 * rng.standard_normal((2, n))).astype(np.float32), sr)
     out = tmp_path / "out"
+    calls = spy(monkeypatch)
     cli.main(["--input", str(wav), "--output_dir", str(out), "--checkpoint",
               str(ckpt), "--config", str(cfg_path), "--device", "cpu",
               "--sample_rate", str(sr), "--chunk_seconds", "0.5",
               "--overlap_seconds", "0.125", "--batch_size", "2"])
+    # 2 batches (3 chunks at batch 2) x 2 paths: 2 FFN steps, 1 attention step
+    assert calls == {"fused_norm_ffn_residual": 8, "fused_attention_block": 4,
+                     "swiglu_conv_deconv": 0, "flash_attention": 0}
     for stem in ("vocals", "drums", "bass", "other"):
         audio, rate = load_audio(str(out / f"song_{stem}.wav"))
         assert rate == sr and audio.shape == (2, n)

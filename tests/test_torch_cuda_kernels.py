@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
 from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
 from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +205,72 @@ def test_stft_kernel_passes_gradients(dev):
     ref = audio.detach().requires_grad_(True)
     (gr,) = torch.autograd.grad(SK.reference_stft(ref, 1024, 256).abs().sum(), ref)
     assert _rel_l2(ga, gr) < 1e-3
+
+
+# The unfused route's kernels: flash attention (#6) and the FFN core (#8),
+# bf16 against their plain versions in bf16 (one bf16 step apart, STEP_TOL).
+
+@pytest.mark.parametrize("r,h,seq,d,rope", [(2, 3, 65, 12, True), (1, 16, 130, 16, True),
+                                            (2, 2, 37, 24, False), (3, 4, 1, 16, True),
+                                            (1, 2, 200, 64, True)])
+def test_flash_attention_kernel(dev, r, h, seq, d, rope):
+    g = torch.Generator().manual_seed(5)
+    qkv = (1.5 * torch.randn(r, seq, 3, h, d, generator=g)).to(dev, torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)        # the MHSA's strided views
+    got = FA.flash_attention(q, k, v, rope)
+    torch.cuda.synchronize()
+    assert got.shape == (r, h, seq, d)
+    _close(got, FA.reference_flash_attention(q, k, v, rope), STEP_TOL)
+    dense = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), rope)
+    assert torch.equal(got, dense)
+    flat = FA.flash_attention(q[0], k[0], v[0], rope)          # [H, L, D]: 3-D input
+    assert torch.equal(flat, got[0])
+
+
+def _core_inputs(dev, r, seq, c, inner, k, seed=6):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.zeros(r, seq + 2 * (k - 1), c)
+    x[:, k - 1:k - 1 + seq] = torch.randn(r, seq, c, generator=gen)
+    b = (c * k) ** -0.5
+    w = [((torch.rand(*s, generator=gen) * 2 - 1) * b).to(dev)
+         for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+    return x.to(dev, torch.bfloat16), w
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(2, 37, 48, 64, 4), (2, 130, 256, 96, 4),
+                                             (3, 5, 16, 32, 8), (1, 61, 256, 1024, 4),
+                                             (2, 70, 96, 192, 3), (1, 9, 112, 40, 2)])
+def test_swiglu_ffn_kernel(dev, r, seq, c, inner, k, drop):
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    got = SF.swiglu_conv_deconv(x, *w, k, drop, 1234, 7)
+    torch.cuda.synchronize()
+    _close(got, SF.reference_swiglu_conv_deconv(x, *w, k, drop, 1234, 7), STEP_TOL)
+
+
+def test_unfused_kernels_refuse_gradients(dev):
+    """No backward kernel yet: a gradient through #6 or #8 raises (never a
+    detached output); without one they launch."""
+    q = torch.randn(1, 2, 8, 16, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        FA.flash_attention(q, q, q)
+    x, w = _core_inputs(dev, 1, 8, 32, 32, 4)
+    w = [t.requires_grad_(True) for t in w]
+    with pytest.raises(NotImplementedError, match="training slice"):
+        SF.swiglu_conv_deconv(x, *w, 4)
+    with torch.no_grad():
+        FA.flash_attention(q, q, q)
+        SF.swiglu_conv_deconv(x, *w, 4)
+
+
+def test_gate_bytes_match_the_compiled_layouts(dev):
+    for c, a, h in ((32, 32, 2), (96, 96, 4), (128, 128, 8), (256, 256, 16)):
+        for training in (False, True):
+            assert AB.compiled_launch_bytes(c, a, h, training) == \
+                AB.launch_bytes(c, a, h, training)
+    for c in (32, 64, 96, 128):
+        for k in (2, 4, 8):
+            for training in (False, True):
+                assert FB.compiled_step_bytes(c, k, training) == FB.step_bytes(c, k, training)
+    for c in range(16, 257, 16):
+        assert SF.compiled_core_bytes(c) == SF.core_bytes(c)

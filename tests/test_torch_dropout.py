@@ -143,8 +143,10 @@ def test_fused_and_unfused_models_drop_the_same(rng):
 
     from mss_tf_locoformer_tpu_torch.core.config import ModelConfig
     from mss_tf_locoformer_tpu_torch.models import build_model
-    cfg = ModelConfig(n_fft=256, hop_length=64, n_layers=1, emb_dim=16, num_groups=4,
-                      n_heads=2, attention_dim=16,
+    # emb 32: a width the fused steps' gates admit, so the kernel path is the
+    # fused steps (ops/cuda/swiglu_block.py::supports_step, supports_block)
+    cfg = ModelConfig(n_fft=256, hop_length=64, n_layers=1, emb_dim=32, num_groups=4,
+                      n_heads=2, attention_dim=32,
                       ffn_type=("swiglu_conv1d", "swiglu_conv1d"), ffn_hidden_dim=(32, 32),
                       dropout=0.1, fused_ffn=True, flash_attention=True)
     fused = build_model(cfg).train()

@@ -18,12 +18,17 @@ from mss_tf_locoformer_tpu_torch.convert.torch_ckpt import jax_params_to_state_d
 from mss_tf_locoformer_tpu_torch.core.config import ModelConfig
 from mss_tf_locoformer_tpu_torch.infer.overlap_add import SeparationEngine
 from mss_tf_locoformer_tpu_torch.models import build_model
+from torch_routes import spy
 
 STEMS = ("vocals", "drums", "bass", "other")
-_TINY = dict(n_fft=256, hop_length=64, n_layers=2, emb_dim=16, num_groups=4,
-             n_heads=2, attention_dim=16,
+# emb 32 and inner widths of whole 32-channel chunks: widths the fused steps'
+# gates admit (ops/cuda/swiglu_block.py::supports_step, attention_block.py::
+# supports_block), so that the kernel path is the fused steps of the base
+# config's route
+_TINY = dict(n_fft=256, hop_length=64, n_layers=2, emb_dim=32, num_groups=4,
+             n_heads=2, attention_dim=32,
              ffn_type=("swiglu_conv1d", "swiglu_conv1d"),
-             ffn_hidden_dim=(32, 24), conv1d_kernel=4, conv1d_shift=1)
+             ffn_hidden_dim=(64, 32), conv1d_kernel=4, conv1d_shift=1)
 
 
 def _pair(rng, tf_order="ft", fused=True):
@@ -46,11 +51,17 @@ def _pair(rng, tf_order="ft", fused=True):
 
 @pytest.mark.parametrize("fused", [True, False], ids=["kernel_path", "unfused"])
 @pytest.mark.parametrize("tf_order", ["ft", "tf"])
-def test_model_matches_jax(rng, tf_order, fused):
+def test_model_matches_jax(rng, monkeypatch, tf_order, fused):
     model, jmodel, jparams = _pair(rng, tf_order, fused)
     x = (0.5 * rng.standard_normal((2, 4000))).astype(np.float32)
+    calls = spy(monkeypatch)
     with torch.inference_mode():
         got = model(torch.from_numpy(x))
+    # 2 layers x 2 paths: 2 FFN steps and 1 attention step each, all fused on
+    # the kernel path; none of the kernels with the flags off
+    steps = 8 if fused else 0
+    assert calls == {"fused_norm_ffn_residual": steps, "fused_attention_block": steps // 2,
+                     "swiglu_conv_deconv": 0, "flash_attention": 0}
     want = jmodel.apply(jparams, x)
     for name in STEMS:
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),

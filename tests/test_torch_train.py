@@ -35,13 +35,16 @@ from mss_tf_locoformer_tpu_torch.models import build_model
 from mss_tf_locoformer_tpu_torch.train import schedule as S
 from mss_tf_locoformer_tpu_torch.train.state import LRController, make_optimizer
 from mss_tf_locoformer_tpu_torch.train.step import eval_step, train_step
+from torch_routes import spy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEMS = ("vocals", "drums", "bass", "other")
 SR = 8000
-_TINY = dict(n_fft=256, hop_length=64, n_layers=1, emb_dim=16, num_groups=4,
-             n_heads=2, attention_dim=16, ffn_type=("swiglu_conv1d", "swiglu_conv1d"),
-             ffn_hidden_dim=(32, 24), conv1d_kernel=4, conv1d_shift=1)
+# widths the fused steps' gates admit in training (emb 32, whole 32-channel
+# inner chunks), so that the kernel path is the fused steps
+_TINY = dict(n_fft=256, hop_length=64, n_layers=1, emb_dim=32, num_groups=4,
+             n_heads=2, attention_dim=32, ffn_type=("swiglu_conv1d", "swiglu_conv1d"),
+             ffn_hidden_dim=(32, 32), conv1d_kernel=4, conv1d_shift=1)
 
 
 @pytest.mark.parametrize("path", sorted(p for p in glob.glob(os.path.join(REPO, "configs", "musdb18*.yaml"))
@@ -88,7 +91,7 @@ def _training_cfg(**kw):
                 optimizer=dict(lr=1e-3, weight_decay=0.01), **kw)
 
 
-def test_one_train_step_matches_jax(rng):
+def test_one_train_step_matches_jax(rng, monkeypatch):
     """Accumulation 2, clipping that bites: loss dict, pre-clip grad_norm,
     parameters and AdamW moments after one step.  The port clips with
     optax's rule (no epsilon on the norm), so both sides scale the same."""
@@ -108,10 +111,14 @@ def test_one_train_step_matches_jax(rng):
     state = JSt.init_state(convert_state_dict({k: v.numpy() for k, v in sd.items()}), tx)
     state, ld_j = make_train_step(jmodel, cfg_j, tx)(state, mix, tgts, 1e-3, jax.random.PRNGKey(1))
 
+    calls = spy(monkeypatch)
     ld_t = train_step(model, opt, torch.from_numpy(mix),
                       {k: torch.from_numpy(v) for k, v in tgts.items()}, 1e-3,
                       torch.Generator().manual_seed(0), cfg_t.loss, accum=2,
                       gradient_clip=cfg_t.training.gradient_clip)
+    # 2 micro-batches x 2 paths: 2 FFN steps and 1 attention step each, fused
+    assert calls == {"fused_norm_ffn_residual": 8, "fused_attention_block": 4,
+                     "swiglu_conv_deconv": 0, "flash_attention": 0}
     assert set(ld_t) == set(ld_j)
     for k in ld_j:
         np.testing.assert_allclose(float(ld_t[k]), float(ld_j[k]), rtol=2e-4, err_msg=k)
@@ -204,7 +211,8 @@ def test_dataset_and_loader_match_jax(musdb_root):
         MUSDBDataset(str(musdb_root), "train", augmentation=True, **kw)
 
 
-def test_trainer_fits_resumes_and_checkpoint_separates(musdb_root, tmp_path, rng):
+def test_trainer_fits_resumes_and_checkpoint_separates(musdb_root, tmp_path, rng,
+                                                       monkeypatch):
     out = tmp_path / "exp"
     raw = {"dataset": {"root_dir": str(musdb_root), "sample_rate": SR,
                        "segment_length": SR // 2, "sources": list(STEMS)},
@@ -217,7 +225,10 @@ def test_trainer_fits_resumes_and_checkpoint_separates(musdb_root, tmp_path, rng
     cfg_path = tmp_path / "tiny.json"
     cfg_path.write_text(json.dumps(raw))
     args = ["--config", str(cfg_path), "--device", "cpu", "--output_dir", str(out)]
+    calls = spy(monkeypatch)
     trainer = train_cli.main(args)
+    assert calls["fused_norm_ffn_residual"] > 0 and calls["fused_attention_block"] > 0
+    assert calls["swiglu_conv_deconv"] == calls["flash_attention"] == 0
     assert trainer.step == 2 and trainer.ckpt.epochs() == [0, 1]
     first = {k: v.clone() for k, v in trainer.model.state_dict().items()}
 
