@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Drives the port (``mss_tf_locoformer_tpu_torch``) at the base config of
-``configs/musdb18.yaml`` and the xlarge config of
-``configs/musdb18_xlarge.yaml`` (both built here in code: the GPU machine may
-have no PyYAML), with seeded random weights, through its main paths: base
-serving (the separation CLI), xlarge serving (the separation CLI, through
-the unfused route's kernels) and base training (the training CLI).  Phases,
-each of which raises on failure (exit code != 0, no result line):
+``configs/musdb18.yaml``, the xlarge config of ``configs/musdb18_xlarge.yaml``
+and the small config of ``configs/musdb18_small.yaml`` (all built here in
+code: the GPU machine may have no PyYAML), with seeded random weights,
+through its main paths: base serving (the separation CLI), xlarge serving
+(the separation CLI, through the unfused route's kernels), base training
+(the training CLI) and training through the unfused route (xlarge and
+small).  Phases, each of which raises on failure (exit code != 0, no result
+line):
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
@@ -51,7 +53,31 @@ each of which raises on failure (exit code != 0, no result line):
   9. train-step parity: the kernel path against the plain path, same
      weights, batch and dropout seeds (1 x 1 s, dropout 0.1);
  10. train-step timing in turns (plain, kernel, kernel, plain), with peak
-     device memory.
+     device memory;
+ 11. unfused training kernels: the flash-attention backward (#7) and the
+     FFN-core backward (#9) at the small config's training shapes (batch
+     16 x 3 s) and the xlarge config's (micro-batch 1 x 15 s) against
+     autograd through their plain versions in fp32 (row slices where the
+     plain version's memory forces them; #9 at dropout 0.1 on 16 rows too),
+     timed beside their bounds (#7 beside the autograd backward of
+     ``scaled_dot_product_attention``); the dropout-mask kernel bit for bit
+     against its plain version;
+ 12. the xlarge train step at full width and depth (12 layers, remat,
+     dropout 0.1, 15 s) at micro-batch 1, and 2 when twice the measured
+     peak fits, with exact launch counts (per micro-batch 96 FFN-core
+     forwards, 48 backwards, no flash attention);
+ 13. xlarge train-step parity: kernel path against plain path at 1 x 1 s,
+     the gradients' relative L2 per parameter group, rejecting the model
+     with its blocks skipped;
+ 14. the training CLI through the unfused route, with exact launch counts:
+     the small config's published sections (batch 16 x 3 s, SI-SDR, #6, #7,
+     #8, #9) and the xlarge config's training section (augmentation,
+     warmup, accumulation 2, gradient checkpointing; cut to 1 layer and
+     1 s segments), one epoch of 2 steps each, then ``--resume``.
+
+``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
+time breakdown of one xlarge micro-batch train step (minutes of trace
+reading, so it is not a phase of the smoke test).
 
 It imports nothing of JAX.  The line before the last is a JSON object with
 one entry per kernel; the last line is
@@ -441,7 +467,6 @@ def phase_profile(cfg=None, top: int = 8):
     products (cuBLAS/cuDNN, by kernel name): on the xlarge path the QKV and
     out-projection products run there, around #6."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import build_model
@@ -456,10 +481,30 @@ def phase_profile(cfg=None, top: int = 8):
             model(mix)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     del model, mix
     torch.cuda.empty_cache()
+
+    def gemm(_, device):
+        return "all library matrix products (cuBLAS/cuDNN)", sum(
+            ms for name, ms in device
+            if any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass")))
+
+    return _profile_summary(prof, wall, top, gemm)
+
+
+# names whose device-side entries are profiler ranges (spans), not kernels
+_RANGES = ("plain_attention",)
+
+
+def _profile_summary(prof, wall, top, last_row):
+    """``(busy share, [(name, ms, share of device time), ...])`` of a
+    ``torch.profiler`` run over ``wall`` seconds: the ``top`` kernels by self
+    device time, then ``last_row(prof, [(kernel, ms), ...])``'s ``(label,
+    ms)``; None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    device = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and e.key not in _RANGES]
     total = sum(ms for _, ms in device)
     if not total:
         print("[profile] the profiler saw no device activity")
@@ -467,9 +512,8 @@ def phase_profile(cfg=None, top: int = 8):
     device.sort(key=lambda kv: -kv[1])
     short = lambda name: name.replace("void ", "").replace("(anonymous namespace)::", "")[:60]
     rows = [(short(name), ms, ms / total) for name, ms in device[:top]]
-    gemm = sum(ms for name, ms in device
-               if any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass")))
-    rows.append(("all library matrix products (cuBLAS/cuDNN)", gemm, gemm / total))
+    label, ms = last_row(prof, device)
+    rows.append((label, ms, ms / total))
     return total / (1e3 * wall), rows
 
 
@@ -848,6 +892,7 @@ def phase_train(workdir):
 
 
 def _counters():
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
     from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
@@ -857,7 +902,9 @@ def _counters():
             "attention_step": AB.fused_attention_block,
             "ffn_step_backward": FB.ffn_step_backward,
             "attention_step_backward": AB.attention_step_backward,
-            "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv}
+            "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv,
+            "flash_attention_backward": FA.flash_attention_backward,
+            "swiglu_ffn_backward": SF.swiglu_ffn_backward, "dropout_mask": D.keep_mask}
 
 
 def _train_models():
@@ -908,42 +955,24 @@ def phase_train_parity():
     return rel_loss, worst
 
 
-def _plain_micro_batch(cfg) -> tuple:
-    """Micro-batch of the plain path's timed step: 2 if the tensors its
-    attention keeps for the backward (fp32 and bf16 probabilities and the
-    boolean mask, 7 bytes per score, every layer) leave room in 80 GB, else 1."""
-    est = {}
-    for m in (2, 1):
-        n_frames = 1 + SEGMENT // cfg.hop_length
-        per = (m * n_frames * cfg.n_freqs ** 2 + m * cfg.n_freqs * n_frames ** 2)
-        est[m] = 7.0 * cfg.n_heads * cfg.n_layers * per
-    return (2 if est[2] < 60e9 else 1), est
-
-
 def phase_train_timing(reps: int = 1):
     """One optimizer step (AdamW, clip 5, dropout 0.1) on one micro-batch of
-    3 s segments, kernel path at micro-batch 2 against plain path, in turns
-    (plain, kernel, kernel, plain), after a warm-up step of each (its peak
-    device memory kept)."""
+    2 x 3 s, kernel path against plain path, in turns (plain, kernel,
+    kernel, plain), after a warm-up step of each (its peak device memory
+    kept).  The plain attention keeps no scores for the backward (its 1 GiB
+    groups are recomputed), so both paths fit at the same micro-batch."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
     from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
     from mss_tf_locoformer_tpu_torch.train.step import train_step
-    cfg = base_model_config()
     models = dict(zip(("kernel", "plain"), _train_models()))
-    mb_plain, est = _plain_micro_batch(cfg)
-    print(f"[train-timing] plain path at micro-batch {mb_plain} (its attention keeps "
-          f"~{est[2] / 1e9:.0f} GB for the backward at micro-batch 2, "
-          f"~{est[1] / 1e9:.0f} GB at 1)")
-    mbs = {"kernel": TRAIN_MB, "plain": mb_plain}
     dev = models["kernel"].deconv.weight.device
-    gen = torch.Generator().manual_seed(SEED + 5)
-    batches = {p: _batch(gen, mbs[p], SEGMENT, dev) for p in models}
+    batch = _batch(torch.Generator().manual_seed(SEED + 5), TRAIN_MB, SEGMENT, dev)
     opts = {p: make_optimizer(m.parameters(), TrainingConfig()) for p, m in models.items()}
     gens = {p: torch.Generator().manual_seed(11) for p in models}
 
     def step(path):
-        mix, tg = batches[path]
+        mix, tg = batch
         train_step(models[path], opts[path], mix, tg, 5e-4, gens[path], LossConfig(),
                    accum=1, gradient_clip=5.0)
 
@@ -960,10 +989,506 @@ def phase_train_timing(reps: int = 1):
             step(path)
         torch.cuda.synchronize()
         times[path].append((time.perf_counter() - t0) / reps)
-    out = {p: (sum(t) / len(t), peak[p], mbs[p]) for p, t in times.items()}
-    del models, opts, batches
+    out = {p: (sum(t) / len(t), peak[p], TRAIN_MB) for p, t in times.items()}
+    del models, opts, batch
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------- training through the unfused route
+
+SMALL_SEGMENT = 132300   # 3 s (configs/musdb18_small.yaml)
+SMALL_BATCH = 16
+XL_SEGMENT = 661500      # 15 s (configs/musdb18_xlarge.yaml)
+
+
+def small_model_config():
+    """The model section of ``configs/musdb18_small.yaml``: C 48 (no fused-
+    step width) and 4 heads of 12, so every step takes the unfused route;
+    dropout 0, so attention runs through flash attention (#6, #7) in
+    training too."""
+    from mss_tf_locoformer_tpu_torch.core.config import ModelConfig
+    return ModelConfig(
+        n_fft=1024, hop_length=256, n_sources=4, n_layers=3, emb_dim=48,
+        norm_type="rmsgroupnorm", num_groups=4, tf_order="ft", n_heads=4,
+        flash_attention=True, fused_ffn=True, fused_stft=True, attention_dim=48,
+        pos_enc="rope", ffn_type="swiglu_conv1d", ffn_hidden_dim=192,
+        conv1d_kernel=4, conv1d_shift=1, dropout=0.0, eps=1.0e-5)
+
+
+def flash_bwd_work(r, h, l, d):
+    """(FLOP, bytes) of one flash-attention backward: S recomputed, dP, dV,
+    dQ and dK, 10 L^2 D per (row, head) at the true head_dim; q, k, v, o, dO
+    read and dq, dk, dv written once (bf16), the log-sum-exp read (fp32)."""
+    return 10.0 * r * h * l * l * d, 8 * r * h * l * d * 2.0 + 4.0 * r * h * l
+
+
+def ffn_core_bwd_work(r, l, c, inner, k):
+    """(FLOP, bytes) of one FFN-core backward on rows padded to L + 2(k-1):
+    the conv recomputed, dh, dx and both weight products, 16 k C I per conv
+    position; x and the cotangent read and dx written once (bf16), the
+    weights read (bf16) and their gradients written (fp32)."""
+    lin, l1 = l + 2 * (k - 1), l + k - 1
+    w = 3 * inner * c * k
+    return 16.0 * r * l1 * k * c * inner, 3 * r * lin * c * 2.0 + w * 2.0 + w * 4.0
+
+
+def _inner_dims(cfg):
+    dims = cfg.ffn_hidden_dim
+    return tuple(dims) if isinstance(dims, (tuple, list)) else (dims,)
+
+
+def _unfused_train_shapes():
+    """(config name, path, rows, heads, sequence, head_dim, C, inner) of the
+    attention cores and FFN cores of one training micro-batch: small at its
+    published batch 16 x 3 s, xlarge at micro-batch 1 x 15 s."""
+    out = []
+    for name, cfg, mb, seg in (("small", small_model_config(), SMALL_BATCH, SMALL_SEGMENT),
+                               ("xlarge", xlarge_model_config(), 1, XL_SEGMENT)):
+        n_frames = 1 + seg // cfg.hop_length
+        inner = _inner_dims(cfg)[0]
+        d = cfg.attention_dim // cfg.n_heads
+        for path, rows, seq in (("freq", mb * n_frames, cfg.n_freqs),
+                                ("time", mb * cfg.n_freqs, n_frames)):
+            out.append((name, path, rows, cfg.n_heads, seq, d, cfg.emb_dim, inner))
+    return out
+
+
+def phase_unfused_train_kernels(results):
+    """The flash-attention backward (#7) and the FFN-core backward (#9)
+    through their autograd Functions against autograd through their plain
+    versions in fp32 on the same bf16 inputs: #7 on row slices (the rows are
+    independent; the plain fp32 scores of all rows would not fit), #9 on
+    full rows at the small config and a 64-row slice at xlarge (the plain
+    fp32 conv intermediates of 647 rows take ~40 GB), and at dropout 0.1 on
+    a 16-row slice; then timed beside their bounds (and, for #7, the
+    autograd backward of ``scaled_dot_product_attention``).  The mask
+    kernel against its plain version, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
+    from mss_tf_locoformer_tpu_torch.ops.rope import apply_rope
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    k = 4
+    for name, path, rows, h, seq, d, c, inner in _unfused_train_shapes():
+        tag = f"{name} {path}"
+        # #7 on the views of a QKV product [R, L, 3, H, D]
+        qkv = (1.5 * torch.randn(rows, seq, 3, h, d, generator=gen, device=dev)).to(
+            torch.bfloat16).requires_grad_(True)
+        go = torch.randn(rows, h, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+        q, kk, v = qkv.permute(2, 0, 3, 1, 4)
+        out = FA.flash_attention(q, kk, v, True)
+        (got,) = torch.autograd.grad(out, qkv, go)
+        torch.cuda.synchronize()
+        n, err = (8 if seq > 1000 or rows > 4000 else 64), 0.0
+        for r0 in (0, rows - n):
+            ref_leaf = qkv.detach()[r0:r0 + n].float().requires_grad_(True)
+            rq, rk, rv = ref_leaf.permute(2, 0, 3, 1, 4)
+            (ref,) = torch.autograd.grad(FA.reference_flash_attention(rq, rk, rv, True),
+                                         ref_leaf, go[r0:r0 + n].float())
+            for i, g_name in enumerate(("dq", "dk", "dv")):
+                err = max(err, _compare(
+                    f"flash_attention_backward {tag} {g_name} rows {r0}..{r0 + n} of "
+                    f"[{rows}, {h}, {seq}, {d}]", got[r0:r0 + n, :, i], ref[:, :, i], STEP_TOL,
+                    null=torch.zeros_like(ref[:, :, i])))
+        del got, ref, ref_leaf
+        saved = (qkv.detach().permute(2, 0, 3, 1, 4))
+        q4, k4, v4 = saved
+        o, lse = FA._forward(q4, k4, v4, True, 10000.0, True)
+        ms = _time_ms(lambda: FA.flash_attention_backward(go.permute(0, 2, 1, 3), q4, k4, v4,
+                                                          o, lse, True, 10000.0), iters=3)
+        # the plain version recomputes its score groups in the backward
+        # (checkpoint): its backward is forward + backward less a forward
+        both = _time_ms(lambda: torch.autograd.grad(
+            FA.reference_flash_attention(q, kk, v, True), qkv, go), iters=1)
+        with torch.no_grad():
+            fwd = _time_ms(lambda: FA.reference_flash_attention(q, kk, v, True), iters=1)
+        plain_ms = both - fwd
+        qr, kr = (apply_rope(t.detach()).requires_grad_(True) for t in (q, kk))
+        vr = v.detach().requires_grad_(True)
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr)
+        library_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (qr, kr, vr), go,
+                                                          retain_graph=True), iters=3)
+        r = results.setdefault("flash_attention_backward", dict(err=0.0))
+        r["err"] = max(r["err"], err)
+        r[tag] = dict(shape=(rows, h, seq, d), ms=ms, plain_ms=plain_ms,
+                      library_ms=library_ms, bound=_bound(*flash_bwd_work(rows, h, seq, d)))
+        del qkv, go, q, kk, v, out, o, lse, q4, k4, v4, saved, qr, kr, vr, lib_out
+        torch.cuda.empty_cache()
+
+        # #9 on rows pre-padded by k-1 zeros each side
+        lin = seq + 2 * (k - 1)
+        x = torch.zeros(rows, lin, c, dtype=torch.bfloat16, device=dev)
+        x[:, k - 1:k - 1 + seq] = torch.randn(rows, seq, c, generator=gen, device=dev)
+        b = (c * k) ** -0.5
+        w = [(torch.rand(*s, generator=gen, device=dev) * 2 - 1) * b
+             for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+        g = torch.randn(rows, lin, c, generator=gen, device=dev).to(torch.bfloat16)
+        fn = lambda *a, p=0.0, r0=0: SF.swiglu_conv_deconv(*a, k, p, 777, r0)
+        pfn = lambda *a, p=0.0, r0=0: SF.reference_swiglu_conv_deconv(*a, k, p, 777, r0)
+        n = rows if name == "small" else 64
+        xs, gs = x[:n].contiguous(), g[:n].contiguous()
+        _, got = _autograd(fn, xs, w, gs)
+        torch.cuda.synchronize()
+        _, ref = _autograd(pfn, xs.float(), w, gs.float())
+        gerr, grel = _check_grads(f"swiglu_ffn_backward {tag} [{n} of {rows}, {lin}, {c}], "
+                                  f"I {inner}", got, ref, gs)
+        del got, ref
+        r0 = rows // 2
+        xs, gs = x[r0:r0 + 16].contiguous(), g[r0:r0 + 16].contiguous()
+        _, got = _autograd(lambda *a: fn(*a, p=0.1, r0=r0), xs, w, gs)
+        _, ref = _autograd(lambda *a: pfn(*a, p=0.1, r0=r0), xs.float(), w, gs.float())
+        _check_grads(f"swiglu_ffn_backward {tag} rows {r0}..{r0 + 16}, dropout 0.1", got, ref, gs)
+        del got, ref, xs, gs
+        torch.cuda.empty_cache()
+        ms = _time_ms(lambda: SF.swiglu_ffn_backward(g, x, *w[:3], k), iters=3)
+        xp = x.detach().requires_grad_(True)
+        wp = [t.detach().requires_grad_(True) for t in w]
+        pout = pfn(xp, *wp)
+        plain_ms = _time_ms(lambda: torch.autograd.grad(pout, [xp, *wp], g, retain_graph=True),
+                            iters=1)
+        r = results.setdefault("swiglu_ffn_backward", dict(err=0.0, rel_l2=0.0))
+        r["err"] = max(r["err"], gerr)
+        r["rel_l2"] = max(r["rel_l2"], grel)
+        r[tag] = dict(shape=(rows, lin, c), ms=ms, plain_ms=plain_ms, library_ms=None,
+                      bound=_bound(*ffn_core_bwd_work(rows, seq, c, inner, k)))
+        del x, w, g, xp, wp, pout
+        torch.cuda.empty_cache()
+
+    # the mask kernel: the xlarge freq path's probability mask of one 1 GiB
+    # group of (row, head) pairs, bit for bit against the plain version
+    from mss_tf_locoformer_tpu_torch.ops.attention import group_keep_mask
+    seq, heads = 2049, 16
+    rows_ids = torch.arange(647, device=dev)
+    group = (1 << 30) // (4 * seq * seq)
+    got = group_keep_mask(12345, rows_ids, heads, seq, 3000, 3000 + group, 0.1)
+    f = torch.arange(3000, 3000 + group, device=dev)
+    ar = torch.arange(seq, device=dev)
+    args = (12345, D.SITE_ATTN_PROB, rows_ids[f // heads][:, None, None],
+            (f % heads)[:, None, None], ar[None, None, :], ar[None, :, None])
+    ref = D.reference_keep_mask(*args, p=0.1)
+    if not torch.equal(got, ref):
+        raise AssertionError("dropout mask kernel: bits differ from the plain version")
+    rate = got.float().mean().item()
+    print(f"[train-kernels] dropout_mask [{group}, {seq}, {seq}]: equal to the plain version, "
+          f"keep rate {rate:.5f} (p 0.1)")
+    if abs(rate - 0.9) > 1e-3:
+        raise AssertionError(f"dropout mask keep rate {rate}")
+    ms = _time_ms(lambda: D.keep_mask(*args, p=0.1), iters=5)
+    plain_ms = _time_ms(lambda: D.reference_keep_mask(*args, p=0.1), iters=1)
+    n = got.numel()
+    # bound: one byte written per element, or 10 Philox rounds (~10 integer
+    # operations each) per 4 elements at the fp32 non-tensor rate
+    results["dropout_mask"] = dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                   bound=_bound(25.0 * n, float(n), PEAK_FP32),
+                                   shape=tuple(got.shape))
+    del got, ref, f, ar, args
+    torch.cuda.empty_cache()
+
+
+def _xl_train_model(plain=False):
+    """The bf16 xlarge model with per-block remat, in training mode; with
+    ``plain``, every kernel replaced by its plain version."""
+    import dataclasses
+
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.precision import BF16
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    cfg = dataclasses.replace(xlarge_model_config(), remat_blocks=True)
+    if plain:
+        cfg = _plain_config(cfg)
+    return build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to("cuda").train()
+
+
+def _xl_step(model, opt, mb, gen_seed=11):
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 8), mb, XL_SEGMENT, "cuda")
+    return train_step(model, opt, mix, tg, 3e-4, torch.Generator().manual_seed(gen_seed),
+                      LossConfig(), accum=1, gradient_clip=5.0)
+
+
+def _plain_attention_ms(prof, _):
+    """The plain attention's device time in a training step's trace: each
+    kernel launched under a ``plain_attention`` range (its score groups'
+    forwards and recomputes: products, softmax, masks) or by the autograd
+    nodes only it creates (``SoftmaxBackward0``, ``BmmBackward0``), counted
+    once; its other backward nodes (the mask's ``where``, the casts) are
+    not, so it is a lower bound."""
+    owners = set(_RANGES) | {"SoftmaxBackward0", "BmmBackward0"}
+    ms = 0.0
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        p = e
+        while p is not None and p.name not in owners:
+            p = p.cpu_parent
+        if p is not None:
+            ms += sum(k.duration for k in e.kernels) / 1e3
+    return "plain attention (all its kernels)", ms
+
+
+def phase_xlarge_train_step():
+    """The xlarge config's train step at full width and depth (12 layers,
+    C 256, remat on, dropout 0.1, 15 s segments), kernel path, at micro-batch
+    1 (the first step, so it includes the libraries' warm-up), with exact
+    launch counts (#8 forward twice per FFN under remat, #9 once, no flash
+    attention: dropout routes attention to the plain path); micro-batch 2
+    too when twice the measured peak leaves room on the card.  Returns
+    ``({micro-batch: (s/step, peak bytes)}, launches, predicted peak of the
+    next micro-batch)``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import TrainingConfig
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    model = _xl_train_model()
+    opt = make_optimizer(model.parameters(), TrainingConfig())
+    counters = _counters()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out, launches, want = {}, None, 0.0
+    for mb in (1, 2):
+        if mb > 1:   # activations scale with the micro-batch; the weights do not
+            want = 2.0 * out[1][1]
+            if want > 0.85 * total:
+                print(f"[xl-train] micro-batch 2: predicted peak {want / 2**30:.1f} GiB of "
+                      f"{total / 2**30:.1f} GiB: not run")
+                break
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ld = _xl_step(model, opt, mb)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if launches is None:
+            launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(ld["total_loss"]):
+            raise AssertionError(f"xlarge train step: loss {ld['total_loss']}")
+        out[mb] = (sec, peak)
+        print(f"[xl-train] micro-batch {mb} x 15 s: {sec:.2f} s, peak {peak / 2**30:.2f} GiB, "
+              f"loss {float(ld['total_loss']):.4f}")
+    cfg = xlarge_model_config()
+    ffns = cfg.n_layers * 2 * len(_inner_dims(cfg))
+    if launches["dropout_mask"] <= 0:
+        raise AssertionError("xlarge train step drew no dropout mask on the card")
+    _check_launches("xl-train", launches, {"stft": 1, "swiglu_ffn": 2 * ffns,
+                                           "swiglu_ffn_backward": ffns,
+                                           "dropout_mask": launches["dropout_mask"]})
+    del model, opt
+    torch.cuda.empty_cache()
+    return out, launches, want
+
+
+def phase_xlarge_train_profile():
+    """Where one xlarge micro-batch step (1 x 15 s, remat, dropout 0.1)
+    spends the device's time: ``torch.profiler`` over a step after a warm-
+    up step.  Reading the trace takes minutes (~10^6 events), so this runs
+    only with ``--profile-xlarge-train``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mss_tf_locoformer_tpu_torch.core.config import TrainingConfig
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    model = _xl_train_model()
+    opt = make_optimizer(model.parameters(), TrainingConfig())
+    _xl_step(model, opt, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _xl_step(model, opt, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _profile_summary(prof, wall, 8, _plain_attention_ms)
+    del model, opt, prof
+    torch.cuda.empty_cache()
+    return wall, rows
+
+
+def phase_xlarge_train_parity():
+    """One xlarge micro-batch (1 x 1 s, remat on, dropout 0.1) through the
+    kernel path and the plain path with the same weights, batch and seeds:
+    the relative L2 of the gradients per parameter group (encoder, each
+    block, decoder) within ``STEP_GRAD_REL_L2``; the gradients of the plain
+    model with its blocks skipped must miss the bound."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig
+    from mss_tf_locoformer_tpu_torch.losses.mss_loss import mss_loss
+    fused = _xl_train_model()
+    plain = _xl_train_model(plain=True)
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 4), 1, SR, "cuda")
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        loss = mss_loss(model(mix, generator=torch.Generator().manual_seed(9)), tg,
+                        LossConfig())["total_loss"]
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    def group(name):
+        return ".".join(name.split(".")[:2]) if name.startswith("blocks.") else name.split(".")[0]
+
+    def by_group(ga, gb):
+        out = {}
+        for name, a in ga.items():
+            ref = gb[name]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"xlarge parity: gradient of {name} is not finite")
+            num, den = out.get(group(name), (0.0, 0.0))
+            out[group(name)] = (num + (a.float() - ref.float()).pow(2).sum().item(),
+                                den + ref.float().pow(2).sum().item())
+        return {k: (n / d) ** 0.5 for k, (n, d) in out.items()}
+
+    lk, gk = grads(fused)
+    lp, gp = grads(plain)
+    if set(gk) != set(gp):
+        raise AssertionError("xlarge parity: the two paths' gradients cover other parameters")
+    rel = by_group(gk, gp)
+    blocks, plain.blocks = plain.blocks, torch.nn.ModuleList()
+    _, gs = grads(plain)
+    plain.blocks = blocks
+    skip = by_group(gs, gp)     # the encoder and the decoder: no blocks to differentiate
+    worst = max(rel.values())
+    print(f"[xl-parity] loss kernel {lk:.5f} plain {lp:.5f}; gradient relative L2 by group: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (bound {STEP_GRAD_REL_L2:g}); blocks skipped: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in skip.items()))
+    if not worst <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"xlarge train parity: relative L2 {worst:.3e} above bound")
+    if not min(skip.values()) > STEP_GRAD_REL_L2:
+        raise AssertionError("xlarge train parity: cannot tell the model from the model "
+                             "with its blocks skipped")
+    del fused, plain, gk, gp, gs
+    torch.cuda.empty_cache()
+    return worst, min(skip.values())
+
+
+def _unfused_train_config(root, name, epochs):
+    """The training CLI's config: the small config's published sections
+    (batch 16 x 3 s, SI-SDR loss, dropout 0), or the xlarge config's training
+    section (augmentation, warmup, batch 8 as 2 x 4, gradient checkpointing,
+    combined loss, dropout 0.1) at full width, cut to 1 layer and 1 s
+    segments (the plain attention over 2049 bins dominates its time)."""
+    import dataclasses
+    if name == "small":
+        model, seg = dataclasses.asdict(small_model_config()), SMALL_SEGMENT
+        loss = {"loss_type": "si_sdr", "si_sdr_weight": 1.0}
+        training = {"batch_size": SMALL_BATCH, "optimizer": {"type": "adamw", "lr": 5e-4,
+                                                            "weight_decay": 0.01},
+                    "scheduler": {"type": "reducelronplateau", "factor": 0.5, "patience": 5,
+                                  "min_lr": 1e-7}}
+        aug = False
+    else:
+        model = dataclasses.asdict(dataclasses.replace(xlarge_model_config(), n_layers=1))
+        seg, aug = SR, True
+        loss = {"loss_type": "combined", "si_sdr_weight": 1.0, "l1_weight": 0.1,
+                "spectral_weight": 0.1}
+        training = {"batch_size": 8, "gradient_clip": 5.0, "gradient_checkpointing": True,
+                    "gradient_accumulation_steps": 2,
+                    "optimizer": {"type": "adamw", "lr": 3e-4, "weight_decay": 0.01,
+                                  "betas": [0.9, 0.999]},
+                    "scheduler": {"type": "reducelronplateau", "factor": 0.5, "patience": 10,
+                                  "min_lr": 1e-7, "warmup_steps": 4000}}
+    training.update({"num_epochs": epochs, "num_workers": 4, "use_amp": True,
+                     "amp_dtype": "bfloat16", "save_interval": 1, "val_interval": 1,
+                     "log_interval": 1})
+    return {"dataset": {"root_dir": root, "sample_rate": SR, "segment_length": seg,
+                        "sources": ["vocals", "drums", "bass", "other"],
+                        "augmentation": aug},
+            "model": model, "loss": loss, "training": training, "seed": 42}
+
+
+def _val_forwards(raw, n_test, seconds):
+    """Model forwards of one validation: the test tracks cut into segments,
+    scored in groups of ``val_batch_size`` (4 by default)."""
+    seg = raw["dataset"]["segment_length"]
+    chunks = n_test * -(-int(seconds * SR) // seg)
+    return -(-chunks // raw["training"].get("val_batch_size", 4))
+
+
+def phase_unfused_train_cli(workdir, name):
+    """The training CLI through the unfused route: one epoch of 2 optimizer
+    steps with validation and a checkpoint, then ``--resume`` for one more
+    epoch; exact launch counts of the first run (training and validation
+    forwards)."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import train as train_cli
+    n_train = 32 if name == "small" else 16
+    root = os.path.join(workdir, "musdb")
+    _write_musdb(root, n_train=n_train, n_test=2, seconds=4.0)
+    cfg_path = os.path.join(workdir, "train.json")
+    argv = ["--config", cfg_path, "--output_dir", os.path.join(workdir, "exp")]
+    counters = _counters()
+    launches, wall = {}, {}
+    for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
+        raw = _unfused_train_config(root, name, epochs)
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv + extra)     # --device defaults to cuda
+        torch.cuda.synchronize()
+        wall[epochs] = time.perf_counter() - t0
+        launches[epochs] = {k: fn.launches for k, fn in counters.items()}
+    cfg = trainer.model.config
+    tcfg = raw["training"]
+    micro = (n_train // tcfg["batch_size"]) * tcfg.get("gradient_accumulation_steps", 1)
+    val = _val_forwards(raw, 2, 4.0)
+    paths = cfg.n_layers * 2
+    ffns = paths * len(_inner_dims(cfg))
+    remat = 2 if cfg.remat_blocks else 1
+    if name == "small":   # dropout 0: flash attention in training too
+        need = {"flash_attention": paths * (micro + val), "flash_attention_backward":
+                paths * micro, "swiglu_ffn": ffns * (micro + val),
+                "swiglu_ffn_backward": ffns * micro, "stft": micro + val}
+    else:                 # dropout 0.1: attention on the plain path in training
+        need = {"flash_attention": paths * val, "swiglu_ffn": ffns * (remat * micro + val),
+                "swiglu_ffn_backward": ffns * micro, "stft": micro + val,
+                "dropout_mask": launches[1]["dropout_mask"]}
+        if not (cfg.remat_blocks and launches[1]["dropout_mask"] > 0):
+            raise AssertionError(f"xlarge CLI: remat {cfg.remat_blocks}, masks "
+                                 f"{launches[1]['dropout_mask']}")
+    _check_launches(f"train-cli {name}", launches[1], need)
+    if trainer.step != 4 or trainer.start_epoch != 1:
+        raise AssertionError(f"resume: step {trainer.step}, start epoch {trainer.start_epoch}")
+    blob = torch.load(trainer.ckpt.path(1), map_location="cpu", weights_only=True)
+    for key in ("train_loss", "val_loss"):
+        if not blob["metadata"][key] == blob["metadata"][key]:
+            raise AssertionError(f"{name} checkpoint {key} is not finite")
+    for pname, p in trainer.model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{name}: gradient of {pname} missing or not finite")
+    print(f"[train-cli] {name}: {micro} micro-batches + {val} validation forwards per epoch; "
+          f"first run {wall[1]:.1f} s, resumed run {wall[2]:.1f} s; losses train "
+          f"{blob['metadata']['train_loss']:.4f} val {blob['metadata']['val_loss']:.4f}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches[1], wall
+
+
+def profile_main():
+    """``python3 chip_smoke.py --profile-xlarge-train``: the device-time
+    breakdown of one xlarge micro-batch train step, on its own."""
+    sys.path.insert(0, HERE)
+    import torch
+    _, smi = phase_device()
+    phase_build()
+    wall, prof = phase_xlarge_train_profile()
+    if prof is None:
+        raise SystemExit("the profiler saw no device activity")
+    busy, rows = prof
+    print(f"[profile] xlarge train step, micro-batch 1 x 15 s, remat, dropout 0.1: "
+          f"{wall:.2f} s under the profiler, device busy {100 * busy:.1f}% of it; by self "
+          f"device time: " + "; ".join(f"{name} {ms:.1f} ms ({100 * share:.1f}%)"
+                                      for name, ms, share in rows) + f" ({smi})")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                      "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 
 def main():
@@ -1007,6 +1532,14 @@ def main():
     phase_train_parity()
     train_time = phase_train_timing()
 
+    phase_unfused_train_kernels(results)
+    xl_train, xl_train_launches, xl_next_peak = phase_xlarge_train_step()
+    phase_xlarge_train_parity()
+    unfused_cli = {}
+    for tag in ("small", "xlarge"):
+        with tempfile.TemporaryDirectory() as workdir:
+            unfused_cli[tag] = phase_unfused_train_cli(workdir, tag)
+
     card = f"({smi})"
     print(f"[timing] stft [{BATCH}, {CHUNK}]: kernel {results['stft']['ms']:.3f} ms, "
           f"plain {results['stft']['plain_ms']:.3f} ms {card}")
@@ -1048,6 +1581,29 @@ def main():
         print(f"[timing] train step, {path} path, micro-batch {mb} x 3 s, dropout 0.1: "
               f"{sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, peak "
               f"{peak / 2**30:.2f} GiB {card}")
+    for k, main_shape in (("flash_attention_backward", "small freq"),
+                          ("swiglu_ffn_backward", "xlarge freq")):
+        for tag, r in results[k].items():
+            if not isinstance(r, dict):
+                continue
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+            print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) "
+                  f"{card}")
+    r = results["dropout_mask"]
+    print(f"[timing] dropout_mask {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
+    for mb, (sec, peak) in sorted(xl_train.items()):
+        print(f"[timing] xlarge train step, kernel path, micro-batch {mb} x 15 s, remat, "
+              f"dropout 0.1: {sec:.2f} s/step (first step), {mb * XL_SEGMENT / SR / sec:.3f} s "
+              f"of audio per s, peak {peak / 2**30:.2f} GiB {card}")
+    if xl_next_peak:
+        print(f"[timing] xlarge train step, micro-batch {max(xl_train) + 1}: predicted peak "
+              f"{xl_next_peak / 2**30:.1f} GiB (twice the measured one), not run {card}")
+    for tag, (_, w) in unfused_cli.items():
+        print(f"[timing] training CLI, {tag} config: first run {w[1]:.1f} s for 2 steps, "
+              f"resumed run {w[2]:.1f} s for 2 steps (data, validation, checkpoint included) "
+              f"{card}")
     print(f"[timing] training CLI, base config (batch 8 = 4 x 2 x 3 s): first run "
           f"{train_wall[1]:.1f} s for 2 steps, resumed run {train_wall[2]:.1f} s for 2 "
           f"steps (data, validation, checkpoint included) {card}")
@@ -1072,20 +1628,35 @@ def main():
                                     "ops/pallas/attention_block.py:626", None, None),
         "flash_attention": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:207",
                             None, None),
-        "swiglu_ffn": ("csrc/swiglu_ffn.cu", "ops/pallas/swiglu_ffn.py:221", None, None)}
+        "swiglu_ffn": ("csrc/swiglu_ffn.cu", "ops/pallas/swiglu_ffn.py:221", None, None),
+        "flash_attention_backward": ("csrc/flash_attention.cu",
+                                     "ops/pallas/flash_attention.py:315", None, None),
+        "swiglu_ffn_backward": ("csrc/swiglu_ffn.cu", "ops/pallas/swiglu_ffn.py:363",
+                                None, None),
+        # no Pallas kernel: the JAX package draws these masks in XLA
+        "dropout_mask": ("csrc/dropout.cu", "ops/attention.py:52", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         r = results[k]
         main_path = launches
         if k == "stft":
             ms, plain_ms = r["ms"], r["plain_ms"]
-        elif k.endswith("_backward"):
+        elif k in ("ffn_step_backward", "attention_step_backward"):
             ms, plain_ms, bound = r["freq"]["ms"], r["freq"]["plain_ms"], r["freq"]["bound"]
             main_path = train_launches
         elif k in ("flash_attention", "swiglu_ffn"):
             f = r["freq"]
             ms, plain_ms, bound, library_ms = f["ms"], f["plain_ms"], f["bound"], f["library_ms"]
             main_path = xl_launches
+        elif k in ("flash_attention_backward", "swiglu_ffn_backward"):
+            # #7's main path is small training (dropout 0), #9's xlarge training
+            f = r["small freq" if k == "flash_attention_backward" else "xlarge freq"]
+            ms, plain_ms, bound, library_ms = f["ms"], f["plain_ms"], f["bound"], f["library_ms"]
+            main_path = (unfused_cli["small"][0] if k == "flash_attention_backward"
+                         else xl_train_launches)
+        elif k == "dropout_mask":
+            ms, plain_ms, bound = r["ms"], r["plain_ms"], r["bound"]
+            main_path = xl_train_launches
         else:
             ms, plain_ms = r["freq"][1:]
         entry = {"name": k, "route": "cuda",
@@ -1104,4 +1675,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profile-xlarge-train"]:
+        profile_main()
+    else:
+        main()

@@ -1,6 +1,6 @@
 """Separation CLI: the JAX package's ``cli/separate.py`` flags, with
-``--device`` required (``cpu``, ``cuda``, ``cuda:N``) — the port never picks
-a device on its own.
+``--device`` (``cuda`` by default, ``cuda:N``, or ``cpu`` when asked for) —
+the port never falls back to the CPU on its own.
 
     python -m mss_tf_locoformer_tpu_torch.cli.separate --input mix.wav \\
         --checkpoint model.pth --config configs/musdb18.yaml --device cuda
@@ -20,8 +20,8 @@ def parse_args(argv=None):
                    help="PyTorch .pth (trainer dict, state_dict or ESPnet)")
     p.add_argument("--config", type=str, default=None,
                    help="Config file whose model: section is read (YAML or JSON)")
-    p.add_argument("--device", type=str, required=True,
-                   help="cpu, cuda or cuda:N")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default), cuda:N or cpu")
     p.add_argument("--sample_rate", type=int, default=44100)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--chunk_seconds", type=float, default=8.0)

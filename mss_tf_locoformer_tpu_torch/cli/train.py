@@ -1,6 +1,6 @@
 """Training CLI: the JAX package's ``cli/train.py`` flags, with ``--device``
-required (``cpu``, ``cuda``, ``cuda:N``) -- the port never picks a device
-on its own.
+(``cuda`` by default, ``cuda:N``, or ``cpu`` when asked for) -- the port
+never falls back to the CPU on its own.
 
     python -m mss_tf_locoformer_tpu_torch.cli.train --config configs/musdb18.yaml \\
         --device cuda [--output_dir DIR] [--resume latest]
@@ -18,7 +18,8 @@ import argparse
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train TF-Locoformer MSS (PyTorch/CUDA)")
     p.add_argument("--config", type=str, required=True, help="YAML or JSON config")
-    p.add_argument("--device", type=str, required=True, help="cpu, cuda or cuda:N")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default), cuda:N or cpu")
     p.add_argument("--output_dir", type=str, default=None,
                    help="Output directory (overrides config paths)")
     p.add_argument("--resume", type=str, default=None,

@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "wgrad.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -288,6 +289,482 @@ int launch(const bf16* x, const bf16* wc, const float* bc, const bf16* wd,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// Kernel #9 (the JAX package's ``_backward_pallas``, body ``_bwd_kernel``):
+// dx and the weight gradients of the FFN core, recomputing conv -> SwiGLU on
+// chip from x (no stash, as the forward keeps none) and replaying the inner
+// dropout mask from (seed, absolute row, conv position, inner channel).
+// With g the cotangent of the full-length output, per conv position p:
+//   y = sum_t x[p + t] Wc_t,  dh = sum_t g[p + t] Wd_t^T   (through the mask)
+//   dyv = dh silu(yg),  dyg = dh yv sig (1 + yg (1 - sig))
+//   dx[j] = sum_t dyvg[j - t] Wc_t^T
+//   dWc_t += x[p + t]^T dyvg[p],  dWd_t += h[p]^T g[p + t],  dbc += dyvg[p]
+// The [L, 2I] intermediates never reach device memory.  Two kernels:
+//   * dx: the forward's layout with the SwiGLU backward in place of the
+//     SwiGLU: one block per (row, 64 conv positions); per 64-channel inner
+//     chunk, conv and dh tap by tap (each tap's Wc [C, 128] and Wd [64, C]
+//     panels staged alone), dyvg in registers -> bf16 in shared memory,
+//     then dx += dyvg Wc_t^T tap by tap (the Wc panels staged again) into
+//     fp32 accumulators held across chunks;
+//   * weights: one block per (8 inner channels, split of the (row, 64-
+//     position) units, group of <= 4 taps); it stages its channels' panels
+//     of every tap once, then per unit recomputes y and dh for its 8
+//     channels (the taps split between two warp halves and summed in shared
+//     memory), the SwiGLU backward in fp32, and accumulates x^T dyvg and
+//     g^T h for its taps in registers across all its units (positions are
+//     the contraction: ldmatrix.trans gives x^T and g^T as A fragments);
+//     fp32 partials per split, summed in a fixed order by
+//     ``wg::reduce_kernel`` -- deterministic, no atomics (wgrad.cuh's split-K
+//     pattern, with the operands recomputed rather than read back).
+// What bounds it: 16 k C I FLOP per conv position for the work the
+// gradients need (recomputed conv, dh, dx, both weight products; 16.8 MFLOP
+// per position at xlarge) against x and g read and dx written once: tensor-
+// core arithmetic.  This design spends 24 k C I (the weights kernel
+// recomputes conv and dh), and re-reads x and g tiles once per 8-channel
+// block, mostly from L2.
+
+// B fragments of two adjacent 8-wide column tiles (k 0-15) from a tile
+// stored [n][k] row-major (the transpose of what ld_b2 reads).
+__device__ __forceinline__ void ld_bt2(uint32_t* b, const bf16* base, int ld, int lane) {
+  const uint32_t addr =
+      smem_addr(base + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3]) : "r"(addr));
+}
+
+// B fragment of one 8-wide column tile (k 0-15) from a [n][k] tile.
+__device__ __forceinline__ void ld_bt1(uint32_t* b, const bf16* base, int ld, int lane) {
+  const uint32_t addr = smem_addr(base + (lane % 8) * ld + ((lane / 8) % 2) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1]) : "r"(addr));
+}
+
+// A fragment (rows m 0-15 x k 0-15) of the transpose of a tile stored
+// [k][m] row-major: A[m][k] = T[k][m].
+__device__ __forceinline__ void ld_at(uint32_t* a, const bf16* base, int ld, int lane) {
+  const uint32_t addr =
+      smem_addr(base + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
+
+// Rows [p0, p0 + ROWS) of a [Lin, C] row into shared memory (zero outside).
+template <int C>
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int p0, int Lin,
+                                           bf16* dst, int ld) {
+  constexpr int VC = C / 8;
+  for (int i = threadIdx.x; i < ROWS * VC; i += NT) {
+    const int r = i / VC, c8 = i % VC;
+    const int pos = p0 + r;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (pos >= 0 && pos < Lin) val = *(const uint4*)(src + (size_t)pos * C + c8 * 8);
+    *(uint4*)(dst + r * ld + c8 * 8) = val;
+  }
+}
+
+// One panel [rows][cols] (cols % 8 == 0) from device memory into shared
+// memory rows of stride ld.
+__device__ __forceinline__ void stage_panel(const bf16* __restrict__ src, int rows, int cols,
+                                            bf16* dst, int ld) {
+  const int vw = cols / 8;
+  for (int i = threadIdx.x; i < rows * vw; i += NT) {
+    const int r = i / vw, c8 = i % vw;
+    *(uint4*)(dst + r * ld + c8 * 8) = *(const uint4*)(src + (size_t)r * cols + c8 * 8);
+  }
+}
+
+// The SwiGLU backward of one element: (dyv, dyg) from the conv outputs
+// (biases added), dh and the keep scale s (1 without dropout, 0 dropped).
+__device__ __forceinline__ void swiglu_bwd(float v, float gt, float dh, float s, float& dv,
+                                           float& dg) {
+  const float sig = sigmoid(gt);
+  const float dhm = dh * s;
+  dv = dhm * gt * sig;
+  dg = dhm * v * sig * (1.f + gt * (1.f - sig));
+}
+
+struct DxLay {
+  int LDX, LDW, LDD, LDY;
+  size_t xs, gs, wc, wd, ys, bc;
+  __host__ __device__ explicit DxLay(int C)
+      : LDX(C + 8), LDW(2 * IC + 8), LDD(C + 8), LDY(2 * IC + 8),
+        xs((size_t)ROWS * (C + 8) * 2), gs((size_t)ROWS * (C + 8) * 2),
+        wc((size_t)C * (2 * IC + 8) * 2), wd((size_t)IC * (C + 8) * 2),
+        ys((size_t)ROWS * (2 * IC + 8) * 2), bc((size_t)2 * IC * 4) {}
+  __host__ __device__ size_t bytes() const { return xs + gs + wc + wd + ys + bc; }
+};
+
+template <int C>
+__global__ void __launch_bounds__(NT) ffn_core_bwd_dx_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ gz, const bf16* __restrict__ wc,
+    const float* __restrict__ bc, const bf16* __restrict__ wd, bf16* __restrict__ dx,
+    int Lin, int I, int K, int tiles, DropParams dp) {
+  constexpr int N8 = C / 8, NQ = (N8 + 3) / 4;
+  const DxLay S(C);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = (bf16*)smem;
+  bf16* gs = (bf16*)(smem + S.xs);
+  bf16* wcs = (bf16*)(smem + S.xs + S.gs);
+  bf16* wds = (bf16*)(smem + S.xs + S.gs + S.wc);
+  bf16* ys = (bf16*)(smem + S.xs + S.gs + S.wc + S.wd);
+  float* bcs = (float*)(smem + S.xs + S.gs + S.wc + S.wd + S.ys);
+
+  const int row = blockIdx.x / tiles;
+  const int lt = M - (K - 1);
+  const int j0 = (blockIdx.x % tiles) * lt;
+  const int p0 = j0 - (K - 1);
+  const int l1 = Lin - K + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int wr = warp / 4, wq = warp % 4;
+  stage_rows<C>(x + (size_t)row * Lin * C, p0, Lin, xs, S.LDX);
+  stage_rows<C>(gz + (size_t)row * Lin * C, p0, Lin, gs, S.LDX);
+  for (int i = threadIdx.x; i < (ROWS - M) * S.LDY; i += NT)
+    ys[M * S.LDY + i] = __float2bfloat16(0.f);
+
+  float acc[2][NQ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[i][q][0] = acc[i][q][1] = acc[i][q][2] = acc[i][q][3] = 0.f;
+
+  for (int ch = 0; ch < I / IC; ++ch) {
+    float yv[2][2][4], yg[2][2][4], dh[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yv[i][j][e] = yg[i][j][e] = dh[i][j][e] = 0.f;
+    // conv and the deconv's adjoint, tap by tap
+    for (int t = 0; t < K; ++t) {
+      __syncthreads();
+      stage_panel(wc + ((size_t)ch * K + t) * C * 2 * IC, C, 2 * IC, wcs, S.LDW);
+      stage_panel(wd + ((size_t)ch * K + t) * IC * C, IC, C, wds, S.LDD);
+      if (t == 0 && threadIdx.x < 2 * IC) bcs[threadIdx.x] = bc[ch * 2 * IC + threadIdx.x];
+      __syncthreads();
+#pragma unroll
+      for (int kc = 0; kc < C / 16; ++kc) {
+        uint32_t a[2][4], ag[2][4], bv[4], bg[4], bd[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          ld_a(a[i], xs + (wr * 32 + 16 * i + t) * S.LDX + kc * 16, S.LDX, lane);
+          ld_a(ag[i], gs + (wr * 32 + 16 * i + t) * S.LDX + kc * 16, S.LDX, lane);
+        }
+        ld_b2(bv, wcs + kc * 16 * S.LDW + wq * 16, S.LDW, lane);
+        ld_b2(bg, wcs + kc * 16 * S.LDW + IC + wq * 16, S.LDW, lane);
+        ld_bt2(bd, wds + wq * 16 * S.LDD + kc * 16, S.LDD, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma(yv[i][j], a[i], bv + 2 * j);
+            mma(yg[i][j], a[i], bg + 2 * j);
+            mma(dh[i][j], ag[i], bd + 2 * j);
+          }
+      }
+    }
+    // SwiGLU backward in fp32 on the accumulators, through the inner mask;
+    // dyvg = 0 off [0, l1); bf16 into shared memory
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = wr * 32 + 16 * i + g + 8 * hr;
+        const int p = p0 + m;
+        const bool live = p >= 0 && p < l1;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int cl = wq * 16 + 8 * j + 2 * c;
+          Philox4 w;
+          if (dp.on && live)
+            w = dropout_words(dp.seed, SITE_FFN_INNER, dp.row0 + row, p, (ch * IC + cl) >> 2, 0);
+          float dv[2] = {0.f, 0.f}, dg[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (live) {
+              float s = 1.f;
+              if (dp.on) s = w.w[(cl + e) & 3] < dp.thr ? dp.scale : 0.f;
+              swiglu_bwd(yv[i][j][2 * hr + e] + bcs[cl + e],
+                         yg[i][j][2 * hr + e] + bcs[IC + cl + e], dh[i][j][2 * hr + e], s,
+                         dv[e], dg[e]);
+            }
+          }
+          *(__nv_bfloat162*)(ys + m * S.LDY + cl) = __floats2bfloat162_rn(dv[0], dv[1]);
+          *(__nv_bfloat162*)(ys + m * S.LDY + IC + cl) = __floats2bfloat162_rn(dg[0], dg[1]);
+        }
+      }
+    // dx[l] += sum_t dyvg[l + K-1 - t] Wc_t^T, tap by tap
+    for (int t = 0; t < K; ++t) {
+      __syncthreads();  // dyvg ready / every warp is done with the previous panel
+      stage_panel(wc + ((size_t)ch * K + t) * C * 2 * IC, C, 2 * IC, wcs, S.LDW);
+      __syncthreads();
+#pragma unroll
+      for (int ko = 0; ko < 2 * IC / 16; ++ko) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ld_a(a[i], ys + (wr * 32 + 16 * i + K - 1 - t) * S.LDY + ko * 16, S.LDY, lane);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int nt = wq + 4 * q;
+          if (nt < N8) {
+            uint32_t b[2];
+            ld_bt1(b, wcs + nt * 8 * S.LDW + ko * 16, S.LDW, lane);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma(acc[i][q], a[i], b);
+          }
+        }
+      }
+    }
+  }
+
+  bf16* dxr = dx + (size_t)row * Lin * C;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int l = wr * 32 + 16 * i + g + 8 * hr, pos = j0 + l;
+      if (l < lt && pos < Lin) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int nt = wq + 4 * q;
+          if (nt < N8)
+            *(__nv_bfloat162*)(dxr + (size_t)pos * C + nt * 8 + 2 * c) =
+                __floats2bfloat162_rn(acc[i][q][2 * hr], acc[i][q][2 * hr + 1]);
+        }
+      }
+    }
+}
+
+constexpr int WIC = 8;   // inner channels per weight-gradient block
+constexpr int TG = 4;    // taps per weight-gradient block
+constexpr int LDY8 = 2 * WIC + 8;   // dyvg rows [64][16] (48-byte stride)
+
+struct WLay {
+  int LDX, LDD;
+  size_t xs, gs, wc, wd, red, ys, hs, bc;
+  __host__ __device__ WLay(int C, int K)
+      : LDX(C + 8), LDD(C + 8), xs((size_t)ROWS * (C + 8) * 2),
+        gs((size_t)ROWS * (C + 8) * 2), wc((size_t)K * C * LDY8 * 2),
+        wd((size_t)K * WIC * (C + 8) * 2), red((size_t)2 * M * 3 * WIC * 4),
+        ys((size_t)M * LDY8 * 2), hs((size_t)M * WIC * 2), bc((size_t)2 * WIC * 4) {}
+  __host__ __device__ size_t bytes() const { return xs + gs + wc + wd + red + ys + hs + bc; }
+};
+
+template <int C>
+__global__ void __launch_bounds__(NT) ffn_core_bwd_w_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ gz, const bf16* __restrict__ wc8,
+    const float* __restrict__ bc8, const bf16* __restrict__ wd8, float* __restrict__ part_c,
+    float* __restrict__ part_d, float* __restrict__ part_b, int Lin, int K, int tiles_w,
+    long long units, long long per_split, DropParams dp) {
+  constexpr int MT = C / 16;          // 16-row tiles of the gradients' C axis
+  constexpr int RW = 3 * WIC;         // red row: yv 8, yg 8, dh 8
+  const WLay S(C, K);
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = (bf16*)smem;
+  bf16* gs = (bf16*)(smem + S.xs);
+  bf16* wcs = (bf16*)(smem + S.xs + S.gs);
+  bf16* wds = (bf16*)(smem + S.xs + S.gs + S.wc);
+  float* red = (float*)(smem + S.xs + S.gs + S.wc + S.wd);
+  bf16* ys = (bf16*)(smem + S.xs + S.gs + S.wc + S.wd + S.red);
+  bf16* hs = (bf16*)(smem + S.xs + S.gs + S.wc + S.wd + S.red + S.ys);
+  float* bcs = (float*)(smem + S.xs + S.gs + S.wc + S.wd + S.red + S.ys + S.hs);
+
+  const int cw = blockIdx.x, s = blockIdx.y, t0 = blockIdx.z * TG;
+  const int ncw = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int rm = warp % 4, half = warp / 4;
+  const int l1 = Lin - K + 1;
+
+  // this block's 8 channels, every tap: Wc [K*C][16] (8 value, 8 gate), Wd [K*8][C]
+  for (int i = threadIdx.x; i < K * C * 2; i += NT) {
+    const int r = i / 2, c8 = i % 2;
+    *(uint4*)(wcs + r * LDY8 + c8 * 8) =
+        *(const uint4*)(wc8 + ((size_t)cw * K * C + r) * 2 * WIC + c8 * 8);
+  }
+  stage_panel(wd8 + (size_t)cw * K * WIC * C, K * WIC, C, wds, S.LDD);
+  if (threadIdx.x < 2 * WIC) bcs[threadIdx.x] = bc8[cw * 2 * WIC + threadIdx.x];
+
+  float accc[TG][2][2][4], accd[TG][2][4];
+#pragma unroll
+  for (int tt = 0; tt < TG; ++tt)
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accc[tt][sl][0][e] = accc[tt][sl][1][e] = accd[tt][sl][e] = 0.f;
+  float csv = 0.f, csg = 0.f;   // column sums of dyv, dyg for channel threadIdx.x % 8
+  const int jc = threadIdx.x % WIC;
+
+  const long long u0 = (long long)s * per_split;
+  const long long u1 = units < u0 + per_split ? units : u0 + per_split;
+  for (long long u = u0; u < u1; ++u) {
+    const int row = (int)(u / tiles_w), p0 = (int)(u % tiles_w) * M;
+    __syncthreads();  // the previous unit is done with xs, gs, ys, hs
+    stage_rows<C>(x + (size_t)row * Lin * C, p0, Lin, xs, S.LDX);
+    stage_rows<C>(gz + (size_t)row * Lin * C, p0, Lin, gs, S.LDX);
+    __syncthreads();
+    // y (value, gate) and dh for rows rm*16.. +16, the taps of parity `half`
+    float yv[4] = {0.f, 0.f, 0.f, 0.f}, yg[4] = {0.f, 0.f, 0.f, 0.f},
+          dh[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = half; t < K; t += 2) {
+#pragma unroll
+      for (int kc = 0; kc < MT; ++kc) {
+        uint32_t a[4], ag[4], bvg[4], bd[2];
+        ld_a(a, xs + (rm * 16 + t) * S.LDX + kc * 16, S.LDX, lane);
+        ld_a(ag, gs + (rm * 16 + t) * S.LDX + kc * 16, S.LDX, lane);
+        ld_b2(bvg, wcs + (t * C + kc * 16) * LDY8, LDY8, lane);
+        ld_bt1(bd, wds + t * WIC * S.LDD + kc * 16, S.LDD, lane);
+        mma(yv, a, bvg);
+        mma(yg, a, bvg + 2);
+        mma(dh, ag, bd);
+      }
+    }
+    float* rd = red + half * M * RW;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float* r = rd + (rm * 16 + g + 8 * hr) * RW + 2 * c;
+      r[0] = yv[2 * hr];
+      r[1] = yv[2 * hr + 1];
+      r[WIC] = yg[2 * hr];
+      r[WIC + 1] = yg[2 * hr + 1];
+      r[2 * WIC] = dh[2 * hr];
+      r[2 * WIC + 1] = dh[2 * hr + 1];
+    }
+    __syncthreads();
+    // SwiGLU backward per (position, channel): dyvg and the dropped h
+    for (int m = threadIdx.x / WIC; m < M; m += NT / WIC) {
+      const int p = p0 + m;
+      const float* r0 = red + m * RW + jc;
+      const float* r1 = r0 + M * RW;
+      float dv = 0.f, dg = 0.f, hv = 0.f;
+      if (p < l1) {
+        const float v = r0[0] + r1[0] + bcs[jc];
+        const float gt = r0[WIC] + r1[WIC] + bcs[WIC + jc];
+        float sc = 1.f;
+        if (dp.on) {
+          const int ic = cw * WIC + jc;
+          sc = dropout_words(dp.seed, SITE_FFN_INNER, dp.row0 + row, p, ic >> 2, 0).w[ic & 3]
+                       < dp.thr ? dp.scale : 0.f;
+        }
+        swiglu_bwd(v, gt, r0[2 * WIC] + r1[2 * WIC], sc, dv, dg);
+        hv = v * gt * sigmoid(gt) * sc;
+        csv += dv;
+        csg += dg;
+      }
+      ys[m * LDY8 + jc] = __float2bfloat16(dv);
+      ys[m * LDY8 + WIC + jc] = __float2bfloat16(dg);
+      hs[m * WIC + jc] = __float2bfloat16(hv);
+    }
+    __syncthreads();
+    // dWc_t[c, o] += sum_m x[m + t, c] dyvg[m, o];  dWd_t^T[c, i] += sum_m g[m + t, c] h[m, i]
+#pragma unroll
+    for (int kk = 0; kk < M / 16; ++kk) {
+      uint32_t by[4], bh[2];
+      ld_b2(by, ys + kk * 16 * LDY8, LDY8, lane);
+      ld_b1(bh, hs + kk * 16 * WIC, WIC, lane);
+#pragma unroll
+      for (int tt = 0; tt < TG; ++tt) {
+        const int t = t0 + tt;
+        if (t < K) {
+#pragma unroll
+          for (int sl = 0; sl < 2; ++sl) {
+            const int mt = warp + 8 * sl;
+            if (mt < MT) {
+              uint32_t ax[4], agt[4];
+              ld_at(ax, xs + (kk * 16 + t) * S.LDX + mt * 16, S.LDX, lane);
+              ld_at(agt, gs + (kk * 16 + t) * S.LDX + mt * 16, S.LDX, lane);
+              mma(accc[tt][sl][0], ax, by);
+              mma(accc[tt][sl][1], ax, by + 2);
+              mma(accd[tt][sl], agt, bh);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // partials of this split: part_c [S][K][ncw][C][16], part_d [S][K][ncw][C][8]
+  const int K_ = K;
+#pragma unroll
+  for (int tt = 0; tt < TG; ++tt) {
+    const int t = t0 + tt;
+    if (t < K_) {
+#pragma unroll
+      for (int sl = 0; sl < 2; ++sl) {
+        const int mt = warp + 8 * sl;
+        if (mt < MT) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int cc = mt * 16 + g + 8 * hr;
+            const size_t base = (((size_t)s * K_ + t) * ncw + cw) * C + cc;
+            float* pc = part_c + base * 2 * WIC;
+            float* pd = part_d + base * WIC;
+            pc[2 * c] = accc[tt][sl][0][2 * hr];
+            pc[2 * c + 1] = accc[tt][sl][0][2 * hr + 1];
+            pc[WIC + 2 * c] = accc[tt][sl][1][2 * hr];
+            pc[WIC + 2 * c + 1] = accc[tt][sl][1][2 * hr + 1];
+            pd[2 * c] = accd[tt][sl][2 * hr];
+            pd[2 * c + 1] = accd[tt][sl][2 * hr + 1];
+          }
+        }
+      }
+    }
+  }
+  // conv-bias partials [S][ncw][16] from the first tap group, summed over
+  // the 32 threads of each channel in a fixed order
+  if (blockIdx.z == 0) {
+    __syncthreads();
+    red[2 * threadIdx.x] = csv;
+    red[2 * threadIdx.x + 1] = csg;
+    __syncthreads();
+    if (threadIdx.x < 2 * WIC) {
+      const int j = threadIdx.x % WIC, which = threadIdx.x / WIC;
+      float acc = 0.f;
+      for (int k = 0; k < NT / WIC; ++k) acc += red[2 * (k * WIC + j) + which];
+      part_b[((size_t)s * ncw + cw) * 2 * WIC + which * WIC + j] = acc;
+    }
+  }
+}
+
+template <int C>
+int launch_bwd(const bf16* x, const bf16* gz, const bf16* wc, const float* bc,
+               const bf16* wd, const bf16* wc8, const float* bc8, const bf16* wd8,
+               bf16* dx, float* part_c, float* part_d, float* part_b, float* out_c,
+               float* out_d, float* out_b, int R, int Lin, int I, int I8, int K, int Sp,
+               DropParams dp, cudaStream_t st) {
+  const int lt = M - (K - 1);
+  const int tiles = (Lin + lt - 1) / lt;
+  size_t smem = DxLay(C).bytes();
+  cudaError_t e = cudaFuncSetAttribute(ffn_core_bwd_dx_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  ffn_core_bwd_dx_kernel<C><<<R * tiles, NT, smem, st>>>(x, gz, wc, bc, wd, dx, Lin, I, K,
+                                                         tiles, dp);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int l1 = Lin - K + 1;
+  const int tiles_w = (l1 + M - 1) / M;
+  const long long units = (long long)R * tiles_w;
+  const long long per = (units + Sp - 1) / Sp;
+  const int ncw = I8 / WIC;
+  smem = WLay(C, K).bytes();
+  e = cudaFuncSetAttribute(ffn_core_bwd_w_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)ncw, (unsigned)Sp, (unsigned)((K + TG - 1) / TG));
+  ffn_core_bwd_w_kernel<C><<<grid, NT, smem, st>>>(x, gz, wc8, bc8, wd8, part_c, part_d,
+                                                   part_b, Lin, K, tiles_w, units, per, dp);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long per_c = (long long)K * ncw * C * 2 * WIC;
+  if ((e = wg::launch_reduce(part_c, out_c, 1, Sp, per_c, st)) != cudaSuccess) return (int)e;
+  if ((e = wg::launch_reduce(part_d, out_d, 1, Sp, per_c / 2, st)) != cudaSuccess) return (int)e;
+  return (int)wg::launch_reduce(part_b, out_b, 1, Sp, (long long)ncw * 2 * WIC, st);
+}
+
 }  // namespace
 
 // Shared-memory bytes of the kernel at width C (any k);
@@ -325,4 +802,50 @@ extern "C" int swiglu_ffn_forward(const void* x, const void* wc, const void* bc,
       return (int)cudaErrorInvalidValue;
   }
 #undef CORE_CASE
+}
+
+// Shared-memory bytes of the backward's two kernels at width C and K taps:
+// which = 0 the dx kernel, 1 the weight-gradient kernel
+// (ops/cuda/swiglu_ffn.py::backward_bytes computes the same).
+extern "C" long long swiglu_ffn_bwd_smem_bytes(int C, int K, int which) {
+  return (long long)(which ? WLay(C, K).bytes() : DxLay(C).bytes());
+}
+
+// Backward (kernel #9).  x [R, Lin, C] and gz (the cotangent of the output)
+// [R, Lin, C] bf16; the forward's panels wc, bc, wd (I padded to 64) and the
+// same weights chunked by 8 inner channels: wc8 [I8/8][K][C][16] bf16 (8
+// value then 8 gate), bc8 [I8/8][16] fp32, wd8 [I8/8][K][8][C] bf16.
+// Outputs: dx [R, Lin, C] bf16; out_c [K][I8/8][C][16], out_d [K][I8/8][C][8],
+// out_b [I8/8][16] fp32.  Scratch: part_c [S][...out_c], part_d, part_b.
+extern "C" int swiglu_ffn_backward(const void* x, const void* gz, const void* wc,
+                                   const void* bc, const void* wd, const void* wc8,
+                                   const void* bc8, const void* wd8, void* dx, void* part_c,
+                                   void* part_d, void* part_b, void* out_c, void* out_d,
+                                   void* out_b, int R, int Lin, int C, int I, int I8, int K,
+                                   int S, unsigned seed, unsigned thr, unsigned row0,
+                                   float scale, int on, void* stream) {
+  if (I % IC || I < IC || I8 % WIC || K < 2 || K > 8 || Lin < K || S < 1)
+    return (int)cudaErrorInvalidValue;
+  DropParams dp;
+  dp.seed = seed;
+  dp.thr = thr;
+  dp.row0 = row0;
+  dp.scale = scale;
+  dp.on = on;
+#define BWD_CASE(CC)                                                                      \
+  case CC:                                                                                \
+    return launch_bwd<CC>((const bf16*)x, (const bf16*)gz, (const bf16*)wc,               \
+                          (const float*)bc, (const bf16*)wd, (const bf16*)wc8,            \
+                          (const float*)bc8, (const bf16*)wd8, (bf16*)dx, (float*)part_c, \
+                          (float*)part_d, (float*)part_b, (float*)out_c, (float*)out_d,   \
+                          (float*)out_b, R, Lin, I, I8, K, S, dp, (cudaStream_t)stream);
+  switch (C) {
+    BWD_CASE(16) BWD_CASE(32) BWD_CASE(48) BWD_CASE(64)
+    BWD_CASE(80) BWD_CASE(96) BWD_CASE(112) BWD_CASE(128)
+    BWD_CASE(144) BWD_CASE(160) BWD_CASE(176) BWD_CASE(192)
+    BWD_CASE(208) BWD_CASE(224) BWD_CASE(240) BWD_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef BWD_CASE
 }

@@ -11,8 +11,16 @@
     of the stems;
   * ``segment_length=None`` gives full tracks (validation).
 
-Augmentation, the precomputed chunk index and the metadata cache raise
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 3).  Samples are
+  * augmentation (training subset; ``augmentation=True`` or a dict of
+    settings over the defaults): per-stem loudness gain, channel swap,
+    polarity flip, then on the mixture alone either the MP3 round trip
+    (``audiomentations`` where installed, else the ``data/codec.py``
+    simulation) or Gaussian noise at a drawn SNR; all of it drawn from the
+    dataset's seeded ``random.Random`` in the JAX dataset's order, so one
+    seed gives the JAX dataset's arrays.
+
+The precomputed chunk index and the metadata cache raise
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 4).  Samples are
 ``{'mixture': [C, T] float32, '<stem>': [C, T], ...}``.
 """
 
@@ -22,7 +30,7 @@ import random
 from dataclasses import dataclass
 from math import gcd
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -30,7 +38,7 @@ from . import audio_io
 
 __all__ = ["TrackInfo", "MUSDBDataset", "collate_fn"]
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 3)"
+_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 4)"
 
 
 @dataclass(frozen=True)
@@ -42,6 +50,18 @@ class TrackInfo:
     channels: int
     mixture_path: Path
     source_paths: Dict[str, Optional[Path]]
+
+
+def _default_aug_config() -> Dict[str, Any]:
+    return {
+        "loudness": (0.7, 1.3),
+        "channel_swap_prob": 0.5,
+        "polarity_prob": 0.1,
+        "mp3_prob": 0.2,
+        "mp3_bitrate": (96, 192),
+        "noise_prob": 0.1,
+        "noise_snr": (25.0, 40.0),
+    }
 
 
 def _pad_or_trim(audio: np.ndarray, target: int) -> np.ndarray:
@@ -64,13 +84,12 @@ class MUSDBDataset:
     def __init__(self, root_dir: str, subset: str = "train",
                  sample_rate: int = 44100, segment_length: Optional[int] = None,
                  sources: Optional[Sequence[str]] = None,
-                 augmentation: bool = False, random_chunks: bool = True,
+                 augmentation: Union[bool, Dict[str, Any]] = False,
+                 random_chunks: bool = True,
                  min_loudness: float = 1e-4, max_chunk_attempts: int = 8,
                  rebuild_mixture: bool = True, precompute_chunks: bool = False,
                  cache_dir: Optional[str] = None, verbose: bool = True,
                  seed: Optional[int] = None):
-        if augmentation:
-            raise NotImplementedError(f"dataset augmentation {_LATER}")
         if precompute_chunks:
             raise NotImplementedError(f"dataset precompute_chunks {_LATER}")
         if cache_dir:
@@ -87,6 +106,10 @@ class MUSDBDataset:
         self.max_chunk_attempts = max(1, int(max_chunk_attempts))
         self.rebuild_mixture = rebuild_mixture
         self._rng = random.Random(seed)
+        self.augmentation = bool(augmentation) or isinstance(augmentation, dict)
+        self._aug_config = _default_aug_config()
+        if isinstance(augmentation, dict):
+            self._aug_config.update({k: v for k, v in augmentation.items() if v is not None})
         self.subset_dir = self.root_dir / subset
         if not self.subset_dir.exists():
             raise FileNotFoundError(f"Subset directory not found: {self.subset_dir}")
@@ -121,7 +144,10 @@ class MUSDBDataset:
             sample = self._sample_random_chunk()
         else:
             sample = self._load_chunk(self.track_infos[idx % len(self)], 0)
-        if self.rebuild_mixture:
+        mix_only = False
+        if self.augmentation and self.subset == "train":
+            sample, mix_only = self._apply_augmentation(sample)
+        if self.rebuild_mixture and not mix_only:
             sample["mixture"] = self._sum_stems(sample)
         return sample
 
@@ -179,6 +205,80 @@ class MUSDBDataset:
         for a in stems[1:]:
             total = total + a
         return total
+
+
+    # -------------------------------------------------------- augmentation
+
+    def _apply_augmentation(self, sample):
+        """``(sample, mix_only)``: ``mix_only`` when the mixture alone was
+        changed (MP3), so it must not be rebuilt from the stems."""
+        cfg = self._aug_config
+        r = self._rng
+        mix_only = False
+        loud = cfg.get("loudness")
+        if loud:
+            low, high = loud
+            for stem in self.sources:
+                if stem in sample:
+                    gain = r.uniform(low, high)
+                    sample[stem] = np.clip(sample[stem] * gain, -1.0, 1.0)
+        if cfg.get("channel_swap_prob", 0.0) > 0 and r.random() < cfg["channel_swap_prob"]:
+            for key, audio in list(sample.items()):
+                if isinstance(audio, np.ndarray) and audio.ndim == 2 and audio.shape[0] == 2:
+                    sample[key] = audio[::-1].copy()
+        if cfg.get("polarity_prob", 0.0) > 0 and r.random() < cfg["polarity_prob"]:
+            for key, audio in list(sample.items()):
+                if isinstance(audio, np.ndarray):
+                    sample[key] = -audio
+        mixture = sample.get("mixture")
+        if mixture is not None:
+            expected = mixture.shape[-1]
+            mp3_prob = cfg.get("mp3_prob", 0.0)
+            compressor = _mp3_compressor(cfg, r) if mp3_prob > 0 else None
+            if compressor is not None and r.random() < mp3_prob:
+                out = compressor(samples=mixture.astype(np.float32),
+                                 sample_rate=self.sample_rate)
+                sample["mixture"] = _pad_or_trim(out, expected).astype(np.float32)
+                mix_only = True
+            elif cfg.get("noise_prob", 0.0) > 0 and r.random() < cfg["noise_prob"]:
+                snr_min, snr_max = cfg.get("noise_snr", (25.0, 40.0))
+                snr = r.uniform(snr_min, snr_max)
+                power = float(np.mean(mixture ** 2))
+                if power > 0:
+                    noise_power = power / (10 ** (snr / 10))
+                    # seeded from the dataset's generator, never the global one
+                    noise_rng = np.random.default_rng(r.getrandbits(64))
+                    noise = noise_rng.standard_normal(mixture.shape).astype(np.float32)
+                    sample["mixture"] = np.clip(mixture + noise * np.sqrt(noise_power),
+                                                -1.0, 1.0)
+            target = sample["mixture"].shape[-1]
+            for stem in self.sources:
+                if stem in sample:
+                    sample[stem] = _pad_or_trim(sample[stem], target)
+        for stem in self.sources:
+            if stem in sample:
+                sample[stem] = np.clip(sample[stem], -1.0, 1.0)
+        return sample, mix_only
+
+
+def _mp3_compressor(cfg, r=None):
+    """The real MP3 round trip where audiomentations is installed, else the
+    codec simulation (``data/codec.py``) with its bitrate and dither drawn
+    from the dataset's generator ``r``."""
+    lo, hi = cfg.get("mp3_bitrate", (96, 192))
+    try:
+        import audiomentations as AU
+        return AU.Mp3Compression(min_bitrate=int(lo), max_bitrate=int(hi), p=1.0)
+    except ImportError:
+        pass
+    from .codec import mp3_like_compression
+
+    def simulate(samples, sample_rate):
+        draw = np.random.default_rng(r.getrandbits(64) if r is not None else None)
+        bitrate = float(draw.uniform(lo, hi))
+        return mp3_like_compression(samples, sample_rate, bitrate, rng=draw)
+
+    return simulate
 
 
 def collate_fn(batch: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -40,12 +40,13 @@ class SeparationEngine:
         chunk_samples: chunk length W.
         overlap: overlap samples between consecutive chunks (default W/4).
         batch_size: chunks per forward.
-        device: where ``apply_fn`` runs; chosen by the caller, never guessed.
+        device: where ``apply_fn`` runs: the card unless the caller asks
+            for the CPU; never guessed from what is available.
     """
 
     def __init__(self, apply_fn: Callable, chunk_samples: int,
                  overlap: Optional[int] = None, batch_size: int = 4,
-                 device="cpu"):
+                 device="cuda"):
         self.chunk = int(chunk_samples)
         self.overlap = int(overlap) if overlap is not None else self.chunk // 4
         if not 0 <= self.overlap < self.chunk:

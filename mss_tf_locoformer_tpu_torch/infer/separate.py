@@ -10,6 +10,9 @@ checkpoint directories need JAX to read and are not accepted (ROADMAP.md).
 ``separate_audio`` loads a WAV at the model rate, mixes stereo to mono,
 separates with the chunked overlap-add engine, and writes each stem as
 duplicated-stereo, peak-normalised ``{input}_{stem}.wav``.
+
+Every entry point runs on the card (``device="cuda"``) unless the caller
+asks for the CPU; nothing falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ __all__ = ["load_model", "make_engine", "separate_audio"]
 
 def load_model(checkpoint_path: str, config_path: Optional[str] = None,
                precision: Precision = BF16,
-               device="cpu") -> Tuple[torch.nn.Module, ModelConfig]:
+               device="cuda") -> Tuple[torch.nn.Module, ModelConfig]:
     """``(model on device in eval mode, model config)``.  Inference defaults
     to bf16 blocks with the fp32 islands kept."""
     cfg = load_model_config(config_path) if config_path else ModelConfig()
@@ -49,7 +52,7 @@ def load_model(checkpoint_path: str, config_path: Optional[str] = None,
 
 def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,
                 overlap_seconds: float = 1.0, sample_rate: int = 44100,
-                batch_size: int = 2, device="cpu") -> SeparationEngine:
+                batch_size: int = 2, device="cuda") -> SeparationEngine:
     return SeparationEngine(
         model, chunk_samples=int(chunk_seconds * sample_rate),
         overlap=int(overlap_seconds * sample_rate), batch_size=batch_size,
@@ -59,7 +62,7 @@ def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,
 def separate_audio(input_path: str, output_dir: str, model: torch.nn.Module,
                    sample_rate: int = 44100, chunk_seconds: float = 8.0,
                    overlap_seconds: float = 1.0, batch_size: int = 2,
-                   save_stems: bool = True, device="cpu") -> Dict[str, np.ndarray]:
+                   save_stems: bool = True, device="cuda") -> Dict[str, np.ndarray]:
     audio, _ = load_audio(input_path, sample_rate=sample_rate)
     engine = make_engine(model, chunk_seconds, overlap_seconds, sample_rate,
                          batch_size, device)

@@ -17,6 +17,13 @@ Direct spectral mapping; stem order ``vocals, drums, bass, other``.
 applies at the four reference sites (two per FFN step, two per attention
 step), with one seed per step drawn from the ``generator`` the caller passes
 to ``forward`` -- the model keeps no random state of its own.
+
+``remat_blocks`` (training only, the JAX model's per-block ``nn.remat``):
+each ``TFLocoformerBlock`` runs under ``torch.utils.checkpoint`` with the
+seeds it drew before running, so the backward recomputes the block's
+activations, with the same dropout masks, instead of keeping them.
+``remat_ffn`` (None: follow ``remat_blocks``) recomputes each torch-
+convolution FFN inside a block likewise.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import SOURCE_NAMES, ModelConfig
 from ..core.precision import FP32, Precision
@@ -71,7 +79,8 @@ class TFLocoformerMSS(nn.Module):
             attention_dim=cfg.attention_dim, use_rope=cfg.pos_enc == "rope",
             ffn_type=cfg.ffn_type, ffn_hidden_dim=cfg.ffn_hidden_dim,
             conv1d_kernel=cfg.conv1d_kernel, conv1d_shift=cfg.conv1d_shift,
-            fused_ffn=cfg.fused_ffn, eps=cfg.eps, dropout=cfg.dropout)
+            fused_ffn=cfg.fused_ffn, eps=cfg.eps, dropout=cfg.dropout,
+            remat_ffn=cfg.remat_blocks if cfg.remat_ffn is None else cfg.remat_ffn)
         self.blocks = nn.ModuleList(
             TFLocoformerBlock(tf_order=cfg.tf_order, **block)
             for _ in range(cfg.n_layers))
@@ -95,8 +104,13 @@ class TFLocoformerMSS(nn.Module):
         x = self.conv(x)                                            # fp32 island
         x = x.permute(0, 2, 3, 1).contiguous()                      # [B, T, F, C]
         x = self.precision.cast_compute(x)
+        remat = self.training and cfg.remat_blocks and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, generator)
+            seeds = blk.draw_seeds(generator)
+            if remat:
+                x = checkpoint(blk, x, None, seeds, use_reentrant=False)
+            else:
+                x = blk(x, seeds=seeds)
         x = self.deconv(x.to(torch.float32).permute(0, 3, 1, 2))    # fp32 island
         n_frames, n_freqs = x.shape[-2], x.shape[-1]
         x = x.reshape(b, cfg.n_sources, 2, n_frames, n_freqs)

@@ -9,9 +9,12 @@ reference's keys.
 ``forward`` is the unfused path: the projections are ``torch.matmul``
 (as the JAX package leaves them to XLA) and, with ``flash`` (the config's
 ``flash_attention``), no dropout and a head_dim the kernel takes, the core
-goes to the flash-attention kernel with RoPE fused
-(``ops/cuda/flash_attention.py``); otherwise RoPE and the plain attention
-run in torch.  ``fused_step`` runs ``x + MHSA(RMSGroupNorm(x))`` through
+goes to the flash-attention kernels with RoPE fused
+(``ops/cuda/flash_attention.py``, forward and backward); otherwise RoPE and
+the plain attention run in torch, the probability mask built per row group
+from the seed and the rows' ids (``ops/attention.py``).  A dropout request
+never reaches the flash kernels, as in the JAX package, whose flash kernel
+has no dropout.  ``fused_step`` runs ``x + MHSA(RMSGroupNorm(x))`` through
 the fused attention-step kernel (``ops/cuda/attention_block.py``).  Both
 take a dropout rate and an int32 seed (drawn per call by the block) for the
 reference's two sites, the attention probabilities and the out-projection,
@@ -26,7 +29,7 @@ from torch import nn
 from ..ops import dropout as D
 from ..ops.attention import dot_product_attention
 from ..ops.cuda import flash_attention as FA
-from ..ops.cuda.attention_block import fused_attention_block, probability_mask
+from ..ops.cuda.attention_block import fused_attention_block
 from ..ops.rope import apply_rope
 
 __all__ = ["MultiHeadSelfAttention"]
@@ -54,11 +57,8 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             if self.use_rope:
                 q, k = apply_rope(q), apply_rope(k)
-            keep = None
-            if drop_rate > 0.0:
-                keep = probability_mask(seed, torch.arange(b, device=x.device),
-                                        self.n_heads, l, drop_rate, x.device)
-            out = dot_product_attention(q, k, v, keep, drop_rate)
+            out = dot_product_attention(q, k, v, drop_rate, seed,
+                                        torch.arange(b, device=x.device))
         out = out.transpose(1, 2).reshape(b, l, -1) @ self.aggregate_heads[0].weight.to(dt).T
         if drop_rate > 0.0:
             out = D.apply_mask(out, D.row_mask(seed, D.SITE_ATTN_PROJ, out, 0, drop_rate),

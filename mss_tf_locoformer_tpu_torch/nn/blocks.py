@@ -20,18 +20,27 @@ LayerNorm config's.  The route is decided from shapes and ``self.training``
 before any launch, never from a failure.
 
 Dropout: in training mode (``module.train()``) with a rate above 0, each
-step draws one int32 seed from the caller's ``torch.Generator`` (FFN before
+step takes one int32 seed from the caller's ``torch.Generator`` (FFN before
 attention, attention, FFN after, as the JAX block draws one per call from
 ``make_rng("dropout")``), and fused and unfused steps apply the same masks
-from it.  The rows of a step are numbered from 0 within the call.
+from it.  A block draws all its steps' seeds before it runs
+(``draw_seeds``), so that a recompute of the block (per-block remat, the
+model's ``remat_blocks``) replays the same masks and leaves the generator
+where the first run left it.  The rows of a step are numbered from 0 within
+the call.
+
+``remat_ffn`` (the JAX block's flag) recomputes each torch-convolution FFN
+in the backward instead of keeping its ``2*inner``-wide intermediates; the
+FFN-core kernels keep none to begin with, so it changes nothing there.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.attention_block import supports_block
 from ..ops.cuda.swiglu_block import supports_step
@@ -50,7 +59,7 @@ class LocoformerBlock(nn.Module):
                  use_rope: bool, ffn_type: Union[str, Sequence[str]],
                  ffn_hidden_dim: Union[int, Sequence[int]], conv1d_kernel: int,
                  conv1d_shift: int, fused_ffn: bool, eps: float,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat_ffn: bool = False):
         super().__init__()
         macaron = isinstance(ffn_type, (tuple, list))
         types = tuple(ffn_type)[::-1] if macaron else (ffn_type,)
@@ -59,6 +68,7 @@ class LocoformerBlock(nn.Module):
             raise NotImplementedError(
                 "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1)")
         self.num_groups, self.eps, self.dropout = num_groups, eps, dropout
+        self.remat_ffn = remat_ffn
 
         def norm():
             if norm_type == "rmsgroupnorm":
@@ -86,36 +96,50 @@ class LocoformerBlock(nn.Module):
         """``([fused FFN step i], fused attention step)`` in the current mode."""
         return self._step_routes[self.training]
 
-    def _drop(self, generator: Optional[torch.Generator]):
-        """``(rate, seed)`` for one step: a fresh seed in training mode."""
+    def draw_seeds(self, generator: Optional[torch.Generator]) -> Optional[List[int]]:
+        """One fresh seed per step in training mode with dropout (FFN before
+        attention, attention, FFN after), else None (nothing drawn)."""
         if not (self.training and self.dropout > 0.0):
-            return 0.0, 0
+            return None
         if generator is None:
             raise ValueError("dropout in training mode needs a torch.Generator "
                              "(the model's forward takes generator=...)")
-        return self.dropout, draw_seed(generator)
+        return [draw_seed(generator) for _ in range(len(self.ffn) + 1)]
 
-    def _ffn_step(self, x: torch.Tensor, i: int, generator) -> torch.Tensor:
-        rate, seed = self._drop(generator)
+    def _drop(self, seed: Optional[int]):
+        """``(rate, seed)`` of a step: no dropout without a seed."""
+        return (0.0, 0) if seed is None else (self.dropout, seed)
+
+    def _ffn_step(self, x: torch.Tensor, i: int, seed: Optional[int]) -> torch.Tensor:
+        rate, seed = self._drop(seed)
         if self.fused_steps()[0][i]:
             return self.ffn[i].fused_step(x, self.ffn_norm[i].gamma,
                                           self.num_groups, self.eps, rate, seed)
-        return x + self.ffn[i](self.ffn_norm[i](x), rate, seed)
+        ffn, xn = self.ffn[i], self.ffn_norm[i](x)
+        if (self.remat_ffn and self.training and torch.is_grad_enabled()
+                and not ffn.fused):   # the FFN-core kernels recompute already
+            return x + checkpoint(ffn, xn, rate, seed, use_reentrant=False)
+        return x + ffn(xn, rate, seed)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``x [B, S1, S2, C]``; attention and conv along S2."""
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``x [B, S1, S2, C]``; attention and conv along S2.  ``seeds`` (from
+        :meth:`draw_seeds`) or else ``generator`` gives the steps' dropout
+        seeds."""
+        if seeds is None:
+            seeds = self.draw_seeds(generator) or [None] * (len(self.ffn) + 1)
+        step = iter(seeds)
         if len(self.ffn) == 2:  # pre-attention FFN: the last stored one
-            x = self._ffn_step(x, 1, generator)
+            x = self._ffn_step(x, 1, next(step))
         b, s1, s2, c = x.shape
         rows = x.reshape(b * s1, s2, c)
-        rate, seed = self._drop(generator)
+        rate, seed = self._drop(next(step))
         if self.fused_steps()[1]:
             rows = self.attn.fused_step(rows, self.attn_norm.gamma,
                                         self.num_groups, self.eps, rate, seed)
         else:
             rows = rows + self.attn(self.attn_norm(rows), rate, seed)
-        return self._ffn_step(rows.reshape(b, s1, s2, c), 0, generator)
+        return self._ffn_step(rows.reshape(b, s1, s2, c), 0, next(step))
 
 
 class TFLocoformerBlock(nn.Module):
@@ -128,11 +152,26 @@ class TFLocoformerBlock(nn.Module):
         self.freq_path = LocoformerBlock(**kwargs)
         self.frame_path = LocoformerBlock(**kwargs)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _paths(self):
+        return ((self.freq_path, self.frame_path) if self.tf_order == "ft"
+                else (self.frame_path, self.freq_path))
+
+    def draw_seeds(self, generator: Optional[torch.Generator]):
+        """Both paths' step seeds, in the order the paths run (None when the
+        block draws none)."""
+        seeds = [p.draw_seeds(generator) for p in self._paths()]
+        return None if seeds[0] is None else seeds
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seeds=None) -> torch.Tensor:
+        """``x [B, T, F, C]``; ``seeds`` (from :meth:`draw_seeds`) or else
+        ``generator`` gives the dropout seeds."""
+        if seeds is None:
+            seeds = self.draw_seeds(generator)
+        first, second = seeds if seeds is not None else (None, None)
         if self.tf_order == "ft":
-            x = self.freq_path(x, generator)
-            x = self.frame_path(x.transpose(1, 2).contiguous(), generator)  # [B, F, T, C]
+            x = self.freq_path(x, seeds=first)
+            x = self.frame_path(x.transpose(1, 2).contiguous(), seeds=second)  # [B, F, T, C]
             return x.transpose(1, 2).contiguous()
-        x = self.frame_path(x.transpose(1, 2).contiguous(), generator)
-        return self.freq_path(x.transpose(1, 2).contiguous(), generator)
+        x = self.frame_path(x.transpose(1, 2).contiguous(), seeds=first)
+        return self.freq_path(x.transpose(1, 2).contiguous(), seeds=second)

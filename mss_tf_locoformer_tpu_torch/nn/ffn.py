@@ -8,10 +8,11 @@ whose layouts the JAX package emulates, so reference checkpoints load as
 they are.
 
 ``forward`` is the unfused path: with ``fused`` (the config's
-``fused_ffn``), stride 1 and a shape the kernel takes, the padded rows go
-through the FFN-core kernel (``ops/cuda/swiglu_ffn.py``), as the JAX
-package's ``swiglu_conv_deconv``; otherwise through torch's convolutions
-(any stride).  ``fused_step`` runs ``x + FFN(RMSGroupNorm(x))`` through the
+``fused_ffn``), stride 1 and a shape the kernels take (in training mode the
+backward's too), the padded rows go through the FFN-core kernels
+(``ops/cuda/swiglu_ffn.py``: forward, and the backward kernel when a
+gradient is asked for), as the JAX package's ``swiglu_conv_deconv``;
+otherwise through torch's convolutions (any stride).  ``fused_step`` runs ``x + FFN(RMSGroupNorm(x))`` through the
 fused FFN-step kernel (``ops/cuda/swiglu_block.py``), stride 1 only.  Both
 take a dropout rate and an int32 seed (drawn per call by the block): the
 unfused path applies the kernels' masks (``ops/dropout.py``) at the same two
@@ -45,11 +46,17 @@ class SwiGLUConvDeconv1d(nn.Module):
         super().__init__()
         self.dim_inner = dim_inner
         self.kernel, self.shift = conv1d_kernel, conv1d_shift
-        self.fused = (fused and conv1d_shift == 1
-                      and swiglu_ffn.supports_shape(dim, dim_inner, conv1d_kernel))
+        # (training?) -> whether the rows go through the FFN-core kernels
+        self._fused = {training: (fused and conv1d_shift == 1 and swiglu_ffn.supports_shape(
+            dim, dim_inner, conv1d_kernel, training)) for training in (False, True)}
         self.conv1d = nn.Conv1d(dim, dim_inner * 2, conv1d_kernel, stride=conv1d_shift)
         self.deconv1d = nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel,
                                            stride=conv1d_shift)
+
+    @property
+    def fused(self) -> bool:
+        """Whether the rows go through the FFN-core kernels in the current mode."""
+        return self._fused[self.training]
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 seed: int = 0) -> torch.Tensor:

@@ -113,11 +113,9 @@ def reference_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
     q, k, v = qkv.permute(2, 0, 3, 1, 4)                       # [R, H, L, D]
     if rope:
         q, k = apply_rope(q, theta), apply_rope(k, theta)
-    keep = None
-    if drop_rate > 0.0:
-        keep = probability_mask(seed, torch.arange(row0, row0 + r, device=x.device),
-                                n_heads, seq, drop_rate, x.device)
-    o = dot_product_attention(q, k, v, keep, drop_rate).transpose(1, 2).reshape(r, seq, a)
+    o = dot_product_attention(q, k, v, drop_rate, seed,
+                              torch.arange(row0, row0 + r, device=x.device))
+    o = o.transpose(1, 2).reshape(r, seq, a)
     z = o @ w_out.to(dt).T
     if drop_rate > 0.0:
         z = D.apply_mask(z, D.row_mask(seed, D.SITE_ATTN_PROJ, x, row0, drop_rate), drop_rate)

@@ -2,7 +2,10 @@
 
 The CUDA kernels draw their masks from ``csrc/philox.cuh``; this module
 computes the same bits with integer tensor arithmetic, so the plain versions
-of the fused steps apply exactly the kernels' masks.  A mask element is
+of the fused steps apply exactly the kernels' masks.  On the card
+:func:`keep_mask` launches the mask kernel (``csrc/dropout.cu``, the same
+bits again): the torch version takes ~220 int64 elementwise passes per
+element, far too slow for the unfused route's masks at the xlarge config.  A mask element is
 addressed by ``(seed, site, row, *index)`` with ``index = (a, b)`` or
 ``(a, b, c)``:
 
@@ -24,7 +27,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["SITE_FFN_INNER", "SITE_FFN_OUTER", "SITE_ATTN_PROB",
-           "SITE_ATTN_PROJ", "philox4x32_10", "keep_mask", "keep_threshold",
+           "SITE_ATTN_PROJ", "philox4x32_10", "keep_mask", "reference_keep_mask",
+           "keep_threshold",
            "draw_seed", "row_mask", "apply_mask", "kernel_args"]
 
 # the constants of csrc/philox.cuh
@@ -84,23 +88,26 @@ def _keep(seed, site, row, a, b, c, thr):
     return word < thr
 
 
-def keep_mask(seed: int, site: int, row, *index, p: float,
-              device=None) -> torch.Tensor:
-    """Boolean keep mask of dropout rate ``p`` at ``(row, *index)``.
-
-    ``row`` and the index entries are integers or int64 tensors that
-    broadcast together; ``index`` is ``(a, b)`` or ``(a, b, c)``.  The mask
-    is generated in chunks along the first broadcast dimension, so only the
-    boolean result is held at full size."""
+def _index_parts(row, index, device):
     if len(index) not in (2, 3):
         raise ValueError("keep_mask takes (a, b) or (a, b, c) as index")
-    thr = keep_threshold(p)
     if device is None:
         device = next((v.device for v in (row, *index)
                        if isinstance(v, torch.Tensor)), torch.device("cpu"))
-    parts = [_as_index(v, device) for v in (row, *index)]
+    parts = [row, *index]
     if len(index) == 2:
-        parts.append(torch.zeros((), dtype=torch.int64, device=device))
+        parts.append(0)
+    return parts, torch.device(device)
+
+
+def reference_keep_mask(seed: int, site: int, row, *index, p: float,
+                        device=None) -> torch.Tensor:
+    """Plain version of :func:`keep_mask` (torch integer arithmetic, on any
+    device), generated in chunks along the first broadcast dimension so
+    that only the boolean result is held at full size."""
+    thr = keep_threshold(p)
+    parts, device = _index_parts(row, index, device)
+    parts = [_as_index(v, device) for v in parts]
     shape = torch.broadcast_shapes(*(t.shape for t in parts))
     if len(shape) == 0 or torch.Size(shape).numel() <= _CHUNK:
         return _keep(seed, site, *parts, thr).expand(shape)
@@ -112,6 +119,71 @@ def keep_mask(seed: int, site: int, row, *index, p: float,
         sl = [t[i:i + step] if t.shape[0] > 1 else t for t in parts]
         out[i:i + step] = _keep(seed, site, *sl, thr)
     return out
+
+
+def _mask_fn():
+    import ctypes
+    from .cuda import load
+    fn = load("dropout").dropout_keep_mask
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+def _cuda_keep_mask(seed, site, parts, device, thr) -> torch.Tensor:
+    """The mask kernel (``csrc/dropout.cu``): each counter word a constant or
+    a table along one axis of the mask."""
+    import ctypes
+    from .cuda import check, ptr, stream_handle
+    shapes = [tuple(v.shape) if isinstance(v, torch.Tensor) else () for v in parts]
+    shape = tuple(torch.broadcast_shapes(*shapes))
+    nd = len(shape)
+    if not 1 <= nd <= 4:
+        raise ValueError(f"keep_mask: the CUDA kernel takes 1 to 4 dims, got {shape}")
+    tabs, axes, csts = [], (ctypes.c_int * 4)(), (ctypes.c_longlong * 4)()
+    for j, v in enumerate(parts):
+        if not isinstance(v, torch.Tensor) or v.numel() == 1:
+            tabs.append(None)
+            axes[j] = -1
+            csts[j] = int(v)
+            continue
+        full = (1,) * (nd - v.dim()) + tuple(v.shape)
+        live = [d for d in range(nd) if full[d] != 1]
+        if len(live) != 1:
+            raise ValueError(f"keep_mask: the CUDA kernel takes each index along one "
+                             f"axis, got a {tuple(v.shape)} index for a {shape} mask")
+        tabs.append(v.to(device=device, dtype=torch.int64).reshape(-1).contiguous())
+        axes[j] = live[0]
+    out = torch.empty(shape, dtype=torch.bool, device=device)
+    size = (ctypes.c_longlong * 4)(*shape, *([1] * (4 - nd)))
+    check(_mask_fn()(ptr(out), nd, ctypes.cast(size, ctypes.c_void_p),
+                     *(None if t is None else ptr(t) for t in tabs),
+                     ctypes.cast(axes, ctypes.c_void_p), ctypes.cast(csts, ctypes.c_void_p),
+                     seed & _MASK, site, min(thr, _MASK), stream_handle(device)),
+          "dropout_keep_mask")
+    keep_mask.launches += 1
+    return out
+
+
+def keep_mask(seed: int, site: int, row, *index, p: float,
+              device=None) -> torch.Tensor:
+    """Boolean keep mask of dropout rate ``p`` at ``(row, *index)``.
+
+    ``row`` and the index entries are integers or int64 tensors that
+    broadcast together; ``index`` is ``(a, b)`` or ``(a, b, c)``.  On the
+    CPU the plain version (:func:`reference_keep_mask`) computes it; on the
+    card the mask kernel, which takes each index as a constant or a tensor
+    along one axis of the mask."""
+    parts, device = _index_parts(row, index, device)
+    if device.type == "cpu":
+        return reference_keep_mask(seed, site, row, *index, p=p, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"keep_mask: unsupported device {device}")
+    return _cuda_keep_mask(seed, site, parts, device, keep_threshold(p))
+
+
+keep_mask.launches = 0
 
 
 def row_mask(seed: int, site: int, x: torch.Tensor, row0: int, p: float) -> torch.Tensor:

@@ -13,12 +13,15 @@ CPU on its own).  Dropout seeds come from a ``torch.Generator`` seeded with
 ``seed + 1`` (the JAX trainer's ``PRNGKey(seed + 1)``); initial weights from
 one seeded with ``seed``.  Importing ``core.precision`` turns TF32 off, so
 the fp32 encoder and decoder convolutions run in full fp32 on the card.
-Not ported yet (ROADMAP.md): mesh layouts of more than one device (Queue 1
-item 6), the step profiler, orbax checkpoints.
+``gradient_checkpointing`` turns on the model's per-block remat
+(``remat_blocks``), as the JAX trainer maps it.  Not ported yet
+(ROADMAP.md): mesh layouts of more than one device, the step profiler,
+orbax checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, Optional
@@ -38,7 +41,15 @@ from .schedule import EarlyStopping
 from .state import LRController, make_optimizer
 from .step import eval_step, train_step
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "training_model_config"]
+
+
+def training_model_config(config: Config):
+    """The model section a training run builds: ``gradient_checkpointing``
+    turns on ``remat_blocks`` (the JAX trainer's mapping)."""
+    if config.training.gradient_checkpointing and not config.model.remat_blocks:
+        return dataclasses.replace(config.model, remat_blocks=True)
+    return config.model
 
 
 def _mono(x: np.ndarray) -> np.ndarray:
@@ -59,9 +70,9 @@ class Trainer:
                 f"mesh dp={config.mesh.dp} mp={config.mesh.mp} asks for more "
                 f"than one device: parallel runs are not ported yet "
                 f"(ROADMAP.md, Queue 1 item 6)")
-        if config.training.gradient_checkpointing or config.training.profile_steps:
-            raise NotImplementedError("gradient_checkpointing and the step profiler "
-                                      "are not ported yet (ROADMAP.md, Queue 1 item 3)")
+        if config.training.profile_steps:
+            raise NotImplementedError("the step profiler is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 4)")
         self.verbose = verbose
         set_seed(config.seed)
         self.output_dir = output_dir or config.paths.output_dir
@@ -70,7 +81,7 @@ class Trainer:
 
         tcfg = config.training
         self.precision = precision_from_amp(tcfg.use_amp, tcfg.amp_dtype)
-        self.model = build_model(config.model, self.precision,
+        self.model = build_model(training_model_config(config), self.precision,
                                  torch.Generator().manual_seed(config.seed)).to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), tcfg)
         self.lr_ctl = LRController(tcfg)

@@ -70,8 +70,18 @@ def test_cli_separates_to_four_stems(tmp_path, rng, monkeypatch):
 
 
 def test_cli_requires_a_device(tmp_path):
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--input", "a.wav", "--checkpoint", "m.pth"])
+    """No silent CPU: the CLIs and the serving API run on the card unless the
+    caller asks for the CPU."""
+    from mss_tf_locoformer_tpu_torch.cli import train as train_cli
+    from mss_tf_locoformer_tpu_torch.infer.separate import make_engine
+    args = ["--input", "a.wav", "--checkpoint", "m.pth"]
+    assert cli.parse_args(args).device == "cuda"
+    assert cli.parse_args(args + ["--device", "cpu"]).device == "cpu"
+    assert train_cli.parse_args(["--config", "c.json"]).device == "cuda"
+    model = build_model(ModelConfig(n_fft=256, hop_length=64, n_layers=1, emb_dim=32,
+                                    attention_dim=32, n_heads=2, ffn_hidden_dim=32))
+    assert make_engine(model).device.type == "cuda"
+    assert make_engine(model, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("path", MSS_CONFIGS, ids=os.path.basename)

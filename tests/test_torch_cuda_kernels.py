@@ -248,19 +248,101 @@ def test_swiglu_ffn_kernel(dev, r, seq, c, inner, k, drop):
     _close(got, SF.reference_swiglu_conv_deconv(x, *w, k, drop, 1234, 7), STEP_TOL)
 
 
-def test_unfused_kernels_refuse_gradients(dev):
-    """No backward kernel yet: a gradient through #6 or #8 raises (never a
-    detached output); without one they launch."""
-    q = torch.randn(1, 2, 8, 16, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        FA.flash_attention(q, q, q)
-    x, w = _core_inputs(dev, 1, 8, 32, 32, 4)
-    w = [t.requires_grad_(True) for t in w]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        SF.swiglu_conv_deconv(x, *w, 4)
+def _all_grads(fn, inputs, g):
+    """``(out, grads of every input)`` of ``fn(*inputs)`` for the cotangent ``g``."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+def _grad_close(got, ref):
+    """bf16 kernel gradients against fp32 autograd through the plain
+    version: the first (the rows) within STEP_TOL x max|ref|, the weight
+    gradients (sums over every position) by relative L2 within 2e-2."""
+    _close(got[0], ref[0], STEP_TOL)
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) < 2e-2
+
+
+@pytest.mark.parametrize("r,h,seq,d,rope", [(2, 3, 65, 12, True), (1, 16, 130, 16, True),
+                                            (2, 2, 37, 24, False), (3, 4, 1, 16, True),
+                                            (1, 2, 200, 64, True)])
+def test_flash_attention_backward_kernel(dev, r, h, seq, d, rope):
+    """#7 through the autograd Function on the MHSA's strided views against
+    autograd through the plain version in fp32; without a gradient no stash
+    and no backward launch."""
+    g = torch.Generator().manual_seed(7)
+    qkv = (1.5 * torch.randn(r, seq, 3, h, d, generator=g)).to(dev, torch.bfloat16)
+    go = torch.randn(r, h, seq, d, generator=g).to(dev, torch.bfloat16)
+    leaf = qkv.detach().requires_grad_(True)
+    q, k, v = leaf.permute(2, 0, 3, 1, 4)
+    n = FA.flash_attention_backward.launches
+    out = FA.flash_attention(q, k, v, rope)
+    (got,) = torch.autograd.grad(out, leaf, go)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_backward.launches == n + 1
+    ref_leaf = qkv.float().requires_grad_(True)
+    rq, rk, rv = ref_leaf.permute(2, 0, 3, 1, 4)
+    ref_out = FA.reference_flash_attention(rq, rk, rv, rope)
+    (ref,) = torch.autograd.grad(ref_out, ref_leaf, go.float())
+    _close(out, ref_out, STEP_TOL)
+    for i in range(3):     # dq, dk, dv, each against its own scale
+        if seq == 1 and i < 2:   # softmax over one key: no gradient reaches q or k
+            assert got[:, :, i].abs().max() < 1e-5
+        else:
+            _close(got[:, :, i], ref[:, :, i], STEP_TOL)
     with torch.no_grad():
-        FA.flash_attention(q, q, q)
-        SF.swiglu_conv_deconv(x, *w, 4)
+        FA.flash_attention(q, k, v, rope)
+    assert FA.flash_attention_backward.launches == n + 1
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(2, 37, 48, 192, 4), (2, 130, 256, 96, 4),
+                                             (3, 5, 16, 32, 8), (1, 61, 256, 1024, 4),
+                                             (2, 70, 96, 200, 3), (1, 9, 112, 36, 2)])
+def test_swiglu_ffn_backward_kernel(dev, r, seq, c, inner, k, drop):
+    """#9 through the autograd Function against autograd through the plain
+    version in fp32, the inner mask replayed (rows offset by 7)."""
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    gen = torch.Generator().manual_seed(8)
+    go = torch.randn(*x.shape, generator=gen).to(dev, torch.bfloat16)
+    n = SF.swiglu_ffn_backward.launches
+    out, got = _all_grads(lambda *a: SF.swiglu_conv_deconv(*a, k, drop, 1234, 7), [x, *w], go)
+    torch.cuda.synchronize()
+    assert SF.swiglu_ffn_backward.launches == n + 1
+    ref_out, ref = _all_grads(lambda *a: SF.reference_swiglu_conv_deconv(*a, k, drop, 1234, 7),
+                          [x.float(), *w], go.float())
+    _close(out, ref_out, STEP_TOL)
+    _grad_close(got, ref)
+
+
+@pytest.mark.parametrize("shape_kind", ["rows", "inner", "group", "probability"])
+def test_dropout_mask_kernel(dev, shape_kind):
+    """The mask kernel gives the plain version's bits for every index
+    layout the port uses."""
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    from mss_tf_locoformer_tpu_torch.ops.attention import group_keep_mask
+    a = lambda n: torch.arange(n, device=dev)
+    if shape_kind == "rows":        # [R, L, C], rows offset
+        args = (7, D.SITE_FFN_OUTER, (a(5) + 3)[:, None, None], a(33)[None, :, None],
+                a(50)[None, None])
+    elif shape_kind == "inner":     # [R, I, Lc]: b (the channel) not last
+        args = (7, D.SITE_FFN_INNER, a(3)[:, None, None], a(41)[None, None], a(36)[None, :, None])
+    elif shape_kind == "group":     # [G, L, L], rows gathered
+        rows = torch.tensor([4, 0, 9], device=dev)
+        f = torch.arange(1, 6, device=dev)
+        args = (9, D.SITE_ATTN_PROB, rows[f // 2][:, None, None], (f % 2)[:, None, None],
+                a(37)[None, None], a(37)[None, :, None])
+        assert torch.equal(group_keep_mask(9, rows, 2, 37, 1, 6, 0.2),
+                           D.reference_keep_mask(*args, p=0.2))
+    else:                           # [R, H, L, L], one row
+        args = (2, D.SITE_ATTN_PROB, torch.tensor([6], device=dev).reshape(-1, 1, 1, 1),
+                a(3)[None, :, None, None], a(19)[None, None, None], a(19)[None, None, :, None])
+    n = D.keep_mask.launches
+    got = D.keep_mask(*args, p=0.2)
+    assert D.keep_mask.launches == n + 1
+    assert torch.equal(got, D.reference_keep_mask(*args, p=0.2))
 
 
 def test_gate_bytes_match_the_compiled_layouts(dev):
@@ -274,3 +356,5 @@ def test_gate_bytes_match_the_compiled_layouts(dev):
                 assert FB.compiled_step_bytes(c, k, training) == FB.step_bytes(c, k, training)
     for c in range(16, 257, 16):
         assert SF.compiled_core_bytes(c) == SF.core_bytes(c)
+        for k in (2, 4, 8):
+            assert SF.compiled_backward_bytes(c, k) == SF.backward_bytes(c, k)

@@ -63,8 +63,7 @@ def test_config_rejects_unknown_keys_and_wide_meshes(tmp_path):
                         "--output_dir", str(tmp_path / "o")])
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         train_cli.main(["--config", str(path), "--device", "cpu", "--distributed"])
-    with pytest.raises(SystemExit):
-        train_cli.parse_args(["--config", str(path)])  # --device is required
+    assert train_cli.parse_args(["--config", str(path)]).device == "cuda"  # the default
 
 
 @pytest.mark.parametrize("loss_type", ["combined", "si_sdr", "l1", "l2"])
@@ -207,8 +206,22 @@ def test_dataset_and_loader_match_jax(musdb_root):
                           num_workers=3, collate=lambda b: b)
     serial = DataLoader(list(range(11)), batch_size=3, shuffle=True, seed=5, collate=lambda b: b)
     assert list(threaded) == list(serial)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        MUSDBDataset(str(musdb_root), "train", augmentation=True, **kw)
+    # augmentation: one seed gives the JAX dataset's arrays, the MP3
+    # simulation (mixture alone) and the noise included (the noise only
+    # survives without rebuild_mixture, in both datasets)
+    for aug, rebuild in (({"mp3_prob": 1.0}, True),
+                         ({"mp3_prob": 0.0, "noise_prob": 1.0}, False), (True, True)):
+        ours = MUSDBDataset(str(musdb_root), "train", augmentation=aug,
+                            rebuild_mixture=rebuild, **kw)
+        theirs = JaxMUSDB(str(musdb_root), "train", metadata_cache=False, augmentation=aug,
+                          rebuild_mixture=rebuild, **kw)
+        for _ in range(2):
+            a, b = ours[0], theirs[0]
+            assert set(a) == set(b)
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{aug} {k}")
+        if aug is not True:   # the mixture is no longer the sum of the stems
+            assert not np.allclose(a["mixture"], sum(a[k] for k in STEMS), atol=1e-4)
 
 
 def test_trainer_fits_resumes_and_checkpoint_separates(musdb_root, tmp_path, rng,

@@ -203,14 +203,14 @@ def test_xlarge_structure_model_matches_jax(rng, monkeypatch):
 @pytest.mark.parametrize("drop", [0.0, 0.3])
 def test_chunked_attention_equals_one_piece(rng, monkeypatch, drop):
     q, k, v = (_t(rng.standard_normal((3, 2, 33, 8))) for _ in range(3))
-    keep = _t(rng.random((3, 2, 33, 33))) > drop if drop else None
-    whole = plain_attention.dot_product_attention(q, k, v, keep, drop)
+    rows = torch.tensor([4, 9, 2])
+    whole = plain_attention.dot_product_attention(q, k, v, drop, 17, rows)
     groups = []
     real = plain_attention._attention
     monkeypatch.setattr(plain_attention, "_attention",
                         lambda *a: groups.append(a[0].shape[0]) or real(*a))
     monkeypatch.setattr(plain_attention, "MAX_SCORE_BYTES", 4 * 33 * 33 * 4)
-    chunked = plain_attention.dot_product_attention(q, k, v, keep, drop)
+    chunked = plain_attention.dot_product_attention(q, k, v, drop, 17, rows)
     assert groups == [4, 2]        # 6 rows (3 x 2 heads) in groups of 4
     torch.testing.assert_close(chunked, whole, atol=1e-6, rtol=1e-6)
 
