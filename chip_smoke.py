@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port (``mss_tf_locoformer_tpu_torch``) at the base config of
-``configs/musdb18.yaml``, the xlarge config of ``configs/musdb18_xlarge.yaml``
-and the small config of ``configs/musdb18_small.yaml`` (all built here in
-code: the GPU machine may have no PyYAML), with seeded random weights,
-through its main paths: base serving (the separation CLI), xlarge serving
-(the separation CLI, through the unfused route's kernels), base training
-(the training CLI) and training through the unfused route (xlarge and
-small).  Phases, each of which raises on failure (exit code != 0, no result
-line):
+``configs/musdb18.yaml``, the xlarge config of ``configs/musdb18_xlarge.yaml``,
+the small config of ``configs/musdb18_small.yaml`` and the BS-Locoformer
+config of ``configs/musdb18_bslocoformer.yaml`` (all built here in code: the
+GPU machine may have no PyYAML), with seeded random weights, through its main
+paths: base serving (the separation CLI), xlarge serving (the separation
+CLI, through the unfused route's kernels), base training (the training CLI),
+training through the unfused route (xlarge and small), BS-Locoformer stereo
+serving (the separation CLI) and evaluation (the evaluation CLI, base and
+BS-Locoformer).  Phases, each of which raises on failure (exit code != 0, no
+result line):
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
@@ -73,7 +75,22 @@ line):
      the small config's published sections (batch 16 x 3 s, SI-SDR, #6, #7,
      #8, #9) and the xlarge config's training section (augmentation,
      warmup, accumulation 2, gradient checkpointing; cut to 1 layer and
-     1 s segments), one epoch of 2 steps each, then ``--resume``.
+     1 s segments), one epoch of 2 steps each, then ``--resume``;
+ 15. the iSTFT kernel (#10, an API of its own: no model calls it) against
+     its plain version at the BS-Locoformer and base engine batches' shapes
+     (frames, the whole iSTFT and its gradient), timed beside its bound and
+     ``torch.istft``;
+ 16. BS-Locoformer serving at full width and depth (6 layers, C 128, 4 heads
+     of 32, 62 bands, stereo, masking): the FFN and attention steps against
+     their plain versions at its engine batch's shapes (freq [1380, 62, 128],
+     time [124, 690, 128]); slice parity with exact launch counts per
+     forward (12 FFN steps, 12 attention steps); the separation CLI on the
+     20 s stereo WAV (4 true-stereo stems); the forward in turns and its
+     profile;
+ 17. evaluation: the evaluation CLI on a synthetic MUSDB test subset (2
+     tracks of 4 s) for the base config (mono) and BS-Locoformer (stereo),
+     ``--bss_eval`` on, ``results.json`` checked, exact launch counts, and
+     each stem's SI-SDR on the kernel route held against the plain route's.
 
 ``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
 time breakdown of one xlarge micro-batch train step (minutes of trace
@@ -124,6 +141,20 @@ def xlarge_model_config():
         conv1d_kernel=4, conv1d_shift=1, dropout=0.1, eps=1.0e-5)
 
 
+def bs_model_config():
+    """The model section of ``configs/musdb18_bslocoformer.yaml``: C 128, 4
+    heads of 32, one FFN of 384 per path, 62 bands at n_fft 2048, stereo,
+    masking; the fused steps' gates admit every step."""
+    from mss_tf_locoformer_tpu_torch.core.config import BSModelConfig
+    return BSModelConfig(
+        name="bslocoformer", n_fft=2048, hop_length=512, stft_size=2048,
+        sample_rate=44100, masking=True, stereo=True, n_sources=4, n_layers=6,
+        emb_dim=128, norm_type="rmsgroupnorm", num_groups=4, tf_order="ft",
+        n_heads=4, flash_attention=True, fused_ffn=True, attention_dim=128,
+        pos_enc="rope", ffn_type="swiglu_conv1d", ffn_hidden_dim=384,
+        conv1d_kernel=4, conv1d_shift=1, dropout=0.1, eps=1.0e-5)
+
+
 def _plain_config(cfg):
     import dataclasses
     return dataclasses.replace(cfg, fused_stft=False, fused_ffn=False,
@@ -169,17 +200,19 @@ def phase_build():
 
 
 def phase_gates():
-    """The route the step gates give the base and xlarge configs (shapes
-    only, the same answer on the CPU): the fused steps for base, the unfused
-    route for xlarge, in eval and in training."""
+    """The route the step gates give the base, xlarge and BS-Locoformer
+    configs (shapes only, the same answer on the CPU): the fused steps for
+    base and BS-Locoformer, the unfused route for xlarge, in eval and in
+    training."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import SMEM_OPTIN
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     for name, cfg, fused in (("base", base_model_config(), True),
-                             ("xlarge", xlarge_model_config(), False)):
+                             ("xlarge", xlarge_model_config(), False),
+                             ("bs", bs_model_config(), True)):
         c, a, h, k = cfg.emb_dim, cfg.attention_dim, cfg.n_heads, cfg.conv1d_kernel
         for training in (False, True):
-            routes = ([FB.supports_step(c, i, k, training) for i in cfg.ffn_hidden_dim]
+            routes = ([FB.supports_step(c, i, k, training) for i in _inner_dims(cfg)]
                       + [AB.supports_block(c, a, h, training)])
             print(f"[gates] {name} (C {c}, H {h}), {'training' if training else 'eval'}: "
                   f"FFN step {FB.step_bytes(c, k, training)} B, attention step "
@@ -251,9 +284,9 @@ def _main_path_steps(cfg):
             ("time", BATCH * cfg.n_freqs, n_frames))
 
 
-def _step_inputs(gen, rows, seq, device):
+def _step_inputs(gen, rows, seq, device, c=96):
     import torch
-    c, inner, k = 96, 384, 4
+    inner, k = 384, 4
     x = _rand(gen, (rows, seq, c), 0.5).to(device, torch.bfloat16)
     gamma = (1.0 + _rand(gen, (c,), 0.1)).to(device)
     ffn = (_uniform(gen, (2 * inner, c, k), (c * k) ** -0.5),
@@ -321,6 +354,11 @@ def phase_kernels(results):
 SLICE_REL_L2 = 5e-2
 
 
+def _mix_shape(cfg, batch, samples):
+    """A mixture batch's shape: ``[B, 2, T]`` for a stereo model, else ``[B, T]``."""
+    return (batch, 2, samples) if getattr(cfg, "stereo", False) else (batch, samples)
+
+
 def _model_pair(cfg=None):
     """The bf16 model (the base config by default) on the card twice, on the
     same seeded weights: with its kernels, and with every kernel replaced by
@@ -336,26 +374,38 @@ def _model_pair(cfg=None):
     return fused, plain
 
 
-def phase_slice_parity(cfg=None):
+def phase_slice_parity(cfg=None, need=None):
+    """Kernel path against plain path on 1 s of audio (batch 1), per stem;
+    the plain model with its blocks skipped must miss the bound.  With
+    ``need``, the kernel path's launches in that one forward must be exactly
+    ``need`` (counters not named: 0)."""
     import torch
     fused, plain = _model_pair(cfg)
+    cfg = fused.config
     gen = torch.Generator().manual_seed(SEED + 1)
-    mix = _rand(gen, (1, SR), 0.1).to(fused.deconv.weight.device)
+    shape = _mix_shape(cfg, 1, SR)
+    mix = _rand(gen, shape, 0.1).to("cuda")
+    counters = _counters()
     with torch.inference_mode():
+        for fn in counters.values():
+            fn.launches = 0
         a = fused(mix)
         torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
         b = plain(mix)
         blocks, plain.blocks = plain.blocks, torch.nn.ModuleList()
         skipped = plain(mix)
         plain.blocks = blocks
+    if need is not None:
+        _check_launches(f"parity {cfg.name}", launches, need)
     worst, least_skip = 0.0, float("inf")
     for name in a:
-        if a[name].shape != (1, SR) or not torch.isfinite(a[name]).all():
-            raise AssertionError(f"slice parity: stem {name} is not finite [1, {SR}]")
+        if a[name].shape != shape or not torch.isfinite(a[name]).all():
+            raise AssertionError(f"slice parity: stem {name} is not finite {list(shape)}")
         rel = ((a[name] - b[name]).norm() / b[name].norm()).item()
         skip = ((skipped[name] - b[name]).norm() / b[name].norm()).item()
         worst, least_skip = max(worst, rel), min(least_skip, skip)
-        print(f"[parity] {name}: relative L2 {rel:.3e} (bound {SLICE_REL_L2:g}); "
+        print(f"[parity] {cfg.name} {name}: relative L2 {rel:.3e} (bound {SLICE_REL_L2:g}); "
               f"blocks skipped {skip:.3e}")
     if not worst <= SLICE_REL_L2:
         raise AssertionError(f"slice parity: relative L2 {worst:.3e} above {SLICE_REL_L2:g}")
@@ -370,7 +420,8 @@ def phase_slice_parity(cfg=None):
 def phase_slice(workdir, cfg=None):
     """The separation CLI on a 20 s stereo WAV with a seeded random-init
     checkpoint of ``cfg`` (the base config by default): the launch counts of
-    the first run, then the wall time of a second."""
+    the first run, then the wall time of a second.  A stereo model's stems
+    must be true stereo (channels not equal)."""
     import dataclasses
 
     import numpy as np
@@ -408,8 +459,12 @@ def phase_slice(workdir, cfg=None):
         audio, sr = load_audio(path)
         if audio.shape != (2, seconds * SR) or sr != SR or not np.isfinite(audio).all():
             raise AssertionError(f"{path}: got {audio.shape} at {sr} Hz")
+        stereo = not np.array_equal(audio[0], audio[1])
+        if stereo != getattr(cfg, "stereo", False):
+            raise AssertionError(f"{path}: stereo stem {stereo}, stereo model "
+                                 f"{getattr(cfg, 'stereo', False)}")
         print(f"[slice] {path}: {audio.shape[0]} x {audio.shape[1]} at {sr} Hz, "
-              f"peak {np.abs(audio).max():.3f}")
+              f"peak {np.abs(audio).max():.3f}, {'stereo' if stereo else 'mono duplicated'}")
 
     t0 = time.perf_counter()
     cli.main(argv)
@@ -436,8 +491,8 @@ def phase_forward(cfg=None, reps: int = 3):
     ``{path: (mean ms per forward, peak bytes)}``."""
     import torch
     models = dict(zip(("kernel", "plain"), _model_pair(cfg)))
-    mix = _rand(torch.Generator().manual_seed(SEED + 2), (BATCH, CHUNK), 0.1).to(
-        models["kernel"].deconv.weight.device)
+    mix = _rand(torch.Generator().manual_seed(SEED + 2),
+                _mix_shape(models["kernel"].config, BATCH, CHUNK), 0.1).to("cuda")
     peak, times = {}, {"kernel": [], "plain": []}
     with torch.inference_mode():
         for path, model in models.items():
@@ -470,9 +525,10 @@ def phase_profile(cfg=None, top: int = 8):
     from torch.profiler import ProfilerActivity, profile
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import build_model
-    model = build_model(cfg or base_model_config(), BF16,
-                        torch.Generator().manual_seed(SEED)).to("cuda").eval()
-    mix = _rand(torch.Generator().manual_seed(SEED + 2), (BATCH, CHUNK), 0.1).to("cuda")
+    cfg = cfg or base_model_config()
+    model = build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to("cuda").eval()
+    mix = _rand(torch.Generator().manual_seed(SEED + 2), _mix_shape(cfg, BATCH, CHUNK),
+                0.1).to("cuda")
     with torch.inference_mode():
         model(mix)
         torch.cuda.synchronize()
@@ -904,7 +960,8 @@ def _counters():
             "attention_step_backward": AB.attention_step_backward,
             "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv,
             "flash_attention_backward": FA.flash_attention_backward,
-            "swiglu_ffn_backward": SF.swiglu_ffn_backward, "dropout_mask": D.keep_mask}
+            "swiglu_ffn_backward": SF.swiglu_ffn_backward, "dropout_mask": D.keep_mask,
+            "istft": SK.istft_fused}
 
 
 def _train_models():
@@ -1472,6 +1529,216 @@ def phase_unfused_train_cli(workdir, name):
     return launches[1], wall
 
 
+# ------------------------------------------------ iSTFT, BS-Locoformer, evaluation
+
+# The iSTFT (#10): both sides fp32 (the kernel sums 2F products per sample in
+# order, cuFFT by butterflies); expected ~1e-6 of max|ref|, so the STFT's
+# 1e-4 leaves room and still catches any wrong bin, frame or window sample
+# (those are O(1) relative).
+ISTFT_TOL = 1e-4
+
+
+def istft_work(r, n, n_bins, n_fft):
+    """(FLOP, bytes) of the windowed frames of ``r`` spectra of ``n`` frames:
+    one product over K = 2F per frame sample; the complex spectrum and the
+    table read once, the fp32 frames written once."""
+    return (2.0 * 2 * r * n * n_bins * n_fft,
+            r * n_bins * n * 8.0 + 2 * n_bins * n_fft * 4.0 + r * n * n_fft * 4.0)
+
+
+def phase_istft_kernel(results):
+    """#10 against its plain version at the BS-Locoformer engine batch (16
+    spectra: 2 chunks x 4 stems x 2 channels) and the base engine batch (8):
+    the frames, the whole iSTFT and its gradient; then the launches of one
+    call at each shape with the counters at 0 (no model calls #10), and the
+    times beside the bound and ``torch.istft``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+    cfg = base_model_config()
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    gen = torch.Generator().manual_seed(SEED + 9)
+    specs = {}
+    for tag, r in (("bs", BATCH * 4 * 2), ("base", BATCH * 4)):
+        audio = _rand(gen, (r, CHUNK), 0.1).to("cuda")
+        spec = SK.reference_stft(audio, n_fft, hop)
+        specs[tag] = spec
+        shape = f"[{r}, {spec.shape[1]}, {spec.shape[2]}]"
+        got = SK.windowed_frames(spec, n_fft)
+        torch.cuda.synchronize()
+        err = _compare(f"istft frames {tag} {shape} -> {list(got.shape)}", got,
+                       SK.reference_windowed_frames(spec, n_fft), ISTFT_TOL)
+        del got
+        s = spec.detach().requires_grad_(True)
+        out = SK.istft_fused(s, n_fft, hop, CHUNK)
+        g = _rand(gen, tuple(out.shape), 1.0).to("cuda")
+        (dgot,) = torch.autograd.grad(out, s, g)
+        torch.cuda.synchronize()
+        ref = SK.reference_istft(s, n_fft, hop, CHUNK)
+        (dref,) = torch.autograd.grad(ref, s, g)
+        err = max(err, _compare(f"istft {tag} {shape} -> {list(out.shape)}", out, ref,
+                                ISTFT_TOL, null=torch.zeros_like(ref)))
+        _compare(f"istft gradient {tag} {shape}", dgot, dref, ISTFT_TOL)
+        del s, out, g, dgot, ref, dref
+        window = torch.hann_window(n_fft, device="cuda")
+        r_ = results.setdefault("istft", dict(err=0.0))
+        r_["err"] = max(r_["err"], err)
+        r_[tag] = dict(
+            shape=tuple(spec.shape),
+            ms=_time_ms(lambda: SK.windowed_frames(spec, n_fft)),
+            plain_ms=_time_ms(lambda: SK.reference_windowed_frames(spec, n_fft)),
+            istft_ms=_time_ms(lambda: SK.istft_fused(spec, n_fft, hop, CHUNK)),
+            library_ms=_time_ms(lambda: torch.istft(spec, n_fft, hop, window=window,
+                                                    length=CHUNK)),
+            bound=_bound(*istft_work(r, spec.shape[2], spec.shape[1], n_fft), PEAK_FP32))
+        torch.cuda.empty_cache()
+    SK.istft_fused.launches = 0
+    with torch.inference_mode():
+        for spec in specs.values():
+            SK.istft_fused(spec, n_fft, hop, CHUNK)
+    torch.cuda.synchronize()
+    results["istft"]["launches"] = SK.istft_fused.launches
+    _check_launches("istft", {"istft": SK.istft_fused.launches}, {"istft": len(specs)})
+    del specs
+    torch.cuda.empty_cache()
+
+
+def _bs_main_path_steps(cfg):
+    """(path, rows, sequence) of the steps in one BS-Locoformer engine batch:
+    the freq path attends over 62 bands on rows B*T, the time path over
+    frames on rows B*bands."""
+    from mss_tf_locoformer_tpu_torch.models.bslocoformer import compute_bands
+    n_frames = 1 + CHUNK // cfg.hop_length
+    bands = len(compute_bands(cfg.stft_size, cfg.sample_rate))
+    return (("freq", BATCH * n_frames, bands), ("time", BATCH * bands, n_frames))
+
+
+def phase_bs_kernels(results):
+    """The FFN step (#2) and the attention step (#3) against their plain
+    versions at the BS-Locoformer engine batch's shapes (C 128, I 384, 4
+    heads of 32: no head padding), bf16, timed."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    cfg = bs_model_config()
+    c, dev = cfg.emb_dim, torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    fargs = (cfg.conv1d_kernel, cfg.num_groups, cfg.eps)
+    aargs = (cfg.n_heads, cfg.num_groups, cfg.eps)
+    for path, rows, seq in _bs_main_path_steps(cfg):
+        x, gamma, ffn, attn = _step_inputs(gen, rows, seq, dev, c)
+        for name, kfn, pfn, w, args, work in (
+                ("ffn_step", FB.fused_norm_ffn_residual, FB.reference_norm_ffn_residual,
+                 ffn, fargs, ffn_work(rows, seq, c)),
+                ("attention_step", AB.fused_attention_block, AB.reference_attention_block,
+                 attn, aargs, attn_work(rows, seq, c, cfg.attention_dim, cfg.n_heads))):
+            got = kfn(x, gamma, *w, *args)
+            torch.cuda.synchronize()
+            err = _compare(f"{name} bs {path} [{rows}, {seq}, {c}]", got,
+                           pfn(x, gamma, *w, *args), STEP_TOL, null=x)
+            del got
+            r = results.setdefault(name, dict(err=0.0))
+            r["err"] = max(r["err"], err)
+            r["bs " + path] = dict(
+                shape=(rows, seq, c), ms=_time_ms(lambda: kfn(x, gamma, *w, *args)),
+                plain_ms=_time_ms(lambda: pfn(x, gamma, *w, *args), iters=3),
+                bound=_bound(work[0], work[1]))
+            torch.cuda.empty_cache()
+        del x, gamma, ffn, attn
+        torch.cuda.empty_cache()
+
+
+# Evaluation: each stem's SI-SDR on the kernel route against the plain route.
+# The routes' stems differ by bf16 rounding (slice parity: within 5e-2
+# relative L2, ~1e-2 measured).  With random weights an estimate's projection
+# on its target is small (SI-SDR -10 to -35 dB), and there a difference of
+# that size can move the log ratio by tenths of a dB; 1 dB bounds the
+# routes' agreement on every stem of every track.
+EVAL_SI_SDR_DB = 1.0
+
+
+def _eval_config(root, cfg):
+    import dataclasses
+    return {"dataset": {"root_dir": root, "sample_rate": SR,
+                        "sources": ["vocals", "drums", "bass", "other"]},
+            "model": dataclasses.asdict(cfg),
+            "evaluation": {"metrics": ["si_sdr", "sdr", "sar", "sir"]}}
+
+
+def _check_results(tag, results, tracks, bss):
+    """Every track, stem, ``average`` and ``summary`` entry present and finite."""
+    import math
+    stems = ("vocals", "drums", "bass", "other", "average")
+    metrics = {"si_sdr", "sdr", "sar", "sir"} | (
+        {"bss_sdr", "bss_sir", "bss_sar"} if bss else set())
+    if sorted(results["per_track"]) != tracks:
+        raise AssertionError(f"evaluate {tag}: tracks {sorted(results['per_track'])}")
+    for where, table in list(results["per_track"].items()) + [("summary", results["summary"])]:
+        for stem in stems:
+            vals = table.get(stem, {})
+            if set(vals) != metrics or not all(math.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"evaluate {tag}: {where} {stem}: {vals}")
+
+
+def phase_evaluate(workdir):
+    """The evaluation CLI on a synthetic MUSDB test subset (2 tracks of 4 s,
+    one forward each) with a seeded random checkpoint: the base config (mono
+    stems) and BS-Locoformer (stereo stems), kernel route with ``--bss_eval``
+    (exact launch counts, ``results.json`` complete and finite), then the
+    plain route on the same checkpoint; each track's per-stem SI-SDR of the
+    two routes within ``EVAL_SI_SDR_DB``.  Returns ``{tag: (kernel-route
+    wall s, launches)}``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import evaluate as cli
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    root = os.path.join(workdir, "musdb")
+    _write_musdb(root, n_train=0, n_test=2)
+    tracks = ["track00", "track01"]
+    counters = _counters()
+    out = {}
+    for tag, cfg, need in (("base", base_model_config(),
+                            {"stft": 2, "ffn_step": 32, "attention_step": 16}),
+                           ("bs", bs_model_config(), {"ffn_step": 24, "attention_step": 24})):
+        ckpt = os.path.join(workdir, f"{tag}.pth")
+        torch.save(build_model(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict(),
+                   ckpt)
+        scores = {}
+        for route, model_cfg in (("kernel", cfg), ("plain", _plain_config(cfg))):
+            cfg_path = os.path.join(workdir, f"{tag}_{route}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(_eval_config(root, model_cfg), f)
+            out_dir = os.path.join(workdir, f"eval_{tag}_{route}")
+            argv = ["--config", cfg_path, "--checkpoint", ckpt, "--output_dir", out_dir,
+                    "--device", "cuda"] + (["--bss_eval"] if route == "kernel" else [])
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            with open(os.path.join(out_dir, "results.json")) as f:
+                results = json.load(f)
+            _check_results(f"{tag} {route}", results, tracks, route == "kernel")
+            scores[route] = results["per_track"]
+            if route == "kernel":
+                _check_launches(f"evaluate {tag}", launches, need)
+                out[tag] = (wall, launches)
+                avg = results["summary"]["average"]
+                print(f"[evaluate] {tag}: {len(tracks)} tracks in {wall:.1f} s (BSS Eval "
+                      f"included); mean SI-SDR {avg['si_sdr']:.2f} dB, BSS SDR "
+                      f"{avg['bss_sdr']:.2f} dB")
+        worst = 0.0
+        for track in tracks:
+            for stem in ("vocals", "drums", "bass", "other"):
+                k, p = scores["kernel"][track][stem]["si_sdr"], scores["plain"][track][stem]["si_sdr"]
+                worst = max(worst, abs(k - p))
+                print(f"[evaluate] {tag} {track} {stem}: SI-SDR kernel {k:.3f} dB, "
+                      f"plain {p:.3f} dB")
+        if not worst <= EVAL_SI_SDR_DB:
+            raise AssertionError(f"evaluate {tag}: SI-SDR of the routes {worst:.3f} dB apart")
+    return out
+
+
 def profile_main():
     """``python3 chip_smoke.py --profile-xlarge-train``: the device-time
     breakdown of one xlarge micro-batch train step, on its own."""
@@ -1508,7 +1775,7 @@ def main():
     phase_gates()
     results = {}
     phase_kernels(results)
-    phase_slice_parity()
+    phase_slice_parity(need={"stft": 1, "ffn_step": 16, "attention_step": 8})
     with tempfile.TemporaryDirectory() as workdir:
         launches, wall, seconds = phase_slice(workdir)
     # the fused steps and nothing else: 2 forwards (3 chunks in batches of 2)
@@ -1517,7 +1784,7 @@ def main():
 
     xl = xlarge_model_config()
     phase_xlarge_kernels(results)
-    phase_slice_parity(xl)
+    phase_slice_parity(xl, {"stft": 1, "flash_attention": 24, "swiglu_ffn": 48})
     with tempfile.TemporaryDirectory() as workdir:
         xl_launches, xl_wall, _ = phase_slice(workdir, xl)
     # per forward 2 paths x 12 layers: 1 flash attention and 2 FFN cores each
@@ -1539,6 +1806,19 @@ def main():
     for tag in ("small", "xlarge"):
         with tempfile.TemporaryDirectory() as workdir:
             unfused_cli[tag] = phase_unfused_train_cli(workdir, tag)
+
+    phase_istft_kernel(results)
+    bs = bs_model_config()
+    phase_bs_kernels(results)
+    # per forward 2 paths x 6 layers: one FFN step and one attention step each
+    phase_slice_parity(bs, {"ffn_step": 12, "attention_step": 12})
+    with tempfile.TemporaryDirectory() as workdir:
+        bs_launches, bs_wall, _ = phase_slice(workdir, bs)
+    _check_launches("bs slice", bs_launches, {"ffn_step": 24, "attention_step": 24})
+    bs_forward = phase_forward(bs)
+    profiles["bs"] = phase_profile(bs)
+    with tempfile.TemporaryDirectory() as workdir:
+        evaluation = phase_evaluate(workdir)
 
     card = f"({smi})"
     print(f"[timing] stft [{BATCH}, {CHUNK}]: kernel {results['stft']['ms']:.3f} ms, "
@@ -1562,8 +1842,20 @@ def main():
             print(f"[timing] xlarge {k} {path} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
                   f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
                   f"({r['bound'][1]}) {card}")
+    for tag in ("bs", "base"):
+        r = results["istft"][tag]
+        print(f"[timing] istft {tag} {list(r['shape'])}: frames kernel {r['ms']:.3f} ms "
+              f"(plain irfft x window {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms, "
+              f"{r['bound'][1]}); whole iSTFT {r['istft_ms']:.3f} ms, torch.istft "
+              f"{r['library_ms']:.3f} ms {card}")
+    for k in ("ffn_step", "attention_step"):
+        for path in ("freq", "time"):
+            r = results[k]["bs " + path]
+            print(f"[timing] bs {k} {path} {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) "
+                  f"{card}")
     audio_s = BATCH * CHUNK / SR
-    for tag, fwd in (("base", forward), ("xlarge", xl_forward)):
+    for tag, fwd in (("base", forward), ("xlarge", xl_forward), ("bs", bs_forward)):
         for path, (ms, peak) in fwd.items():
             print(f"[timing] {tag} forward [{BATCH}, {CHUNK}], {path} path: {ms:.1f} ms, "
                   f"{1e3 * audio_s / ms:.2f}x realtime, peak {peak / 2**30:.2f} GiB {card}")
@@ -1574,7 +1866,7 @@ def main():
                   f"{100 * busy:.1f}% of the wall time; by self device time: " + "; ".join(
                       f"{name} {ms:.1f} ms ({100 * share:.1f}%)" for name, ms, share in rows)
                   + f" {card}")
-    for tag, w in (("base", wall), ("xlarge", xl_wall)):
+    for tag, w in (("base", wall), ("xlarge", xl_wall), ("bs", bs_wall)):
         print(f"[timing] {tag} separation of {seconds} s: {w:.3f} s wall, "
               f"{seconds / w:.2f}x realtime {card}")
     for path, (sec, peak, mb) in train_time.items():
@@ -1607,6 +1899,9 @@ def main():
     print(f"[timing] training CLI, base config (batch 8 = 4 x 2 x 3 s): first run "
           f"{train_wall[1]:.1f} s for 2 steps, resumed run {train_wall[2]:.1f} s for 2 "
           f"steps (data, validation, checkpoint included) {card}")
+    for tag, (w, _) in evaluation.items():
+        print(f"[timing] evaluation CLI, {tag} config: 2 tracks of 4 s in {w:.1f} s "
+              f"(model load, BSS Eval and results.json included) {card}")
 
     # per kernel: the shape its ms, plain_ms and bound_ms are taken at
     fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
@@ -1634,7 +1929,8 @@ def main():
         "swiglu_ffn_backward": ("csrc/swiglu_ffn.cu", "ops/pallas/swiglu_ffn.py:363",
                                 None, None),
         # no Pallas kernel: the JAX package draws these masks in XLA
-        "dropout_mask": ("csrc/dropout.cu", "ops/attention.py:52", None, None)}
+        "dropout_mask": ("csrc/dropout.cu", "ops/attention.py:52", None, None),
+        "istft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:230", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         r = results[k]
@@ -1657,6 +1953,11 @@ def main():
         elif k == "dropout_mask":
             ms, plain_ms, bound = r["ms"], r["plain_ms"], r["bound"]
             main_path = xl_train_launches
+        elif k == "istft":
+            # an API of its own: the launches of its phase's calls
+            b = r["bs"]
+            ms, plain_ms, bound, library_ms = b["ms"], b["plain_ms"], b["bound"], b["library_ms"]
+            main_path = {"istft": r["launches"]}
         else:
             ms, plain_ms = r["freq"][1:]
         entry = {"name": k, "route": "cuda",
@@ -1667,6 +1968,7 @@ def main():
                  "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
+            entry["launches_bs"] = bs_launches[k]
         kernels.append(entry)
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
 """Separation CLI: the JAX package's ``cli/separate.py`` flags, with
 ``--device`` (``cuda`` by default, ``cuda:N``, or ``cpu`` when asked for) —
-the port never falls back to the CPU on its own.
+the port never falls back to the CPU on its own.  The config's ``model:``
+section picks the family: ``name: bslocoformer`` (``stereo: true`` writes
+true stereo stems) or TF-Locoformer.
 
     python -m mss_tf_locoformer_tpu_torch.cli.separate --input mix.wav \\
         --checkpoint model.pth --config configs/musdb18.yaml --device cuda
@@ -13,7 +15,8 @@ import argparse
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Separate music sources using TF-Locoformer (PyTorch/CUDA)")
+        description="Separate music sources using TF-Locoformer or BS-Locoformer "
+                    "(PyTorch/CUDA)")
     p.add_argument("--input", type=str, required=True, help="Input WAV file")
     p.add_argument("--output_dir", type=str, default="./separated")
     p.add_argument("--checkpoint", type=str, required=True,

@@ -7,7 +7,7 @@ never falls back to the CPU on its own.
 
 The config is YAML, or JSON of the same structure (no PyYAML needed).
 ``--distributed`` and the rank flags are accepted and refused: multi-device
-runs are not ported yet (ROADMAP.md, Queue 1 item 6).
+runs are not ported yet (ROADMAP.md, Queue 1: parallel runs).
 """
 
 from __future__ import annotations
@@ -25,19 +25,29 @@ def parse_args(argv=None):
     p.add_argument("--resume", type=str, default=None,
                    help="Resume from the newest checkpoint: a checkpoint "
                         "directory, or any other value for the output directory's")
+    add_distributed_args(p)
+    return p.parse_args(argv)
+
+
+def add_distributed_args(p) -> None:
+    """The JAX CLIs' multi-host flags, accepted so that :func:`refuse_distributed`
+    can refuse them."""
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--coordinator_address", type=str, default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
-    return p.parse_args(argv)
+
+
+def refuse_distributed(args, what: str) -> None:
+    if (args.distributed or args.coordinator_address is not None
+            or args.num_processes is not None or args.process_id is not None):
+        raise NotImplementedError(f"distributed {what} is not ported yet "
+                                  f"(ROADMAP.md, Queue 1: parallel runs)")
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if (args.distributed or args.coordinator_address is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise NotImplementedError("distributed training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 6)")
+    refuse_distributed(args, "training")
     from ..core.config import load_config
     from ..train.loop import Trainer
 

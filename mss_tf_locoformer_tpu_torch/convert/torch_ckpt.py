@@ -1,9 +1,11 @@
 """Weights carried across: JAX parameter trees and reference ``.pth`` files
--> the port's ``state_dict`` (the TF-Locoformer part of the JAX package's
-``convert/torch_ckpt.py``).
+-> the port's ``state_dict`` (the JAX package's ``convert/torch_ckpt.py``,
+TF-Locoformer and BS-Locoformer keys).
 
 The JAX package stores every weight in its torch layout, so the conversion
-is a key rename with no transposes.
+is a key rename with no transposes.  The JAX ``BSLocoformerMSS`` nests its
+weights under ``separator``; the reference separator's schema, which the
+port's BS-Locoformer keeps, has no such level, so it is dropped.
 """
 
 from __future__ import annotations
@@ -17,8 +19,21 @@ import torch
 __all__ = ["jax_params_to_state_dict", "load_torch_checkpoint"]
 
 
+_ENCODER = {"norm": "0", "conv": "1"}
+_DECODER = {"norm": "0", "conv_0": "1", "conv_1": "3", "conv_2": "4"}
+
+
 def _unrename(path) -> str:
     """flax param path (tuple of names) -> torch state_dict key."""
+    if path[0] == "separator":
+        path = path[1:]
+    m = re.fullmatch(r"band_(encoder|decoder)_(\d+)", path[0])
+    if m:   # the reference's band_split_module.{band_split_module,bandwise_decoding_module}
+        kind, b = m.groups()
+        if kind == "encoder":
+            return f"band_split_module.band_split_module.{b}.{_ENCODER[path[1]]}.{path[2]}"
+        return (f"band_split_module.bandwise_decoding_module.{b}."
+                f"{_DECODER[path[1]]}.{path[2]}")
     out = []
     for p in path:
         m = re.fullmatch(r"blocks_(\d+)", p)
@@ -38,8 +53,9 @@ def _unrename(path) -> str:
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX ``TFLocoformerMSS`` parameter tree (``{'params': ...}`` or the
-    bare tree, numpy-convertible leaves) -> the port's ``state_dict`` (fp32)."""
+    """A JAX ``TFLocoformerMSS`` or ``BSLocoformerMSS`` (or bare BS separator)
+    parameter tree (``{'params': ...}`` or the bare tree, numpy-convertible
+    leaves) -> the port's ``state_dict`` (fp32)."""
     tree = params.get("params", params)
     flat: Dict[str, torch.Tensor] = {}
 

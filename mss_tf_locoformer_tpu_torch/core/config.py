@@ -3,9 +3,10 @@
 Every section of ``configs/musdb18*.yaml`` is a frozen dataclass with the
 fields, defaults and validation of the JAX package, so one file configures
 both packages identically; unknown keys raise.  ``mesh`` is parsed, and the
-trainer refuses a mesh of more than one device (ROADMAP.md, Queue 1 item 6:
-parallel runs are not ported yet).  BS-Locoformer model sections and the
-speech configs are later items.
+trainer refuses a mesh of more than one device (ROADMAP.md, Queue 1: parallel
+runs are not ported yet).  A model section whose ``name`` starts with ``bs``
+is a :class:`BSModelConfig` (the JAX ``build_model`` rule); the speech
+configs are a later item.
 
 PyYAML is imported inside the loaders only, and a ``.json`` file of the same
 structure needs none: the GPU machine may have no PyYAML.
@@ -18,7 +19,7 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple, Union
 
-__all__ = ["ModelConfig", "SOURCE_NAMES", "model_config_from_dict",
+__all__ = ["ModelConfig", "BSModelConfig", "SOURCE_NAMES", "model_config_from_dict",
            "load_model_config", "LossConfig", "DatasetConfig",
            "OptimizerConfig", "SchedulerConfig", "EarlyStoppingConfig",
            "TrainingConfig", "EvaluationConfig", "PathsConfig", "MeshConfig",
@@ -93,6 +94,20 @@ class ModelConfig:
     @property
     def n_freqs(self) -> int:
         return self.n_fft // 2 + 1
+
+
+@dataclass(frozen=True)
+class BSModelConfig(ModelConfig):
+    """BS-Locoformer extras (the JAX package's ``BSModelConfig``): the band
+    table's input (``sample_rate``, ``stft_size``), complex masking against
+    direct mapping, and joint stereo.  ``ffn_type``/``ffn_hidden_dim`` as
+    scalars mean one FFN per path (no macaron)."""
+
+    name: str = "bslocoformer"
+    sample_rate: int = 44100
+    stft_size: int = 2048
+    masking: bool = True
+    stereo: bool = False
 
 
 @dataclass(frozen=True)
@@ -313,18 +328,11 @@ def load_config(path: str) -> Config:
 
 
 def model_config_from_dict(data: Optional[Mapping[str, Any]]) -> ModelConfig:
-    """Build a ``ModelConfig`` from a mapping, rejecting unknown keys."""
+    """Build a ``ModelConfig`` (a ``BSModelConfig`` when ``name`` starts with
+    ``bs``) from a mapping, rejecting unknown keys."""
     data = dict(data or {})
-    if str(data.get("name", "")).startswith("bs"):
-        raise NotImplementedError(
-            "BS-Locoformer configs are not ported yet "
-            "(ROADMAP.md, Queue 1: the other model families)")
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    unknown = set(data) - names
-    if unknown:
-        raise ValueError(f"Unknown key(s) {sorted(unknown)} in config section 'model'. "
-                         f"Valid keys: {sorted(names)}")
-    return ModelConfig(**{k: _as_tuple(v) for k, v in data.items()})
+    cls = BSModelConfig if str(data.get("name", "")).startswith("bs") else ModelConfig
+    return _build(cls, data, "model")
 
 
 def load_model_config(path: str) -> ModelConfig:

@@ -1,4 +1,7 @@
-// STFT as a window-folded real DFT, fp32, frames read in place.
+// STFT as a window-folded real DFT, fp32, frames read in place; and the
+// iSTFT's windowed inverse real DFT (its frames), fp32, spectrum read in place.
+//
+// ---- forward ---------------------------------------------------------------
 //
 // Replaces the JAX package's Pallas kernel
 // ``ops/pallas/stft_kernel.py::_frames_spectrum`` (body ``_fwd_kernel``),
@@ -95,6 +98,101 @@ __global__ void __launch_bounds__(NT) stft_kernel(
   }
 }
 
+// ---- inverse ---------------------------------------------------------------
+//
+// Replaces the JAX package's Pallas kernel
+// ``ops/pallas/stft_kernel.py::_windowed_frames`` (body ``_inv_kernel``),
+// public ``istft_pallas``; the overlap-add, the window envelope and the crop
+// stay outside, as the JAX wrapper leaves them to XLA.
+//
+//   frames[r, n, k] = sum_{j < 2F} X[r, n, j] * T[j, k]
+//   X[r, n, 2f + c] = (re, im)[c] of spec[r, f, n]   (complex64 [R, F, N])
+//   T[2f, k]     =  a_f cos(2 pi f k / n_fft) w[k] / n_fft
+//   T[2f + 1, k] = -a_f sin(2 pi f k / n_fft) w[k] / n_fft
+//
+// with a_f = 1 at DC and Nyquist and 2 between (the Hermitian weights), so
+// each frame is irfft(spec[r, :, n]) * w; real and imaginary parts share one
+// accumulator over K = 2F.  The [F, N] -> [N, F] transpose is folded into the
+// tile loads (each (re, im) pair is one 8-byte load, coalesced along frames),
+// so no padded or transposed copy of the spectrum is made; the ragged K tail
+// (F = 1025 = 64 * 16 + 1 at n_fft 2048) is zero-filled.  The TPU kernel asks
+// for fp32 accuracy (Precision.HIGHEST), so the products are fp32 FMAs: at
+// the BS-Locoformer engine batch (R 16, N 690, n_fft 2048) that is 9.3e10
+// FLOP against 181 MB moved, bound by this card's fp32 rate (no TF32: its
+// 10-bit mantissa would cost the transform's accuracy).  A plain shared-
+// memory-tiled SGEMM: 64 frames x 64 samples per block, K steps of 16 (8 bins
+// x re/im), 4 frames x 4 consecutive samples per thread, float4 table loads
+// and float4 stores along samples, the fastest axis of [R, N, n_fft].
+
+constexpr int IBM = 64;  // frames per block
+constexpr int IBN = 64;  // frame samples per block
+constexpr int IBK = 16;  // table rows per k-step: 8 bins x (re, im)
+
+__global__ void __launch_bounds__(NT) istft_frames_kernel(
+    const float2* __restrict__ spec, const float* __restrict__ table,
+    float* __restrict__ frames, int n_bins, int n_frames, int n_fft) {
+  __shared__ float As[IBK][IBM];
+  __shared__ __align__(16) float Bs[IBK][IBN];
+
+  const int r = blockIdx.z;
+  const int n0 = blockIdx.x * IBM;
+  const int s0 = blockIdx.y * IBN;
+  const int ts = threadIdx.x % 16;  // samples s0 + 4*ts .. +3
+  const int tn = threadIdx.x / 16;  // frames  n0 + tn + 16*i
+  const float2* x = spec + (size_t)r * n_bins * n_frames;
+  const int K = 2 * n_bins;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += IBK) {
+    const int f0 = k0 / 2;
+    for (int e = threadIdx.x; e < (IBK / 2) * IBM; e += NT) {
+      const int fl = e / IBM, m = e % IBM;
+      const int f = f0 + fl, n = n0 + m;
+      const float2 v = (f < n_bins && n < n_frames) ? x[(size_t)f * n_frames + n]
+                                                    : make_float2(0.f, 0.f);
+      As[2 * fl][m] = v.x;
+      As[2 * fl + 1][m] = v.y;
+    }
+    {
+      const int row = threadIdx.x / 16, c4 = threadIdx.x % 16;  // NT = 16 x 16
+      const int j = k0 + row, s = s0 + 4 * c4;
+      const float4 v = (j < K && s < n_fft)
+                           ? *(const float4*)(table + (size_t)j * n_fft + s)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      *(float4*)&Bs[row][4 * c4] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < IBK; ++kk) {
+      const float4 b = *(const float4*)&Bs[kk][4 * ts];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = As[kk][tn + 16 * i];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int s = s0 + 4 * ts;
+  if (s >= n_fft) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + tn + 16 * i;
+    if (n < n_frames)
+      *(float4*)(frames + ((size_t)r * n_frames + n) * n_fft + s) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
 }  // namespace
 
 // xpad [B, Tp] fp32 (reflect-padded signal), wre/wim [n_fft, n_bins] fp32,
@@ -106,5 +204,16 @@ extern "C" int stft_forward(const void* xpad, const void* wre, const void* wim,
   stft_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       (const float*)xpad, (const float*)wre, (const float*)wim, (float2*)out,
       Tp, n_fft, hop, n_frames, n_bins);
+  return (int)cudaGetLastError();
+}
+
+// spec [R, n_bins, n_frames] complex64 (interleaved re/im), table
+// [2 n_bins, n_fft] fp32 (rows re/im interleaved per bin), frames
+// [R, n_frames, n_fft] fp32; n_fft a multiple of 4 (float4 rows).
+extern "C" int istft_frames(const void* spec, const void* table, void* frames, int R,
+                            int n_bins, int n_frames, int n_fft, void* stream) {
+  dim3 grid((n_frames + IBM - 1) / IBM, (n_fft + IBN - 1) / IBN, R);
+  istft_frames_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float2*)spec, (const float*)table, (float*)frames, n_bins, n_frames, n_fft);
   return (int)cudaGetLastError();
 }

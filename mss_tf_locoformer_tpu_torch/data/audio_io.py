@@ -2,7 +2,7 @@
 ``data/audio_io.py`` numpy path): ``info``, ``read(path, start, frames)``
 with zero padding past the end, ``write``.  The RIFF parsing is the port's
 ``utils/audio.py``.  FLAC (the JAX package's native decoder) is a later item
-(ROADMAP.md, Queue 1 item 3)."""
+(ROADMAP.md, Queue 1: serving leftovers)."""
 
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ class AudioInfo:
 def _no_flac(path: str) -> None:
     if path.lower().endswith(".flac"):
         raise NotImplementedError(
-            f"{path}: FLAC is not ported yet (ROADMAP.md, Queue 1 item 3); "
+            f"{path}: FLAC is not ported yet (ROADMAP.md, Queue 1: serving leftovers); "
             f"MUSDB18-HQ ships WAV")
 
 

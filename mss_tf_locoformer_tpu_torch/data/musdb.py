@@ -9,7 +9,8 @@
     drawn from ``random.Random(seed)`` exactly as the JAX dataset draws them;
   * missing stems are zeros; with ``rebuild_mixture`` the mixture is the sum
     of the stems;
-  * ``segment_length=None`` gives full tracks (validation).
+  * ``segment_length=None`` gives full tracks (validation, evaluation);
+    with ``return_metadata`` each sample carries its ``track_name``.
 
   * augmentation (training subset; ``augmentation=True`` or a dict of
     settings over the defaults): per-stem loudness gain, channel swap,
@@ -20,7 +21,7 @@
     seed gives the JAX dataset's arrays.
 
 The precomputed chunk index and the metadata cache raise
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 4).  Samples are
+``NotImplementedError`` (ROADMAP.md, Queue 1: training leftovers).  Samples are
 ``{'mixture': [C, T] float32, '<stem>': [C, T], ...}``.
 """
 
@@ -38,7 +39,7 @@ from . import audio_io
 
 __all__ = ["TrackInfo", "MUSDBDataset", "collate_fn"]
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 4)"
+_LATER = "is not ported yet (ROADMAP.md, Queue 1: training leftovers)"
 
 
 @dataclass(frozen=True)
@@ -89,7 +90,7 @@ class MUSDBDataset:
                  min_loudness: float = 1e-4, max_chunk_attempts: int = 8,
                  rebuild_mixture: bool = True, precompute_chunks: bool = False,
                  cache_dir: Optional[str] = None, verbose: bool = True,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, return_metadata: bool = False):
         if precompute_chunks:
             raise NotImplementedError(f"dataset precompute_chunks {_LATER}")
         if cache_dir:
@@ -105,6 +106,7 @@ class MUSDBDataset:
         self.min_loudness = max(0.0, float(min_loudness))
         self.max_chunk_attempts = max(1, int(max_chunk_attempts))
         self.rebuild_mixture = rebuild_mixture
+        self.return_metadata = return_metadata
         self._rng = random.Random(seed)
         self.augmentation = bool(augmentation) or isinstance(augmentation, dict)
         self._aug_config = _default_aug_config()
@@ -138,17 +140,22 @@ class MUSDBDataset:
         return len(self.track_infos)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
+        track = None
         if self.segment_length is None:
-            sample = self._load_chunk(self.track_infos[idx % len(self)], 0, full=True)
+            track = self.track_infos[idx % len(self)]
+            sample = self._load_chunk(track, 0, full=True)
         elif self.random_chunks and self.subset == "train":
-            sample = self._sample_random_chunk()
+            sample, track = self._sample_random_chunk()
         else:
-            sample = self._load_chunk(self.track_infos[idx % len(self)], 0)
+            track = self.track_infos[idx % len(self)]
+            sample = self._load_chunk(track, 0)
         mix_only = False
         if self.augmentation and self.subset == "train":
             sample, mix_only = self._apply_augmentation(sample)
         if self.rebuild_mixture and not mix_only:
             sample["mixture"] = self._sum_stems(sample)
+        if self.return_metadata:
+            sample["track_name"] = track.name
         return sample
 
     def _frames(self, sr: int) -> Optional[int]:
@@ -156,15 +163,18 @@ class MUSDBDataset:
             return None
         return max(int(round(self.segment_length * sr / self.sample_rate)), 1)
 
-    def _sample_random_chunk(self) -> Dict[str, np.ndarray]:
+    def _sample_random_chunk(self):
+        """``(sample, track)``: loudness-filtered draws, then the first chunk
+        of a random track."""
         for _ in range(self.max_chunk_attempts):
             track = self._rng.choice(self.track_infos)
             frames = self._frames(track.sample_rate)
             off = 0 if track.length <= frames else self._rng.randint(0, track.length - frames)
             sample = self._load_chunk(track, off)
             if self._passes_loudness(sample):
-                return sample
-        return self._load_chunk(self._rng.choice(self.track_infos), 0)
+                return sample, track
+        track = self._rng.choice(self.track_infos)
+        return self._load_chunk(track, 0), track
 
     def _passes_loudness(self, sample: Dict[str, np.ndarray]) -> bool:
         if self.min_loudness <= 0:

@@ -1,7 +1,8 @@
 """Chunked overlap-add separation (the JAX package's ``infer/overlap_add.py``).
 
-Fixed-size chunks batched to a static batch size (the last batch padded with
-zero chunks), recombined by a triangular crossfade whose envelope is
+Mono ``[T]`` or multichannel ``[C, T]`` audio (the stereo BS-Locoformer)
+is cut along its last axis into fixed-size chunks, batched to a static batch
+size (the last batch padded with zero chunks), and recombined by a triangular crossfade whose envelope is
 normalised, so interior and edge samples are both exact.  The overlap-add
 runs in float64 on the host.
 
@@ -36,7 +37,7 @@ class SeparationEngine:
     """Batched chunked-OLA separation around a spectral-mapping model.
 
     Args:
-        apply_fn: ``(mixture [B, W] on device) -> {stem: [B, W]}``.
+        apply_fn: ``(mixture [B, (C,) W] on device) -> {stem: [B, (C,) W]}``.
         chunk_samples: chunk length W.
         overlap: overlap samples between consecutive chunks (default W/4).
         batch_size: chunks per forward.
@@ -58,25 +59,31 @@ class SeparationEngine:
         self._window = triangular_window(self.chunk, self.overlap)
 
     def __call__(self, audio: np.ndarray) -> Dict[str, np.ndarray]:
-        """``audio [T]`` (mono) -> dict of stems ``[T]``."""
+        """``audio [T]`` (mono) or ``[C, T]`` (stereo models) -> dict of stems
+        of the same layout; chunks and the overlap-add run over the last axis."""
         audio = np.asarray(audio, dtype=np.float32)
-        if audio.ndim != 1:
-            raise ValueError(f"expected mono [T] audio, got {audio.shape}")
+        if audio.ndim not in (1, 2):
+            raise ValueError(f"expected [T] or [C, T] audio, got {audio.shape}")
         t = audio.shape[-1]
+        lead = audio.shape[:-1]
+
+        def pad_tail(x, n):
+            return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, n)])
+
         if t <= self.chunk:
-            out = self._forward(np.pad(audio, (0, self.chunk - t))[None])
-            return {k: v[0, :t] for k, v in out.items()}
+            out = self._forward(pad_tail(audio, self.chunk - t)[None])
+            return {k: v[0, ..., :t] for k, v in out.items()}
 
         n_chunks = 1 + math.ceil((t - self.chunk) / self.hop)
         total = (n_chunks - 1) * self.hop + self.chunk
-        padded = np.pad(audio, (0, total - t))
+        padded = pad_tail(audio, total - t)
         starts = np.arange(n_chunks) * self.hop
-        chunks = np.stack([padded[s:s + self.chunk] for s in starts])
+        chunks = np.stack([padded[..., s:s + self.chunk] for s in starts])  # [N, (C,) W]
         n_batches = -(-n_chunks // self.batch_size)
         pad_chunks = n_batches * self.batch_size - n_chunks
         if pad_chunks:
             chunks = np.concatenate(
-                [chunks, np.zeros((pad_chunks, self.chunk), np.float32)])
+                [chunks, np.zeros((pad_chunks, *lead, self.chunk), np.float32)])
 
         stem_chunks: Dict[str, list] = {}
         for b in range(n_batches):
@@ -90,11 +97,11 @@ class SeparationEngine:
             envelope[s:s + self.chunk] += window
         results: Dict[str, np.ndarray] = {}
         for k, blocks in stem_chunks.items():
-            flat = np.concatenate(blocks)[:n_chunks]
-            acc = np.zeros(total, dtype=np.float64)
+            flat = np.concatenate(blocks)[:n_chunks]                     # [N, (C,) W]
+            acc = np.zeros((*flat.shape[1:-1], total), dtype=np.float64)
             for i, s in enumerate(starts):
-                acc[s:s + self.chunk] += flat[i] * window
-            results[k] = (acc / np.maximum(envelope, 1e-8)).astype(np.float32)[:t]
+                acc[..., s:s + self.chunk] += flat[i] * window
+            results[k] = (acc / np.maximum(envelope, 1e-8)).astype(np.float32)[..., :t]
         return results
 
     def _forward(self, block: np.ndarray) -> Dict[str, np.ndarray]:

@@ -3,13 +3,16 @@
 
 ``load_model`` reads a PyTorch ``.pth`` in any of the reference's layouts
 (trainer dict, raw state_dict, ESPnet ``separator.``-prefixed) into the
-port's ``TFLocoformerMSS`` with ``strict=True``, and an optional config
-file's ``model:`` section (else the ``ModelConfig`` defaults).  Orbax
-checkpoint directories need JAX to read and are not accepted (ROADMAP.md).
+model of an optional config file's ``model:`` section (else the
+``ModelConfig`` defaults) with ``strict=True``: ``TFLocoformerMSS``, or
+``BSLocoformerMSS`` for a ``bs...`` model name.  Orbax checkpoint
+directories need JAX to read and are not accepted (ROADMAP.md).
 
-``separate_audio`` loads a WAV at the model rate, mixes stereo to mono,
-separates with the chunked overlap-add engine, and writes each stem as
-duplicated-stereo, peak-normalised ``{input}_{stem}.wav``.
+``separate_audio`` loads a WAV at the model rate and separates it with the
+chunked overlap-add engine.  A mono model sees the channel mean and its
+stems are written as duplicated stereo; a stereo model (BS-Locoformer with
+``stereo``) sees both channels (a mono file duplicated) and its stereo stems
+are written as they are.  Stems are peak-normalised ``{input}_{stem}.wav``.
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 asks for the CPU; nothing falls back to the CPU on its own.
@@ -30,7 +33,7 @@ from ..models import build_model
 from ..utils.audio import load_audio, save_audio
 from .overlap_add import SeparationEngine
 
-__all__ = ["load_model", "make_engine", "separate_audio"]
+__all__ = ["load_model", "make_engine", "model_input", "separate_audio"]
 
 
 def load_model(checkpoint_path: str, config_path: Optional[str] = None,
@@ -59,6 +62,14 @@ def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,
         device=device)
 
 
+def model_input(model: torch.nn.Module, audio: np.ndarray) -> np.ndarray:
+    """``[C, T]`` audio as the model takes it: both channels ``[2, T]`` for a
+    stereo model (mono duplicated), else the channel mean ``[T]``."""
+    if getattr(model.config, "stereo", False):
+        return np.repeat(audio, 2, axis=0) if audio.shape[0] == 1 else audio[:2]
+    return audio.mean(axis=0)
+
+
 def separate_audio(input_path: str, output_dir: str, model: torch.nn.Module,
                    sample_rate: int = 44100, chunk_seconds: float = 8.0,
                    overlap_seconds: float = 1.0, batch_size: int = 2,
@@ -66,11 +77,12 @@ def separate_audio(input_path: str, output_dir: str, model: torch.nn.Module,
     audio, _ = load_audio(input_path, sample_rate=sample_rate)
     engine = make_engine(model, chunk_seconds, overlap_seconds, sample_rate,
                          batch_size, device)
-    stems = engine(audio.mean(axis=0))  # stereo -> mono mean
+    stems = engine(model_input(model, audio))
     if save_stems:
         os.makedirs(output_dir, exist_ok=True)
         base = os.path.splitext(os.path.basename(input_path))[0]
         for name, est in stems.items():
             save_audio(os.path.join(output_dir, f"{base}_{name}.wav"),
-                       np.stack([est, est]), sample_rate, normalize=True)
+                       est if est.ndim == 2 else np.stack([est, est]), sample_rate,
+                       normalize=True)
     return stems

@@ -1,5 +1,5 @@
 """Model families and the config -> module factory (the JAX package's
-``models/__init__.py::build_model``).  Only TF-Locoformer MSS is ported."""
+``models/__init__.py::build_model``): TF-Locoformer MSS and BS-Locoformer."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ..core.config import ModelConfig
+from ..core.config import BSModelConfig, ModelConfig
 from ..core.precision import FP32, Precision
 
 __all__ = ["build_model"]
@@ -15,11 +15,16 @@ __all__ = ["build_model"]
 
 def build_model(model_cfg: ModelConfig, precision: Precision = FP32,
                 generator: Optional[torch.Generator] = None):
-    """Instantiate the audio -> stems model for a ``ModelConfig``."""
-    if model_cfg.name.startswith("bs"):
-        raise NotImplementedError(
-            "BS-Locoformer is not ported yet (ROADMAP.md, Queue 1: the other "
-            "model families)")
+    """Instantiate the audio -> stems model for a ``ModelConfig``
+    (``name: tflocoformer_mss``) or a ``BSModelConfig`` (``name: bs...``)."""
+    if isinstance(model_cfg, BSModelConfig) or model_cfg.name.startswith("bs"):
+        if not isinstance(model_cfg, BSModelConfig):
+            raise ValueError(
+                f"model.name {model_cfg.name!r} needs a BSModelConfig (got "
+                f"{type(model_cfg).__name__}); load it through model_config_from_dict "
+                f"or construct BSModelConfig directly")
+        from .bslocoformer_mss import BSLocoformerMSS
+        return BSLocoformerMSS(model_cfg, precision=precision, generator=generator)
     if model_cfg.name != "tflocoformer_mss":
         raise ValueError(f"Unknown model.name {model_cfg.name!r} "
                          f"(expected tflocoformer_mss|bslocoformer)")

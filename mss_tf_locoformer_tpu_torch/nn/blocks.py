@@ -66,7 +66,7 @@ class LocoformerBlock(nn.Module):
         dims = tuple(ffn_hidden_dim)[::-1] if macaron else (ffn_hidden_dim,)
         if any(t != "swiglu_conv1d" for t in types):
             raise NotImplementedError(
-                "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1)")
+                "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1: serving leftovers)")
         self.num_groups, self.eps, self.dropout = num_groups, eps, dropout
         self.remat_ffn = remat_ffn
 

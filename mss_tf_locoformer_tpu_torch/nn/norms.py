@@ -2,8 +2,10 @@
 
 ``RMSGroupNorm``: per position, RMS over channel groups, computed in fp32
 whatever the compute dtype, with the reference's ``x / (rms + eps)``
-placement of eps.  ``LayerNorm`` over the last dim in fp32.  The encoder's
-``GroupNorm(1)`` is ``torch.nn.GroupNorm`` itself (NCHW there).
+placement of eps.  ``LayerNorm`` over the last dim in fp32.  The
+TF-Locoformer encoder's ``GroupNorm(1)`` is ``torch.nn.GroupNorm`` itself
+(NCHW there); :class:`GroupNorm` is the same normalisation on channels-last
+input (BS-Locoformer's band encoders and decoders).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["RMSGroupNorm", "LayerNorm", "rms_group_norm"]
+__all__ = ["RMSGroupNorm", "LayerNorm", "GroupNorm", "rms_group_norm"]
 
 
 def rms_group_norm(x: torch.Tensor, gamma: torch.Tensor, num_groups: int,
@@ -46,3 +48,20 @@ class LayerNorm(nn.Module):
         out = nn.functional.layer_norm(x.to(torch.float32), self.weight.shape,
                                        self.weight, self.bias, self.eps)
         return out.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """``torch.nn.GroupNorm`` on channels-last ``x [B, ...spatial, C]``:
+    statistics per sample over (every spatial position, the channels of the
+    group), in fp32; the result in ``x.dtype``.  Keys ``weight``, ``bias``."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = nn.functional.group_norm(x.to(torch.float32).movedim(-1, 1),
+                                       self.num_groups, self.weight, self.bias, self.eps)
+        return out.movedim(1, -1).to(x.dtype)

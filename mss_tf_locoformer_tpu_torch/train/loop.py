@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.config import Config
+from ..core.config import BSModelConfig, Config
 from ..core.precision import precision_from_amp
 from ..data.loader import DataLoader
 from ..data.musdb import MUSDBDataset
@@ -69,10 +69,13 @@ class Trainer:
             raise NotImplementedError(
                 f"mesh dp={config.mesh.dp} mp={config.mesh.mp} asks for more "
                 f"than one device: parallel runs are not ported yet "
-                f"(ROADMAP.md, Queue 1 item 6)")
+                f"(ROADMAP.md, Queue 1: parallel runs)")
+        if isinstance(config.model, BSModelConfig):
+            raise NotImplementedError("BS-Locoformer training is not ported yet "
+                                      "(ROADMAP.md, Queue 1: BS-Locoformer training)")
         if config.training.profile_steps:
             raise NotImplementedError("the step profiler is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 4)")
+                                      "(ROADMAP.md, Queue 1: training leftovers)")
         self.verbose = verbose
         set_seed(config.seed)
         self.output_dir = output_dir or config.paths.output_dir

@@ -1,14 +1,16 @@
 """Common utilities (the JAX package's ``utils/common.py``): seeding,
-parameter counts, running averages, time formatting."""
+parameter counts, running averages, time formatting, JSON files."""
 
 from __future__ import annotations
 
+import json
 import random
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-__all__ = ["set_seed", "count_parameters", "AverageMeter", "format_time"]
+__all__ = ["set_seed", "count_parameters", "AverageMeter", "format_time", "save_json"]
 
 
 def set_seed(seed: int) -> None:
@@ -53,3 +55,9 @@ def format_time(seconds: float) -> str:
     if m:
         return f"{m}m {s:02d}s"
     return f"{s}s"
+
+
+def save_json(data: Dict[str, Any], path: str) -> None:
+    """Indented JSON; numpy scalars are written as floats."""
+    with open(path, "w") as f:
+        json.dump(data, f, indent=2, default=float)

@@ -80,6 +80,57 @@ def test_attention_step_kernel(dev, r, seq, c, a, h, rope):
     _close(got, ref, STEP_TOL)
 
 
+# The iSTFT kernel (#10): fp32 on both sides, as the STFT's tolerance
+ISTFT_TOL = 1e-4
+
+
+@pytest.mark.parametrize("n_fft,hop,t", [(2048, 512, 44100), (256, 64, 3000),
+                                         (1024, 256, 5000)])
+def test_istft_kernel(dev, n_fft, hop, t):
+    g = torch.Generator().manual_seed(5)
+    spec = SK.reference_stft((0.1 * torch.randn(3, t, generator=g)).to(dev), n_fft, hop)
+    got = SK.windowed_frames(spec, n_fft)
+    torch.cuda.synchronize()
+    _close(got, SK.reference_windowed_frames(spec, n_fft), ISTFT_TOL)
+    _close(SK.istft_fused(spec, n_fft, hop, t), SK.reference_istft(spec, n_fft, hop, t),
+           ISTFT_TOL)
+
+
+def test_istft_kernel_gradient(dev):
+    """The Function's backward (the plain version's adjoint) against autograd
+    through the plain version."""
+    g = torch.Generator().manual_seed(6)
+    spec = SK.reference_stft(torch.randn(2, 5000, generator=g).to(dev), 1024, 256)
+    cot = torch.randn(2, 5000, generator=g).to(dev)
+    grads = []
+    for fn in (SK.istft_fused, SK.reference_istft):
+        s = spec.detach().requires_grad_(True)
+        (d,) = torch.autograd.grad(fn(s, 1024, 256, 5000), s, cot)
+        grads.append(d)
+    _close(*grads, ISTFT_TOL)
+
+
+@pytest.mark.parametrize("r,seq", [(3, 62), (2, 130)])
+def test_steps_at_bs_width(dev, r, seq):
+    """The FFN step (C 128, I 384, k 4) and the attention step (4 heads of
+    32, no head padding) at BS-Locoformer's widths, over 62 bands too."""
+    g = torch.Generator().manual_seed(7)
+    c = 128
+    x = (0.5 * torch.randn(r, seq, c, generator=g)).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    b = (c * 4) ** -0.5
+    w = [((torch.rand(*s, generator=g) * 2 - 1) * b).to(dev)
+         for s in ((768, c, 4), (768,), (384, c, 4), (c,))]
+    got = FB.fused_norm_ffn_residual(x, gamma, *w, 4, 4, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, FB.reference_norm_ffn_residual(x, gamma, *w, 4, 4, 1e-5), STEP_TOL)
+    w_qkv = ((torch.rand(3 * c, c, generator=g) * 2 - 1) * 2 * c ** -0.5).to(dev)
+    w_out = ((torch.rand(c, c, generator=g) * 2 - 1) * c ** -0.5).to(dev)
+    got = AB.fused_attention_block(x, gamma, w_qkv, w_out, 4, 4, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, AB.reference_attention_block(x, gamma, w_qkv, w_out, 4, 4, 1e-5), STEP_TOL)
+
+
 def test_ffn_step_too_large_for_shared_memory_raises(dev):
     """C 128 with k 8 needs more shared memory than a block may have: the
     launch is refused and the wrapper raises."""
@@ -99,8 +150,11 @@ def test_kernels_refuse_fp32_rows(dev):
 
 def test_launch_counters_count_launches(dev):
     before = SK.stft_fused.launches
-    SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
+    spec = SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
     assert SK.stft_fused.launches == before + 1
+    before = SK.istft_fused.launches
+    SK.istft_fused(spec, 1024, 256)
+    assert SK.istft_fused.launches == before + 1
 
 
 # Backward and dropout.  The kernels run on bf16 rows; their plain versions

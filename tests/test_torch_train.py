@@ -58,10 +58,10 @@ def test_config_rejects_unknown_keys_and_wide_meshes(tmp_path):
         C.config_from_dict({"training": {"optimizer": {"lrr": 1.0}}})
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"mesh": {"dp": 2}, "training": {"use_amp": False}}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
         train_cli.main(["--config", str(path), "--device", "cpu",
                         "--output_dir", str(tmp_path / "o")])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
         train_cli.main(["--config", str(path), "--device", "cpu", "--distributed"])
     assert train_cli.parse_args(["--config", str(path)]).device == "cuda"  # the default
 
