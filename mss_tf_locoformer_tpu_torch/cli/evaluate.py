@@ -37,8 +37,6 @@ def parse_args(argv=None):
     p.add_argument("--chunk_seconds", type=float, default=8.0)
     p.add_argument("--overlap_seconds", type=float, default=1.0)
     p.add_argument("--batch_size", type=int, default=2)
-    p.add_argument("--precision", type=str, default="bf16", choices=("bf16", "fp32"),
-                   help="Block compute precision (fp32 islands kept either way)")
     p.add_argument("--bss_eval", action="store_true",
                    help="Also compute BSS Eval v3 SDR/SIR/SAR per track")
     p.add_argument("--bss_filter_len", type=int, default=512)
@@ -54,7 +52,6 @@ def main(argv=None):
     import torch
 
     from ..core.config import load_config
-    from ..core.precision import precision_from_name
     from ..data.musdb import MUSDBDataset
     from ..eval.metrics import evaluate_source_separation, print_metrics
     from ..infer.separate import load_model, make_engine, model_input
@@ -65,8 +62,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
     config = load_config(args.config)
-    model, _ = load_model(args.checkpoint, args.config,
-                          precision=precision_from_name(args.precision), device=device)
+    model, _ = load_model(args.checkpoint, args.config, device=device)
     dcfg = config.dataset
     ds = MUSDBDataset(dcfg.root_dir, subset="test", sample_rate=dcfg.sample_rate,
                       segment_length=None, sources=list(dcfg.sources),

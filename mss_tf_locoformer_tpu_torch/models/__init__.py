@@ -17,12 +17,7 @@ def build_model(model_cfg: ModelConfig, precision: Precision = FP32,
                 generator: Optional[torch.Generator] = None):
     """Instantiate the audio -> stems model for a ``ModelConfig``
     (``name: tflocoformer_mss``) or a ``BSModelConfig`` (``name: bs...``)."""
-    if isinstance(model_cfg, BSModelConfig) or model_cfg.name.startswith("bs"):
-        if not isinstance(model_cfg, BSModelConfig):
-            raise ValueError(
-                f"model.name {model_cfg.name!r} needs a BSModelConfig (got "
-                f"{type(model_cfg).__name__}); load it through model_config_from_dict "
-                f"or construct BSModelConfig directly")
+    if isinstance(model_cfg, BSModelConfig):
         from .bslocoformer_mss import BSLocoformerMSS
         return BSLocoformerMSS(model_cfg, precision=precision, generator=generator)
     if model_cfg.name != "tflocoformer_mss":

@@ -1,12 +1,13 @@
 """The port's BS-Locoformer on the CPU against the JAX package: the band
 table, the separator and the audio -> stems model (mono and stereo, masking
-on and off) from JAX-initialised weights carried across by
+on and off) from seeded weights in the JAX parameter tree carried across by
 ``jax_params_to_state_dict`` and loaded with ``strict=True``, the key
 schema, the stereo engine, ``separate_audio`` and the configs.  fp32; sizes
 of tests/test_bslocoformer_e2e.py (n_fft 256: 10 bands of unequal widths, so
 a transposed band, channel or stem layout cannot pass unseen)."""
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from mss_tf_locoformer_tpu.convert.torch_ckpt import convert_state_dict, params_to_state_dict
+from mss_tf_locoformer_tpu.convert.torch_ckpt import params_to_state_dict
 from mss_tf_locoformer_tpu.core.config import BSModelConfig as JaxBSConfig
 from mss_tf_locoformer_tpu.core.config import load_config as jax_load_config
 from mss_tf_locoformer_tpu.infer.overlap_add import SeparationEngine as JaxEngine
@@ -62,23 +63,31 @@ def test_compute_bands_matches_jax(stft_size, sample_rate):
         assert bands == [2] * 24 + [4] * 12 + [12] * 8 + [24] * 8 + [48] * 8 + [128, 129]
 
 
-def _pair(rng, stereo, masking):
-    """(port model, JAX model, JAX params) on the same JAX-initialised
-    weights, every norm's scale (and the GroupNorms' shifts) perturbed so
-    that each is exercised."""
+@functools.lru_cache(maxsize=None)
+def _pair(stereo, masking):
+    """(port model, JAX model, JAX params) on the same weights: seeded
+    values in the JAX model's parameter tree (its shapes from
+    ``jax.eval_shape`` of ``init``: initialising op by op costs as many
+    compiles as the forward), carried across by ``jax_params_to_state_dict``.
+    Norm scales are 1 + 0.1 N(0, 1), shifts and biases 0.1 N(0, 1), weights
+    N(0, 1 / fan_in), so that every parameter is exercised.  Built once per
+    layout and shared."""
+    rng = np.random.default_rng(int(stereo) * 2 + int(masking))
     kw = dict(_TINY, stereo=stereo, masking=masking)
     jmodel = JaxBSMSS(JaxBSConfig(**kw))
     example = np.zeros((2, 2, N) if stereo else (2, N), np.float32)
-    sd = jax_params_to_state_dict(jax.device_get(
-        jmodel.init(jax.random.PRNGKey(0), example)))
-    for key in sd:
-        if key.endswith("gamma") or re.search(r"module\.\d+\.0\.", key):
-            sd[key] = sd[key] + torch.from_numpy(
-                0.1 * rng.standard_normal(sd[key].shape).astype(np.float32))
+
+    def fill(path, leaf):
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        if leaf.ndim == 1:
+            return np.float32(path[-1].key != "bias") + 0.1 * z
+        return z / np.float32(np.sqrt(np.prod(leaf.shape[:-1])))
+
+    params = jax.tree_util.tree_map_with_path(
+        fill, jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), example))
     model = build_model(BSModelConfig(**kw))
-    model.load_state_dict(sd, strict=True)
-    tree = convert_state_dict({k: v.numpy() for k, v in sd.items()})["params"]
-    return model.eval(), jmodel, {"params": {"separator": tree}}
+    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return model.eval(), jmodel, params
 
 
 @pytest.mark.parametrize("masking", [True, False], ids=["masking", "mapping"])
@@ -86,7 +95,7 @@ def _pair(rng, stereo, masking):
 def test_bs_model_matches_jax(rng, monkeypatch, stereo, masking):
     """Stems and spectrograms (the separator's output) of the port against
     the JAX model, on the fused-step route."""
-    model, jmodel, jparams = _pair(rng, stereo, masking)
+    model, jmodel, jparams = _pair(stereo, masking)
     x = (0.3 * rng.standard_normal((2, 2, N) if stereo else (2, N))).astype(np.float32)
     calls = spy(monkeypatch)
     with torch.inference_mode():
@@ -105,11 +114,11 @@ def test_bs_model_matches_jax(rng, monkeypatch, stereo, masking):
                                    atol=ATOL, rtol=RTOL, err_msg=name)
 
 
-def test_key_schema_and_strict_roundtrip(rng, tmp_path):
+def test_key_schema_and_strict_roundtrip(tmp_path):
     """The port's keys are the JAX export's minus its ``separator.`` level
     (the reference separator's schema); a state_dict the port writes loads
     back with ``strict=True``, as a raw file and ESPnet-prefixed."""
-    model, _, jparams = _pair(rng, True, True)
+    model, _, jparams = _pair(True, True)
     keys = set(params_to_state_dict(jparams["params"]["separator"]))
     assert keys == set(model.state_dict())
     assert any(k.startswith("band_split_module.band_split_module.9.1.") for k in keys)
@@ -125,7 +134,7 @@ def test_key_schema_and_strict_roundtrip(rng, tmp_path):
 
 
 def test_stereo_engine_matches_jax(rng):
-    model, jmodel, jparams = _pair(rng, True, True)
+    model, jmodel, jparams = _pair(True, True)
     chunk, overlap, batch = N, N // 4, 2
     audio = (0.3 * rng.standard_normal((2, 7000))).astype(np.float32)  # 3 chunks
     got = SeparationEngine(model, chunk, overlap, batch, device="cpu")(audio)
