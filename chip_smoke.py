@@ -21,7 +21,8 @@ result line):
      and the xlarge config (unfused route), in eval and in training;
   3. kernels: each base forward kernel against its plain PyTorch version at
      the shapes the serving path gives it (one engine batch: 2 chunks of
-     8 s);
+     8 s); the STFT (#1) timed beside ``torch.stft``, in device time and
+     with the host's time;
   4. slice parity: the whole model with its kernels against the same model
      with every kernel replaced by its plain version (1 s, batch 1, bf16);
      the check must reject the model with its blocks skipped;
@@ -76,10 +77,19 @@ result line):
      #8, #9) and the xlarge config's training section (augmentation,
      warmup, accumulation 2, gradient checkpointing; cut to 1 layer and
      1 s segments), one epoch of 2 steps each, then ``--resume``;
- 15. the iSTFT kernel (#10, an API of its own: no model calls it) against
-     its plain version at the BS-Locoformer and base engine batches' shapes
-     (frames, the whole iSTFT and its gradient), timed beside its bound and
-     ``torch.istft``;
+ 15. the iSTFT kernels (#10's frames and the overlap-add; an API of its
+     own: no model calls it) against their plain versions at the
+     BS-Locoformer and base engine batches' shapes (frames, overlap-add, the
+     whole iSTFT and its gradient), timed beside their bounds and
+     ``torch.istft``; then #1 at the small training (n_fft 1024) and
+     xlarge (4096) sizes, #1 and the iSTFT kernels at the speech configs'
+     (128, 256; ragged frame counts), and another n_fft (or a hop too long
+     for a block) refused on the card (the STFT and iSTFT kernels take
+     microseconds, less than their wrappers' host time, so they, their plain
+     versions and ``torch.stft`` are timed twice: in device time, queued
+     behind a spin kernel, and with the host's time included;
+     ``torch.istft`` synchronises on every call, so it and the whole
+     ``istft_fused`` are compared with the host's time included);
  16. BS-Locoformer serving at full width and depth (6 layers, C 128, 4 heads
      of 32, 62 bands, stereo, masking): the FFN and attention steps against
      their plain versions at its engine batch's shapes (freq [1380, 62, 128],
@@ -180,6 +190,46 @@ def _time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+SPIN_CYCLES = 50_000_000   # ~25 ms of the card's clock
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call, for calls shorter than their host
+    side (wrapper, ctypes, the library's own dispatch): the calls queue
+    behind a spin kernel while the host enqueues them, so the events time
+    the device's work alone, back to back.  Raises when the spin ended
+    before the host had queued every call: a call that waits on the device
+    (``torch.istft`` checks its window envelope with ``.item()``) drains
+    the queue, and its host time would be counted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if start.query():
+        raise RuntimeError("_device_ms: the spin ended before the calls were queued "
+                           "(a call synchronises, or the host took longer than the spin)")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_and_host_ms(**fns) -> dict:
+    """For each ``name_ms=fn``: ``name_ms``, the device time per call
+    (:func:`_device_ms`), and ``name_host_ms``, the time per call with the
+    host's included (:func:`_time_ms`, CUDA events around 20 calls), the
+    yardstick of every other kernel's times."""
+    out = {}
+    for name, fn in fns.items():
+        out[name] = _device_ms(fn)
+        out[name[:-2] + "host_ms"] = _time_ms(fn, iters=20)
+    return out
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -266,9 +316,9 @@ def _compare(name, got, ref, tol_rel, null=None):
 
 
 # Tolerances, relative to max|plain output|:
-#  * STFT: both sides fp32; the kernel sums 2048 products in order, cuFFT by
-#    butterflies; measured ~2e-6 relative, so 1e-4 leaves room and still
-#    catches any wrong bin or frame (those are O(1) relative).
+#  * STFT: both sides fp32 FFTs, by different butterflies; measured ~3e-7
+#    relative, so 1e-4 leaves room and still catches any wrong bin or frame
+#    (those are O(1) relative).
 #  * FFN and attention steps: bf16 rows; the kernel and the plain version
 #    round at different places (the kernel keeps the conv output, the
 #    softmax and the residual sum in fp32 and rounds once; the plain version
@@ -307,20 +357,13 @@ def _step_inputs(gen, rows, seq, device, c=96):
 def phase_kernels(results):
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
-    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     cfg = base_model_config()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
 
-    audio = _rand(gen, (BATCH, CHUNK), 0.1).to(dev)
-    got = SK.stft_fused(audio, cfg.n_fft, cfg.hop_length)
-    torch.cuda.synchronize()
-    ref = SK.reference_stft(audio, cfg.n_fft, cfg.hop_length)
-    err = _compare(f"stft [{BATCH}, {CHUNK}] -> {tuple(ref.shape)}", got, ref, STFT_TOL)
-    results["stft"] = dict(err=err, ms=_time_ms(
-        lambda: SK.stft_fused(audio, cfg.n_fft, cfg.hop_length)),
-        plain_ms=_time_ms(lambda: SK.reference_stft(audio, cfg.n_fft, cfg.hop_length)))
+    _stft_case(results, "base", _rand(gen, (BATCH, CHUNK), 0.1).to(dev), cfg.n_fft,
+               cfg.hop_length)
 
     for path, rows, seq in _main_path_steps(cfg):
         x, gamma, ffn, attn = _step_inputs(gen, rows, seq, dev)
@@ -965,7 +1008,7 @@ def _counters():
             "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv,
             "flash_attention_backward": FA.flash_attention_backward,
             "swiglu_ffn_backward": SF.swiglu_ffn_backward, "dropout_mask": D.keep_mask,
-            "istft": SK.istft_fused}
+            "istft": SK.istft_fused, "istft_overlap_add": SK.frames_to_audio}
 
 
 def _train_models():
@@ -1535,28 +1578,125 @@ def phase_unfused_train_cli(workdir, name):
 
 # ------------------------------------------------ iSTFT, BS-Locoformer, evaluation
 
-# The iSTFT (#10): both sides fp32 (the kernel sums 2F products per sample in
-# order, cuFFT by butterflies); expected ~1e-6 of max|ref|, so the STFT's
-# 1e-4 leaves room and still catches any wrong bin, frame or window sample
-# (those are O(1) relative).
+# The iSTFT (#10) and its overlap-add: both sides fp32 (FFTs by different
+# butterflies; the plain fold sums in another order); expected ~1e-6 of
+# max|ref|, so the STFT's 1e-4 leaves room and still catches any wrong bin,
+# frame or window sample (those are O(1) relative).
 ISTFT_TOL = 1e-4
+
+
+def stft_work(b, t, n_frames, n_bins, n_fft):
+    """(FLOP, bytes) of the STFT of ``b`` signals of ``t`` samples: an FFT's
+    5 n_fft log2 n_fft per frame; the audio read once, the complex spectrum
+    written once."""
+    return (5.0 * b * n_frames * n_fft * math.log2(n_fft),
+            b * t * 4.0 + b * n_bins * n_frames * 8.0)
 
 
 def istft_work(r, n, n_bins, n_fft):
     """(FLOP, bytes) of the windowed frames of ``r`` spectra of ``n`` frames:
     the function's own work, an FFT's per frame (5 n_fft log2 n_fft, as #1's
-    bound counts it; the kernel's DFT product does ~75x that); the complex
-    spectrum read once, the fp32 frames written once."""
+    bound counts it); the complex spectrum read once, the fp32 frames
+    written once."""
     return (5.0 * r * n * n_fft * math.log2(n_fft),
             r * n_bins * n * 8.0 + r * n * n_fft * 4.0)
 
 
+def ola_work(r, n, n_fft, length):
+    """(FLOP, bytes) of the overlap-add of ``r`` x ``n`` windowed frames into
+    ``length`` samples each: a sum, a square and an envelope sum per frame
+    sample; the frames read once, the audio written once."""
+    return 3.0 * r * n * n_fft, r * n * n_fft * 4.0 + r * length * 4.0
+
+
+def _stft_case(results, tag, audio, n_fft, hop):
+    """#1 against its plain version on ``audio [B, T]``, timed (device and
+    host-inclusive time) beside the plain version, ``torch.stft`` and its
+    bound."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+    got = SK.stft_fused(audio, n_fft, hop)
+    torch.cuda.synchronize()
+    ref = SK.reference_stft(audio, n_fft, hop)
+    err = _compare(f"stft {tag} {list(audio.shape)}, n_fft {n_fft}, hop {hop} -> "
+                   f"{list(ref.shape)}", got, ref, STFT_TOL)
+    del got
+    window = torch.hann_window(n_fft, device=audio.device)
+    (b, t), (n_bins, n_frames) = audio.shape, ref.shape[-2:]
+    r = results.setdefault("stft", dict(err=0.0, shapes={}))
+    r["err"] = max(r["err"], err)
+    r["shapes"][tag] = dict(
+        shape=tuple(audio.shape), n_fft=n_fft, hop=hop,
+        bound=_bound(*stft_work(b, t, n_frames, n_bins, n_fft), PEAK_FP32),
+        **_device_and_host_ms(
+            ms=lambda: SK.stft_fused(audio, n_fft, hop),
+            plain_ms=lambda: SK.reference_stft(audio, n_fft, hop),
+            library_ms=lambda: torch.stft(audio, n_fft, hop, window=window,
+                                          return_complex=True)))
+
+
+def _istft_case(results, tag, spec, n_fft, hop, length, gen):
+    """#10 and the overlap-add kernel against their plain versions on
+    complex ``spec [R, F, N]``: the frames, the overlap-add of the plain
+    frames, the whole iSTFT and its gradient; timed (device and host-
+    inclusive time) beside the plain versions, ``torch.istft`` and their
+    bounds."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+    r, n_bins, n_frames = spec.shape
+    shape = f"[{r}, {n_bins}, {n_frames}]"
+    got = SK.windowed_frames(spec, n_fft)
+    torch.cuda.synchronize()
+    frames = SK.reference_windowed_frames(spec, n_fft)
+    err = _compare(f"istft frames {tag} {shape} -> {list(got.shape)}", got, frames,
+                   ISTFT_TOL)
+    del got
+    audio = SK.reference_frames_to_audio(frames, n_fft, hop, length)
+    ola_err = _compare(f"istft overlap-add {tag} {list(frames.shape)} -> "
+                       f"{list(audio.shape)}", SK.frames_to_audio(frames, n_fft, hop, length),
+                       audio, ISTFT_TOL)
+    s = spec.detach().requires_grad_(True)
+    out = SK.istft_fused(s, n_fft, hop, length)
+    g = _rand(gen, tuple(out.shape), 1.0).to(spec.device)
+    (dgot,) = torch.autograd.grad(out, s, g)
+    torch.cuda.synchronize()
+    ref = SK.reference_istft(s, n_fft, hop, length)
+    (dref,) = torch.autograd.grad(ref, s, g)
+    err = max(err, _compare(f"istft {tag} {shape} -> {list(out.shape)}", out, ref,
+                            ISTFT_TOL, null=torch.zeros_like(ref)))
+    _compare(f"istft gradient {tag} {shape}", dgot, dref, ISTFT_TOL)
+    del s, out, g, dgot, ref, dref
+    window = torch.hann_window(n_fft, device=spec.device)
+    res = results.setdefault("istft", dict(err=0.0))
+    res["err"] = max(res["err"], err)
+    res[tag] = dict(
+        shape=tuple(spec.shape),
+        bound=_bound(*istft_work(r, n_frames, n_bins, n_fft), PEAK_FP32),
+        # torch.istft synchronises on every call: its time includes the
+        # host's, and the whole istft_fused is held against it on that
+        # yardstick (istft_host_ms)
+        library_host_ms=_time_ms(lambda: torch.istft(spec, n_fft, hop, window=window,
+                                                     length=length), iters=20),
+        **_device_and_host_ms(
+            ms=lambda: SK.windowed_frames(spec, n_fft),
+            plain_ms=lambda: SK.reference_windowed_frames(spec, n_fft),
+            istft_ms=lambda: SK.istft_fused(spec, n_fft, hop, length)))
+    ola = results.setdefault("istft_overlap_add", dict(err=0.0))
+    ola["err"] = max(ola["err"], ola_err)
+    ola[tag] = dict(
+        shape=tuple(frames.shape),
+        bound=_bound(*ola_work(r, n_frames, n_fft, audio.shape[-1]), PEAK_FP32),
+        **_device_and_host_ms(
+            ms=lambda: SK.frames_to_audio(frames, n_fft, hop, length),
+            plain_ms=lambda: SK.reference_frames_to_audio(frames, n_fft, hop, length)))
+    del frames, audio
+
+
 def phase_istft_kernel(results):
-    """#10 against its plain version at the BS-Locoformer engine batch (16
-    spectra: 2 chunks x 4 stems x 2 channels) and the base engine batch (8):
-    the frames, the whole iSTFT and its gradient; then the launches of one
-    call at each shape with the counters at 0 (no model calls #10), and the
-    times beside the bound and ``torch.istft``."""
+    """#10 and the overlap-add kernel against their plain versions at the
+    BS-Locoformer engine batch (16 spectra: 2 chunks x 4 stems x 2 channels)
+    and the base engine batch (8), n_fft 2048; then the launches of one call
+    at each shape with the counters at 0 (no model calls them)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
     cfg = base_model_config()
@@ -1564,46 +1704,63 @@ def phase_istft_kernel(results):
     gen = torch.Generator().manual_seed(SEED + 9)
     specs = {}
     for tag, r in (("bs", BATCH * 4 * 2), ("base", BATCH * 4)):
-        audio = _rand(gen, (r, CHUNK), 0.1).to("cuda")
-        spec = SK.reference_stft(audio, n_fft, hop)
-        specs[tag] = spec
-        shape = f"[{r}, {spec.shape[1]}, {spec.shape[2]}]"
-        got = SK.windowed_frames(spec, n_fft)
-        torch.cuda.synchronize()
-        err = _compare(f"istft frames {tag} {shape} -> {list(got.shape)}", got,
-                       SK.reference_windowed_frames(spec, n_fft), ISTFT_TOL)
-        del got
-        s = spec.detach().requires_grad_(True)
-        out = SK.istft_fused(s, n_fft, hop, CHUNK)
-        g = _rand(gen, tuple(out.shape), 1.0).to("cuda")
-        (dgot,) = torch.autograd.grad(out, s, g)
-        torch.cuda.synchronize()
-        ref = SK.reference_istft(s, n_fft, hop, CHUNK)
-        (dref,) = torch.autograd.grad(ref, s, g)
-        err = max(err, _compare(f"istft {tag} {shape} -> {list(out.shape)}", out, ref,
-                                ISTFT_TOL, null=torch.zeros_like(ref)))
-        _compare(f"istft gradient {tag} {shape}", dgot, dref, ISTFT_TOL)
-        del s, out, g, dgot, ref, dref
-        window = torch.hann_window(n_fft, device="cuda")
-        r_ = results.setdefault("istft", dict(err=0.0))
-        r_["err"] = max(r_["err"], err)
-        r_[tag] = dict(
-            shape=tuple(spec.shape),
-            ms=_time_ms(lambda: SK.windowed_frames(spec, n_fft)),
-            plain_ms=_time_ms(lambda: SK.reference_windowed_frames(spec, n_fft)),
-            istft_ms=_time_ms(lambda: SK.istft_fused(spec, n_fft, hop, CHUNK)),
-            library_ms=_time_ms(lambda: torch.istft(spec, n_fft, hop, window=window,
-                                                    length=CHUNK)),
-            bound=_bound(*istft_work(r, spec.shape[2], spec.shape[1], n_fft), PEAK_FP32))
+        specs[tag] = SK.reference_stft(_rand(gen, (r, CHUNK), 0.1).to("cuda"), n_fft, hop)
+        _istft_case(results, tag, specs[tag], n_fft, hop, CHUNK, gen)
         torch.cuda.empty_cache()
-    SK.istft_fused.launches = 0
+    SK.istft_fused.launches = SK.frames_to_audio.launches = 0
     with torch.inference_mode():
         for spec in specs.values():
             SK.istft_fused(spec, n_fft, hop, CHUNK)
     torch.cuda.synchronize()
-    results["istft"]["launches"] = SK.istft_fused.launches
-    _check_launches("istft", {"istft": SK.istft_fused.launches}, {"istft": len(specs)})
+    launches = {"istft": SK.istft_fused.launches,
+                "istft_overlap_add": SK.frames_to_audio.launches}
+    for k, n in launches.items():
+        results[k]["launches"] = n
+    _check_launches("istft", launches, {"istft": len(specs), "istft_overlap_add": len(specs)})
     del specs
+    torch.cuda.empty_cache()
+
+
+def phase_stft_shapes(results):
+    """#1 at the other sizes the paths launch it at, on the engine batch
+    ``[2, 352800]``: small training (n_fft 1024, hop 256) and xlarge (4096,
+    1024); #1, #10 and the overlap-add at the speech configs' sizes (128/64,
+    256/128), the kernels' smallest, on one 4 s signal at 16 kHz (1001 and
+    501 frames: not a multiple of the kernels' 8 frames a block); another
+    n_fft, or a hop whose block exceeds the shared memory, raises on the
+    card."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for tag, n_fft, hop in (("small", 1024, 256), ("xlarge", 4096, 1024)):
+        _stft_case(results, tag, _rand(gen, (BATCH, CHUNK), 0.1).to("cuda"), n_fft, hop)
+    samples = 4 * 16000 + 37
+    for n_fft, hop in ((128, 64), (256, 128)):
+        audio = _rand(gen, (1, samples), 0.1).to("cuda")
+        tag = f"speech {n_fft}"
+        _stft_case(results, tag, audio, n_fft, hop)
+        _istft_case(results, tag, SK.reference_stft(audio, n_fft, hop), n_fft, hop, samples,
+                    gen)
+    audio = _rand(gen, (1, samples), 0.1).to("cuda")
+    for n_fft in (1000, 8192):
+        spec = torch.zeros(1, n_fft // 2 + 1, 8, dtype=torch.complex64, device="cuda")
+        for name, call in (("stft_fused", lambda: SK.stft_fused(audio, n_fft, n_fft // 4)),
+                           ("istft_fused", lambda: SK.istft_fused(spec, n_fft, n_fft // 4))):
+            try:
+                call()
+            except ValueError as e:
+                print(f"[kernels] {name} refuses n_fft {n_fft} on the card: {e}")
+            else:
+                raise AssertionError(f"{name} took n_fft {n_fft} on the card")
+    try:
+        SK.stft_fused(audio, 4096, 8192)
+    except RuntimeError as e:
+        if "n_fft 4096, hop 8192" not in str(e):
+            raise
+        print(f"[kernels] stft_fused refuses hop 8192 at n_fft 4096 on the card: {e}")
+    else:
+        raise AssertionError("stft_fused took hop 8192 at n_fft 4096 on the card")
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
 
@@ -1836,6 +1993,7 @@ def main():
             unfused_cli[tag] = phase_unfused_train_cli(workdir, tag)
 
     phase_istft_kernel(results)
+    phase_stft_shapes(results)
     bs = bs_model_config()
     phase_bs_kernels(results)
     # per forward 2 paths x 6 layers: one FFN step and one attention step each
@@ -1849,8 +2007,13 @@ def main():
         evaluation = phase_evaluate(workdir)
 
     card = f"({smi})"
-    print(f"[timing] stft [{BATCH}, {CHUNK}]: kernel {results['stft']['ms']:.3f} ms, "
-          f"plain {results['stft']['plain_ms']:.3f} ms {card}")
+    # device time (queued behind a spin) / with the host's time (CUDA events)
+    both = lambda r, k: f"{r[k + 'ms']:.4f} / {r[k + 'host_ms']:.4f} ms"
+    for tag, r in results["stft"]["shapes"].items():
+        print(f"[timing] stft {tag} {list(r['shape'])}, n_fft {r['n_fft']}/{r['hop']}, "
+              f"device / host-inclusive time: kernel {both(r, '')}, plain "
+              f"{both(r, 'plain_')}, torch.stft {both(r, 'library_')}; bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) {card}")
     for k in ("ffn_step", "attention_step"):
         for path in ("freq", "time"):
             rows, ms, plain_ms = results[k][path]
@@ -1870,12 +2033,14 @@ def main():
             print(f"[timing] xlarge {k} {path} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
                   f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
                   f"({r['bound'][1]}) {card}")
-    for tag in ("bs", "base"):
-        r = results["istft"][tag]
-        print(f"[timing] istft {tag} {list(r['shape'])}: frames kernel {r['ms']:.3f} ms "
-              f"(plain irfft x window {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms, "
-              f"{r['bound'][1]}); whole iSTFT {r['istft_ms']:.3f} ms, torch.istft "
-              f"{r['library_ms']:.3f} ms {card}")
+    for tag in ("bs", "base", "speech 128", "speech 256"):
+        r, o = results["istft"][tag], results["istft_overlap_add"][tag]
+        print(f"[timing] istft {tag} {list(r['shape'])}, device / host-inclusive time: "
+              f"frames kernel {both(r, '')} (plain irfft x window {both(r, 'plain_')}, "
+              f"bound {r['bound'][0]:.4f} ms, {r['bound'][1]}); overlap-add kernel "
+              f"{both(o, '')} (plain {both(o, 'plain_')}, bound {o['bound'][0]:.4f} ms, "
+              f"{o['bound'][1]}); whole iSTFT {both(r, 'istft_')}, torch.istft (it "
+              f"synchronises: host-inclusive only) {r['library_host_ms']:.4f} ms {card}")
     for k in ("ffn_step", "attention_step"):
         for path in ("freq", "time"):
             r = results[k]["bs " + path]
@@ -1935,13 +2100,8 @@ def main():
     # per kernel: the shape its ms, plain_ms and bound_ms are taken at
     fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
     aflop, abytes, _, _ = attn_work(BATCH * (1 + CHUNK // 512), 1025)
-    n_bins, n_frames = 1025, 1 + CHUNK // 512
-    sbytes = BATCH * CHUNK * 4 + BATCH * n_bins * n_frames * 8
-    sflop = BATCH * n_frames * 5 * 2048 * 11   # an FFT's work per frame
-    stft_bound = _bound(sflop, sbytes, PEAK_FP32)
     sources = {
-        "stft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:150", stft_bound,
-                 results["stft"]["plain_ms"]),
+        "stft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:150", None, None),
         "ffn_step": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:279",
                      _bound(fflop, fbytes), None),
         "ffn_step_backward": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:456",
@@ -1959,13 +2119,16 @@ def main():
                                 None, None),
         # no Pallas kernel: the JAX package draws these masks in XLA
         "dropout_mask": ("csrc/dropout.cu", "ops/attention.py:52", None, None),
-        "istft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:230", None, None)}
+        "istft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:230", None, None),
+        # no Pallas kernel: istft_pallas leaves the overlap-add to XLA
+        "istft_overlap_add": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:279", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         r = results[k]
         main_path = launches
         if k == "stft":
-            ms, plain_ms = r["ms"], r["plain_ms"]
+            b = r["shapes"]["base"]
+            ms, plain_ms, bound, library_ms = b["ms"], b["plain_ms"], b["bound"], b["library_ms"]
         elif k in ("ffn_step_backward", "attention_step_backward"):
             ms, plain_ms, bound = r["freq"]["ms"], r["freq"]["plain_ms"], r["freq"]["bound"]
             main_path = train_launches
@@ -1985,8 +2148,14 @@ def main():
         elif k == "istft":
             # an API of its own: the launches of its phase's calls
             b = r["bs"]
-            ms, plain_ms, bound, library_ms = b["ms"], b["plain_ms"], b["bound"], b["library_ms"]
+            # torch.istft synchronises: its time is host-inclusive only
+            ms, plain_ms, bound = b["ms"], b["plain_ms"], b["bound"]
+            library_ms = b["library_host_ms"]
             main_path = {"istft": r["launches"]}
+        elif k == "istft_overlap_add":
+            b = r["bs"]
+            ms, plain_ms, bound = b["ms"], b["plain_ms"], b["bound"]
+            main_path = {k: r["launches"]}
         else:
             ms, plain_ms = r["freq"][1:]
         entry = {"name": k, "route": "cuda",
@@ -1995,6 +2164,14 @@ def main():
                  "launches": main_path[k],
                  "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+        if k in ("stft", "istft", "istft_overlap_add"):
+            # these take microseconds: ms and plain_ms above (and torch.stft's
+            # library_ms) are device time, queued behind a spin; the host-
+            # inclusive times (CUDA events, the other entries' yardstick)
+            # stand beside them, and the whole istft_fused's beside torch.istft
+            at = r["shapes"]["base"] if k == "stft" else r["bs"]
+            entry.update({f"{p}host_ms": at[f"{p}host_ms"]
+                          for p in ("", "plain_", "library_", "istft_") if f"{p}host_ms" in at})
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]

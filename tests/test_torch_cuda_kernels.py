@@ -40,14 +40,38 @@ def _close(got, ref, tol_rel):
     assert err <= tol_rel * scale, (err, scale)
 
 
-@pytest.mark.parametrize("n_fft,hop,t", [(2048, 512, 44100), (256, 64, 3000),
-                                         (1024, 256, 5000)])
-def test_stft_kernel(dev, n_fft, hop, t):
+# (n_fft, hop, signals, samples): every frame count ragged against the
+# kernels' 8 frames a block (87, 47, 20, 18, 30 frames)
+FFT_SHAPES = [(2048, 512, 3, 44100), (256, 64, 3, 3000), (1024, 256, 3, 5000),
+              (128, 64, 1, 1100), (4096, 1024, 2, 30000)]
+
+
+@pytest.mark.parametrize("n_fft,hop,b,t", FFT_SHAPES)
+def test_stft_kernel(dev, n_fft, hop, b, t):
     g = torch.Generator().manual_seed(0)
-    audio = (0.1 * torch.randn(3, t, generator=g)).to(dev)
+    audio = (0.1 * torch.randn(b, t, generator=g)).to(dev)
     got = SK.stft_fused(audio, n_fft, hop)
     torch.cuda.synchronize()
     _close(got, SK.reference_stft(audio, n_fft, hop), 1e-4)
+
+
+def test_fft_kernels_refuse_other_sizes(dev):
+    """n_fft outside the kernels' power-of-two range raises on the card: no
+    fallback to the plain version."""
+    for n_fft in (1000, 64, 8192):
+        audio = torch.randn(1, 3 * n_fft, device=dev)
+        spec = torch.zeros(1, n_fft // 2 + 1, 4, dtype=torch.complex64, device=dev)
+        for call in (lambda: SK.stft_fused(audio, n_fft, n_fft // 4),
+                     lambda: SK.windowed_frames(spec, n_fft),
+                     lambda: SK.istft_fused(spec, n_fft, n_fft // 4),
+                     lambda: SK.frames_to_audio(torch.zeros(1, 4, n_fft, device=dev),
+                                                n_fft, n_fft // 4)):
+            with pytest.raises(ValueError, match="power-of-two n_fft from 128 to 4096"):
+                call()
+    # a hop whose block's signal span exceeds the shared memory: refused by
+    # the launch, with the size in the message
+    with pytest.raises(RuntimeError, match="n_fft 4096, hop 8192"):
+        SK.stft_fused(torch.randn(1, 3 * 4096, device=dev), 4096, 8192)
 
 
 @pytest.mark.parametrize("r,seq,c,inner,k", [(1, 5, 96, 384, 4), (3, 61, 32, 64, 8),
@@ -84,16 +108,34 @@ def test_attention_step_kernel(dev, r, seq, c, a, h, rope):
 ISTFT_TOL = 1e-4
 
 
-@pytest.mark.parametrize("n_fft,hop,t", [(2048, 512, 44100), (256, 64, 3000),
-                                         (1024, 256, 5000)])
-def test_istft_kernel(dev, n_fft, hop, t):
+@pytest.mark.parametrize("n_fft,hop,b,t", FFT_SHAPES)
+def test_istft_kernel(dev, n_fft, hop, b, t):
     g = torch.Generator().manual_seed(5)
-    spec = SK.reference_stft((0.1 * torch.randn(3, t, generator=g)).to(dev), n_fft, hop)
-    got = SK.windowed_frames(spec, n_fft)
-    torch.cuda.synchronize()
-    _close(got, SK.reference_windowed_frames(spec, n_fft), ISTFT_TOL)
-    _close(SK.istft_fused(spec, n_fft, hop, t), SK.reference_istft(spec, n_fft, hop, t),
-           ISTFT_TOL)
+    spec = SK.reference_stft((0.1 * torch.randn(b, t, generator=g)).to(dev), n_fft, hop)
+    # torch.stft's output is a transposed view; the kernel reads it as it lies
+    for s in (spec, spec.contiguous()):
+        got = SK.windowed_frames(s, n_fft)
+        torch.cuda.synchronize()
+        _close(got, SK.reference_windowed_frames(s, n_fft), ISTFT_TOL)
+        _close(SK.istft_fused(s, n_fft, hop, t), SK.reference_istft(s, n_fft, hop, t),
+               ISTFT_TOL)
+
+
+@pytest.mark.parametrize("n_fft,hop,b,t", FFT_SHAPES)
+def test_overlap_add_kernel(dev, n_fft, hop, b, t):
+    """The overlap-add kernel against the plain fold, envelope and crop, at
+    the signal's length and with no length; zero-padded past the end."""
+    g = torch.Generator().manual_seed(7)
+    spec = SK.reference_stft((0.1 * torch.randn(b, t, generator=g)).to(dev), n_fft, hop)
+    frames = SK.reference_windowed_frames(spec, n_fft)
+    for length in (t, None):
+        got = SK.frames_to_audio(frames, n_fft, hop, length)
+        torch.cuda.synchronize()
+        _close(got, SK.reference_frames_to_audio(frames, n_fft, hop, length), ISTFT_TOL)
+    short = SK.frames_to_audio(frames, n_fft, hop, None)
+    long = SK.frames_to_audio(frames, n_fft, hop, short.shape[-1] + n_fft // 2 + 5)
+    assert torch.equal(long[:, :short.shape[-1]], short)
+    assert not long[:, -5:].any()
 
 
 def test_istft_kernel_gradient(dev):
@@ -152,9 +194,10 @@ def test_launch_counters_count_launches(dev):
     before = SK.stft_fused.launches
     spec = SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
     assert SK.stft_fused.launches == before + 1
-    before = SK.istft_fused.launches
+    before = SK.istft_fused.launches, SK.frames_to_audio.launches
     SK.istft_fused(spec, 1024, 256)
-    assert SK.istft_fused.launches == before + 1
+    assert (SK.istft_fused.launches, SK.frames_to_audio.launches) == \
+        (before[0] + 1, before[1] + 1)
 
 
 # Backward and dropout.  The kernels run on bf16 rows; their plain versions
