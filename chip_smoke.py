@@ -18,7 +18,10 @@ result line):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
      gates: the route the step gates give the base config (fused steps)
-     and the xlarge config (unfused route), in eval and in training;
+     and the xlarge config (unfused route), in eval and in training, and
+     which flash-attention kernels the unfused route's shapes take (the
+     resident forward everywhere; the one-pass resident backward at the
+     small config, the streaming one at xlarge);
   3. kernels: each base forward kernel against its plain PyTorch version at
      the shapes the serving path gives it (one engine batch: 2 chunks of
      8 s); the STFT (#1) timed beside ``torch.stft``, in device time and
@@ -62,9 +65,11 @@ result line):
      16 x 3 s) and the xlarge config's (micro-batch 1 x 15 s) against
      autograd through their plain versions in fp32 (row slices where the
      plain version's memory forces them; #9 at dropout 0.1 on 16 rows too),
-     timed beside their bounds (#7 beside the autograd backward of
-     ``scaled_dot_product_attention``); the dropout-mask kernel bit for bit
-     against its plain version;
+     #7 run twice for the same bits, timed beside their bounds (#7 beside
+     the autograd backward of ``scaled_dot_product_attention``, and each of
+     its launches apart from a ``torch.profiler`` trace); #6 with its
+     training stash at the small config's shapes, timed beside SDPA; the
+     dropout-mask kernel bit for bit against its plain version;
  12. the xlarge train step at full width and depth (12 layers, remat,
      dropout 0.1, 15 s) at micro-batch 1, and 2 when twice the measured
      peak fits, with exact launch counts (per micro-batch 96 FFN-core
@@ -275,6 +280,25 @@ def phase_gates():
             if routes != [fused] * len(routes):
                 raise AssertionError(f"gates: {name} should take the "
                                      f"{'fused' if fused else 'unfused'} route")
+    # the unfused route's attention: which flash kernels each path's shape
+    # takes (resident K/V forward; one-pass resident backward)
+    from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
+    want = {("xlarge", "freq"): (True, False), ("xlarge", "time"): (True, False),
+            ("small", "freq"): (True, True), ("small", "time"): (True, True)}
+    for name, path, _, _, seq, d, _, _ in _unfused_train_shapes():
+        got = (FA.forward_resident(seq, d), FA.backward_resident(seq, d))
+        print(f"[gates] flash attention {name} {path} (L {seq}, D {d}): forward "
+              f"{'resident' if got[0] else 'streaming'} "
+              f"({FA.forward_resident_bytes(seq, d)} B), backward "
+              f"{'resident' if got[1] else 'streaming'} "
+              f"({FA.backward_resident_bytes(seq, d)} B) of {SMEM_OPTIN}")
+        if (name, path) in want and got != want[name, path]:
+            raise AssertionError(f"gates: flash attention {name} {path} should be "
+                                 f"{want[name, path]}")
+    for seq in (2049, 345):   # xlarge serving
+        if not FA.forward_resident(seq, 16):
+            raise AssertionError(f"gates: the xlarge serving forward at L {seq} should be "
+                                 f"resident")
 
 
 def _rand(gen, shape, scale=1.0):
@@ -624,9 +648,10 @@ def _profile_summary(prof, wall, top, last_row):
 
 
 def flash_work(r, h, l, d):
-    """(FLOP, bytes) of one flash-attention call: QK^T and PV at the true
-    head_dim; q, k and v read and o written once, bf16."""
-    return 4.0 * r * h * l * l * d, 4 * r * h * l * d * 2.0
+    """(FLOP, bytes, exponentials) of one flash-attention call: QK^T and PV
+    at the true head_dim; q, k and v read and o written once, bf16; one
+    exponential per score."""
+    return 4.0 * r * h * l * l * d, 4 * r * h * l * d * 2.0, float(r * h * l * l)
 
 
 def ffn_core_work(r, l, c, inner, k):
@@ -718,6 +743,11 @@ def phase_xlarge_kernels(results):
 # H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds of the
 # kernels: bf16 tensor cores, fp32 outside them, device memory.
 PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
+# Exponentials on the special-function units: 16 per SM per clock x 132 SMs
+# x 1.83 GHz, "989 TFLOPS of FP16 matmul but only 3.9 TFLOPS of special
+# functions" (FlashAttention-3, Shah et al. 2024, section 1).  A softmax
+# needs one per score, so at small head_dim they, not the products, bound it.
+SFU_RATE = 3.9e12
 SEGMENT = 132300     # 3 s training segments (configs/musdb18.yaml)
 TRAIN_MB = 2         # micro-batch of the base config (batch 8 = 4 x 2)
 # Gradient bounds.  Weight and gamma gradients are sums over ~5e5
@@ -730,11 +760,14 @@ TRAIN_MB = 2         # micro-batch of the base config (batch 8 = 4 x 2)
 GRAD_REL_L2, STEP_GRAD_REL_L2, STEP_LOSS_REL = 2e-2, 1e-1, 2e-2
 
 
-def _bound(flop: float, nbytes: float, peak: float = PEAK_BF16):
-    """(least ms, what bounds it) for ``flop`` at ``peak`` and ``nbytes``
-    moved once at the device memory rate."""
-    t_op, t_b = flop / peak, nbytes / HBM_RATE
-    return 1e3 * max(t_op, t_b), ("operations" if t_op >= t_b else "bytes")
+def _bound(flop: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16):
+    """(least ms, what bounds it) for ``flop`` at ``peak``, ``nbytes`` moved
+    once at the device memory rate and ``exps`` exponentials at the
+    special-function rate: "operations", "bytes" or "exponentials"."""
+    terms = {"operations": flop / peak, "bytes": nbytes / HBM_RATE,
+             "exponentials": exps / SFU_RATE}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by
 
 
 def ffn_work(r, l, c=96, inner=384, k=4):
@@ -749,17 +782,19 @@ def ffn_work(r, l, c=96, inner=384, k=4):
 
 
 def attn_work(r, l, c=96, a=96, h=4):
-    """(forward FLOP, forward bytes, backward FLOP, backward bytes) of one
-    attention step at the true head_dim: QK^T and PV forward; dP, dS K,
-    dS^T Q and P^T dO backward; the projections' products; the backward
-    reads the stashed q, k, v, o and log-sum-exp."""
+    """(forward FLOP, forward bytes, backward FLOP, backward bytes,
+    exponentials) of one attention step at the true head_dim: QK^T and PV
+    forward; dP, dS K, dS^T Q and P^T dO backward; the projections'
+    products; the backward reads the stashed q, k, v, o and log-sum-exp;
+    one exponential per score each way (the backward recomputes P)."""
     d = a // h
     core = 2.0 * 2 * r * h * l * l * d
     proj = 2.0 * r * l * c * 3 * a + 2.0 * r * l * a * c
     w = 4.0 * a * c * 4
     rows = r * l * c * 2.0
     stash = r * l * (4 * a * 2.0 + 4 * h)
-    return core + proj, 2 * rows + w, 2 * core + 2 * proj, 3 * rows + stash + 2 * w
+    return (core + proj, 2 * rows + w, 2 * core + 2 * proj, 3 * rows + stash + 2 * w,
+            float(r * h * l * l))
 
 
 def _train_steps(cfg):
@@ -862,12 +897,13 @@ def phase_train_kernels(results):
 
             kf, kb = _timed_grad(lambda *a: kfn(*a, *args, 0.1, 777), x, params, g)
             pf, pb = _timed_grad(lambda *a: pfn(*a, *args, 0.1, 777), x, params, g, iters=1)
-            fflop, fbytes, bflop, bbytes = work()
+            fflop, fbytes, bflop, bbytes, exps = (*work(), 0.0)[:5]   # FFN: no exps
             r = results.setdefault(name + "_backward", dict(err=0.0, rel_l2=0.0))
             r["err"] = max(r["err"], gerr)
             r["rel_l2"] = max(r["rel_l2"], grel)
             r[path] = dict(rows=rows, seq=seq, fwd_ms=kf, ms=kb, plain_fwd_ms=pf, plain_ms=pb,
-                           bound=_bound(bflop, bbytes), fwd_bound=_bound(fflop, fbytes))
+                           bound=_bound(bflop, bbytes, exps),
+                           fwd_bound=_bound(fflop, fbytes, exps))
             torch.cuda.empty_cache()
         del x, g, ffn, attn
         torch.cuda.empty_cache()
@@ -1121,10 +1157,12 @@ def small_model_config():
 
 
 def flash_bwd_work(r, h, l, d):
-    """(FLOP, bytes) of one flash-attention backward: S recomputed, dP, dV,
-    dQ and dK, 10 L^2 D per (row, head) at the true head_dim; q, k, v, o, dO
-    read and dq, dk, dv written once (bf16), the log-sum-exp read (fp32)."""
-    return 10.0 * r * h * l * l * d, 8 * r * h * l * d * 2.0 + 4.0 * r * h * l
+    """(FLOP, bytes, exponentials) of one flash-attention backward: S
+    recomputed, dP, dV, dQ and dK, 10 L^2 D per (row, head) at the true
+    head_dim; q, k, v, o, dO read and dq, dk, dv written once (bf16), the
+    log-sum-exp read (fp32); P recomputed once, one exponential per score."""
+    return (10.0 * r * h * l * l * d, 8 * r * h * l * d * 2.0 + 4.0 * r * h * l,
+            float(r * h * l * l))
 
 
 def ffn_core_bwd_work(r, l, c, inner, k):
@@ -1158,6 +1196,28 @@ def _unfused_train_shapes():
     return out
 
 
+def _kernel_device_ms(fn, prefix: str, reps: int = 3) -> dict:
+    """Device ms per launch of each kernel named ``prefix...`` that ``fn``
+    launches, from a ``torch.profiler`` trace of ``reps`` calls (so a call
+    of several launches is timed launch by launch), each kernel's total over
+    the launches the trace holds (late in a process it loses some); empty
+    when it holds none."""
+    import re
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        m = re.search(rf"({prefix}\w+)", e.key)
+        if t and m and e.count:
+            out[m.group(1)] = t / 1e3 / e.count
+    return out
+
+
 def phase_unfused_train_kernels(results):
     """The flash-attention backward (#7) and the FFN-core backward (#9)
     through their autograd Functions against autograd through their plain
@@ -1186,24 +1246,37 @@ def phase_unfused_train_kernels(results):
         q, kk, v = qkv.permute(2, 0, 3, 1, 4)
         out = FA.flash_attention(q, kk, v, True)
         (got,) = torch.autograd.grad(out, qkv, go)
+        # no atomics: a second run gives the same bits
+        (again,) = torch.autograd.grad(FA.flash_attention(q, kk, v, True), qkv, go)
         torch.cuda.synchronize()
-        n, err = (8 if seq > 1000 or rows > 4000 else 64), 0.0
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention_backward {tag}: two runs differ")
+        print(f"[train-kernels] flash_attention_backward {tag}: two runs bit-equal "
+              f"({'resident' if FA.backward_resident(seq, d) else 'streaming'} kernels)")
+        del again
+        n, err, fwd_err = (8 if seq > 1000 or rows > 4000 else 64), 0.0, 0.0
         for r0 in (0, rows - n):
             ref_leaf = qkv.detach()[r0:r0 + n].float().requires_grad_(True)
             rq, rk, rv = ref_leaf.permute(2, 0, 3, 1, 4)
-            (ref,) = torch.autograd.grad(FA.reference_flash_attention(rq, rk, rv, True),
-                                         ref_leaf, go[r0:r0 + n].float())
+            ref_out = FA.reference_flash_attention(rq, rk, rv, True)
+            (ref,) = torch.autograd.grad(ref_out, ref_leaf, go[r0:r0 + n].float())
+            fwd_err = max(fwd_err, _compare(
+                f"flash_attention {tag} (training) rows {r0}..{r0 + n} of "
+                f"[{rows}, {h}, {seq}, {d}]", out[r0:r0 + n], ref_out.detach(), STEP_TOL,
+                null=rv.detach().mean(-2, keepdim=True).expand(ref_out.shape)))
             for i, g_name in enumerate(("dq", "dk", "dv")):
                 err = max(err, _compare(
                     f"flash_attention_backward {tag} {g_name} rows {r0}..{r0 + n} of "
                     f"[{rows}, {h}, {seq}, {d}]", got[r0:r0 + n, :, i], ref[:, :, i], STEP_TOL,
                     null=torch.zeros_like(ref[:, :, i])))
-        del got, ref, ref_leaf
+        del got, ref, ref_leaf, ref_out
         saved = (qkv.detach().permute(2, 0, 3, 1, 4))
         q4, k4, v4 = saved
         o, lse = FA._forward(q4, k4, v4, True, 10000.0, True)
-        ms = _time_ms(lambda: FA.flash_attention_backward(go.permute(0, 2, 1, 3), q4, k4, v4,
-                                                          o, lse, True, 10000.0), iters=3)
+        bwd = lambda: FA.flash_attention_backward(go.permute(0, 2, 1, 3), q4, k4, v4, o, lse,
+                                                  True, 10000.0)
+        ms = _time_ms(bwd, iters=3)
+        per_kernel = _kernel_device_ms(bwd, "flash_")
         # the plain version recomputes its score groups in the backward
         # (checkpoint): its backward is forward + backward less a forward
         both = _time_ms(lambda: torch.autograd.grad(
@@ -1219,7 +1292,20 @@ def phase_unfused_train_kernels(results):
         r = results.setdefault("flash_attention_backward", dict(err=0.0))
         r["err"] = max(r["err"], err)
         r[tag] = dict(shape=(rows, h, seq, d), ms=ms, plain_ms=plain_ms,
-                      library_ms=library_ms, bound=_bound(*flash_bwd_work(rows, h, seq, d)))
+                      library_ms=library_ms, bound=_bound(*flash_bwd_work(rows, h, seq, d)),
+                      kernels=per_kernel)
+        if name == "small":
+            # #6 at the small training shapes, as training runs it (stash)
+            fr = results.setdefault("flash_attention", dict(err=0.0))
+            fr["err"] = max(fr["err"], fwd_err)
+            with torch.no_grad():
+                fr[tag] = dict(
+                    shape=(rows, h, seq, d),
+                    ms=_time_ms(lambda: FA._forward(q4, k4, v4, True, 10000.0, True), iters=3),
+                    plain_ms=fwd,
+                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                        qr.detach(), kr.detach(), v.detach()), iters=3),
+                    bound=_bound(*flash_work(rows, h, seq, d)))
         del qkv, go, q, kk, v, out, o, lse, q4, k4, v4, saved, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
 
@@ -1287,7 +1373,7 @@ def phase_unfused_train_kernels(results):
     # bound: one byte written per element, or 10 Philox rounds (~10 integer
     # operations each) per 4 elements at the fp32 non-tensor rate
     results["dropout_mask"] = dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                                   bound=_bound(25.0 * n, float(n), PEAK_FP32),
+                                   bound=_bound(25.0 * n, float(n), peak=PEAK_FP32),
                                    shape=tuple(got.shape))
     del got, ref, f, ar, args
     torch.cuda.empty_cache()
@@ -1627,7 +1713,7 @@ def _stft_case(results, tag, audio, n_fft, hop):
     r["err"] = max(r["err"], err)
     r["shapes"][tag] = dict(
         shape=tuple(audio.shape), n_fft=n_fft, hop=hop,
-        bound=_bound(*stft_work(b, t, n_frames, n_bins, n_fft), PEAK_FP32),
+        bound=_bound(*stft_work(b, t, n_frames, n_bins, n_fft), peak=PEAK_FP32),
         **_device_and_host_ms(
             ms=lambda: SK.stft_fused(audio, n_fft, hop),
             plain_ms=lambda: SK.reference_stft(audio, n_fft, hop),
@@ -1671,7 +1757,7 @@ def _istft_case(results, tag, spec, n_fft, hop, length, gen):
     res["err"] = max(res["err"], err)
     res[tag] = dict(
         shape=tuple(spec.shape),
-        bound=_bound(*istft_work(r, n_frames, n_bins, n_fft), PEAK_FP32),
+        bound=_bound(*istft_work(r, n_frames, n_bins, n_fft), peak=PEAK_FP32),
         # torch.istft synchronises on every call: its time includes the
         # host's, and the whole istft_fused is held against it on that
         # yardstick (istft_host_ms)
@@ -1685,7 +1771,7 @@ def _istft_case(results, tag, spec, n_fft, hop, length, gen):
     ola["err"] = max(ola["err"], ola_err)
     ola[tag] = dict(
         shape=tuple(frames.shape),
-        bound=_bound(*ola_work(r, n_frames, n_fft, audio.shape[-1]), PEAK_FP32),
+        bound=_bound(*ola_work(r, n_frames, n_fft, audio.shape[-1]), peak=PEAK_FP32),
         **_device_and_host_ms(
             ms=lambda: SK.frames_to_audio(frames, n_fft, hop, length),
             plain_ms=lambda: SK.reference_frames_to_audio(frames, n_fft, hop, length)))
@@ -1803,7 +1889,7 @@ def phase_bs_kernels(results):
             r["bs " + path] = dict(
                 shape=(rows, seq, c), ms=_time_ms(lambda: kfn(x, gamma, *w, *args)),
                 plain_ms=_time_ms(lambda: pfn(x, gamma, *w, *args), iters=3),
-                bound=_bound(work[0], work[1]))
+                bound=_bound(*work[:2], *work[4:]))
             torch.cuda.empty_cache()
         del x, gamma, ffn, attn
         torch.cuda.empty_cache()
@@ -2027,10 +2113,11 @@ def main():
                   f"bound {r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
     for k in ("flash_attention", "swiglu_ffn"):
-        for path in ("freq", "time"):
+        for path in [t for t, r in results[k].items() if isinstance(r, dict)]:
             r = results[k][path]
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
-            print(f"[timing] xlarge {k} {path} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
+            where = path if path.startswith("small") else "xlarge " + path
+            print(f"[timing] {k} {where} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
                   f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
                   f"({r['bound'][1]}) {card}")
     for tag in ("bs", "base", "speech 128", "speech 256"):
@@ -2072,9 +2159,10 @@ def main():
             if not isinstance(r, dict):
                 continue
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
-            print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) "
-                  f"{card}")
+            split = "".join(f"; {n} {t:.3f} ms" for n, t in r.get("kernels", {}).items())
+            print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms{split}, "
+                  f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
+                  f"({r['bound'][1]}) {card}")
     r = results["dropout_mask"]
     print(f"[timing] dropout_mask {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
@@ -2099,7 +2187,7 @@ def main():
 
     # per kernel: the shape its ms, plain_ms and bound_ms are taken at
     fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
-    aflop, abytes, _, _ = attn_work(BATCH * (1 + CHUNK // 512), 1025)
+    aflop, abytes, _, _, aexps = attn_work(BATCH * (1 + CHUNK // 512), 1025)
     sources = {
         "stft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:150", None, None),
         "ffn_step": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:279",
@@ -2107,7 +2195,7 @@ def main():
         "ffn_step_backward": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:456",
                               None, None),
         "attention_step": ("csrc/attention_block.cu", "ops/pallas/attention_block.py:393",
-                           _bound(aflop, abytes), None),
+                           _bound(aflop, abytes, aexps), None),
         "attention_step_backward": ("csrc/attention_block.cu",
                                     "ops/pallas/attention_block.py:626", None, None),
         "flash_attention": ("csrc/flash_attention.cu", "ops/pallas/flash_attention.py:207",
@@ -2163,7 +2251,10 @@ def main():
                  "replaces": f"mss_tf_locoformer_tpu/{tpu}",
                  "launches": main_path[k],
                  "max_abs_err": r["err"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+                 "bound_ms": bound[0], "library_ms": library_ms,
+                 # exponentials are operations, at the special-function rate
+                 "bound_by": "bytes" if bound[1] == "bytes" else "operations",
+                 "bound_term": bound[1]}
         if k in ("stft", "istft", "istft_overlap_add"):
             # these take microseconds: ms and plain_ms above (and torch.stft's
             # library_ms) are device time, queued behind a spin; the host-

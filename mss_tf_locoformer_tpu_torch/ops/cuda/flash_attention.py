@@ -23,6 +23,13 @@ head_dim up to 64.  When a gradient is asked for, the forward also stashes
 each query's log-sum-exp (fp32 ``[B*H, L]``) and the backward kernels
 recompute the probabilities from it, q and k rotated in the kernel and the
 cotangents rotated back there (:func:`flash_attention_backward`).
+
+Two gates, from the ``.cu`` layouts, pick each call's kernels (one counted
+launch either way): :func:`forward_resident` (q, k and v of a (row, head)
+held in shared memory for all its queries, else 64-key tiles streamed per
+128 queries) and :func:`backward_resident` (one persistent pass per (row, head)
+with q, k, v, dO and o resident, D <= 16 and L <= 528; else a delta pre-pass,
+a dq launch and a dk/dv launch).
 """
 
 from __future__ import annotations
@@ -33,18 +40,74 @@ import torch
 
 from ..attention import dot_product_attention
 from ..rope import apply_rope
-from . import check, load, ptr, stream_handle
+from . import SMEM_OPTIN, check, load, ptr, stream_handle
 from .attention_block import _rope_tables
 
 __all__ = ["flash_attention", "flash_attention_backward", "FlashAttention",
-           "reference_flash_attention", "supports_shape", "MAX_HEAD_DIM"]
+           "reference_flash_attention", "supports_shape", "MAX_HEAD_DIM",
+           "forward_resident_bytes", "backward_resident_bytes", "forward_resident",
+           "backward_resident"]
 
 MAX_HEAD_DIM = 64   # D padded to a multiple of 16 (the MMA depth) up to 64
+# The resident backward (csrc/flash_attention.cu, BW_WARPS, BW_SLABS): up to
+# 11 warps of at most 3 slabs of 16 keys, D <= 16.
+_BW_WARPS, _BW_SLABS = 11, 3
 
 
 def supports_shape(d: int) -> bool:
     """Whether the kernels (forward and backward) take head_dim ``d``."""
     return d % 2 == 0 and 0 < d <= MAX_HEAD_DIM
+
+
+def _rows_bytes(lp: int, d: int) -> int:
+    """``Rows<DP>::bytes``: ``lp`` rows of DP / 8 chunks of 16 bytes, a row
+    stride of one chunk more where the count is not a power of two."""
+    nch = -(-d // 16) * 2
+    return lp * (nch if nch & (nch - 1) == 0 else nch + 1) * 16
+
+
+def forward_resident_bytes(seq: int, d: int) -> int:
+    """Shared memory of the resident forward's layout (q', k', v ``[L,
+    DP]``), 0 where it exceeds a block's 227 KB and the streaming kernel
+    runs."""
+    lp = -(-seq // 16) * 16
+    n = 3 * _rows_bytes(lp, d)
+    return n if n <= SMEM_OPTIN else 0
+
+
+def backward_resident_bytes(seq: int, d: int) -> int:
+    """Shared memory of the resident backward's layout (two buffers of q',
+    k, v, dO, o ``[L, 16]`` and -lse, -delta ``[L]``; two slots of 11
+    warps' dQ partials, ``[16, 24]`` fp32 each), 0 outside its gate (D >
+    16, more than 3 slabs of 16 keys per warp, or more than 227 KB): then
+    the streaming kernels run."""
+    lp = -(-seq // 16) * 16
+    per_warp = -(-(lp // 16) // _BW_WARPS)
+    n = 2 * (5 * _rows_bytes(lp, 16) + 2 * lp * 4) + 2 * _BW_WARPS * 16 * 24 * 4
+    return n if d <= 16 and per_warp <= _BW_SLABS and n <= SMEM_OPTIN else 0
+
+
+def forward_resident(seq: int, d: int) -> bool:
+    """Whether the forward keeps a (row, head)'s q, k and v resident."""
+    return forward_resident_bytes(seq, d) > 0
+
+
+def backward_resident(seq: int, d: int) -> bool:
+    """Whether the backward takes its one-pass resident kernel."""
+    return backward_resident_bytes(seq, d) > 0
+
+
+def compiled_resident_bytes(seq: int, d: int):
+    """``(forward, backward)`` bytes as the compiled library computes them
+    (the card's tests hold the Python gates against these)."""
+    lib = load("flash_attention")
+    out = []
+    for name in ("flash_forward_resident_bytes", "flash_backward_resident_bytes"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        out.append(int(fn(seq, d)))
+    return tuple(out)
 
 
 def reference_flash_attention(q, k, v, rope: bool = False,

@@ -307,9 +307,18 @@ def test_stft_kernel_passes_gradients(dev):
 # The unfused route's kernels: flash attention (#6) and the FFN core (#8),
 # bf16 against their plain versions in bf16 (one bf16 step apart, STEP_TOL).
 
-@pytest.mark.parametrize("r,h,seq,d,rope", [(2, 3, 65, 12, True), (1, 16, 130, 16, True),
-                                            (2, 2, 37, 24, False), (3, 4, 1, 16, True),
-                                            (1, 2, 200, 64, True)])
+# Besides small and ragged shapes: the 129- and 513-position tails (one live
+# query and key in the last 16-row tile), D 12 through the small config's
+# 288-byte position stride (4 heads of 12), L 1300 (one resident block an
+# SM), and shapes beyond the resident forward's gate (L 2500 at D 16, L 1000
+# at D 64: the streaming kernel).
+FLASH_SHAPES = [(2, 3, 65, 12, True), (1, 16, 130, 16, True), (2, 2, 37, 24, False),
+                (3, 4, 1, 16, True), (1, 2, 200, 64, True), (1, 16, 129, 16, True),
+                (2, 4, 513, 12, True), (1, 4, 129, 12, False), (1, 1, 2500, 16, True),
+                (1, 2, 1000, 64, True), (1, 2, 1300, 16, True)]
+
+
+@pytest.mark.parametrize("r,h,seq,d,rope", FLASH_SHAPES)
 def test_flash_attention_kernel(dev, r, h, seq, d, rope):
     g = torch.Generator().manual_seed(5)
     qkv = (1.5 * torch.randn(r, seq, 3, h, d, generator=g)).to(dev, torch.bfloat16)
@@ -362,9 +371,12 @@ def _grad_close(got, ref):
         assert _rel_l2(a, b) < 2e-2
 
 
-@pytest.mark.parametrize("r,h,seq,d,rope", [(2, 3, 65, 12, True), (1, 16, 130, 16, True),
-                                            (2, 2, 37, 24, False), (3, 4, 1, 16, True),
-                                            (1, 2, 200, 64, True)])
+# The forward's shapes but the largest (its plain fp32 scores' autograd), and
+# L 600 at D 16, beyond the resident backward's gate (the streaming kernels).
+FLASH_BWD_SHAPES = FLASH_SHAPES[:8] + [(1, 2, 600, 16, True), (1, 2, 1000, 64, True)]
+
+
+@pytest.mark.parametrize("r,h,seq,d,rope", FLASH_BWD_SHAPES)
 def test_flash_attention_backward_kernel(dev, r, h, seq, d, rope):
     """#7 through the autograd Function on the MHSA's strided views against
     autograd through the plain version in fp32; without a gradient no stash
@@ -392,6 +404,23 @@ def test_flash_attention_backward_kernel(dev, r, h, seq, d, rope):
     with torch.no_grad():
         FA.flash_attention(q, k, v, rope)
     assert FA.flash_attention_backward.launches == n + 1
+
+
+@pytest.mark.parametrize("r,h,seq,d", [(2, 4, 513, 12), (1, 2, 600, 16)])
+def test_flash_attention_backward_is_deterministic(dev, r, h, seq, d):
+    """Two #7 runs on the same inputs give the same bits (no atomics), on
+    the resident kernel and on the streaming ones."""
+    assert FA.backward_resident(seq, d) == (seq == 513)
+    g = torch.Generator().manual_seed(8)
+    qkv = (1.5 * torch.randn(r, seq, 3, h, d, generator=g)).to(dev, torch.bfloat16)
+    go = torch.randn(r, seq, h, d, generator=g).to(dev, torch.bfloat16)
+    q4, k4, v4 = qkv.permute(2, 0, 3, 1, 4)
+    out, lse = FA._forward(q4, k4, v4, True, 10000.0, True)
+    first = FA.flash_attention_backward(go, q4, k4, v4, out, lse, True, 10000.0)
+    again = FA.flash_attention_backward(go, q4, k4, v4, out, lse, True, 10000.0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("drop", [0.0, 0.1])
@@ -455,3 +484,7 @@ def test_gate_bytes_match_the_compiled_layouts(dev):
         assert SF.compiled_core_bytes(c) == SF.core_bytes(c)
         for k in (2, 4, 8):
             assert SF.compiled_backward_bytes(c, k) == SF.backward_bytes(c, k)
+    for seq in (1, 17, 129, 345, 513, 528, 529, 600, 1000, 2049, 2500):
+        for d in (12, 16, 24, 32, 48, 64):
+            assert FA.compiled_resident_bytes(seq, d) == (
+                FA.forward_resident_bytes(seq, d), FA.backward_resident_bytes(seq, d))
