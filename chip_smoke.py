@@ -21,7 +21,9 @@ result line):
      and the xlarge config (unfused route), in eval and in training, and
      which flash-attention kernels the unfused route's shapes take (the
      resident forward everywhere; the one-pass resident backward at the
-     small config, the streaming one at xlarge);
+     small config, the streaming one at xlarge), and which FFN-core kernels
+     (the Hopper kernels at xlarge's C 256, with #9's row groups, splits
+     and scratch; the mma.sync kernels at the small config's C 48);
   3. kernels: each base forward kernel against its plain PyTorch version at
      the shapes the serving path gives it (one engine batch: 2 chunks of
      8 s); the STFT (#1) timed beside ``torch.stft``, in device time and
@@ -41,7 +43,8 @@ result line):
      kernels against their plain versions at the engine batch's freq and
      time shapes (flash attention compared on row slices: the plain fp32
      scores of all 690 freq rows would take ~185 GB), with the library
-     time of ``scaled_dot_product_attention`` beside flash attention's;
+     time of ``scaled_dot_product_attention`` beside flash attention's and
+     #8's device time kernel by kernel (``torch.profiler``);
      slice parity at full width and depth; the separation CLI with exact
      launch counts (per forward 24 flash-attention and 48 FFN-core
      launches, no fused step); the forward in turns;
@@ -65,15 +68,17 @@ result line):
      16 x 3 s) and the xlarge config's (micro-batch 1 x 15 s) against
      autograd through their plain versions in fp32 (row slices where the
      plain version's memory forces them; #9 at dropout 0.1 on 16 rows too),
-     #7 run twice for the same bits, timed beside their bounds (#7 beside
-     the autograd backward of ``scaled_dot_product_attention``, and each of
-     its launches apart from a ``torch.profiler`` trace); #6 with its
+     #7 run twice for the same bits, #9 too at the xlarge freq shape
+     (dropout 0.1, 8 row groups), timed beside their bounds (#7 beside
+     the autograd backward of ``scaled_dot_product_attention``), each
+     kernel of #7 and #9 apart from a ``torch.profiler`` trace; #6 with its
      training stash at the small config's shapes, timed beside SDPA; the
      dropout-mask kernel bit for bit against its plain version;
  12. the xlarge train step at full width and depth (12 layers, remat,
      dropout 0.1, 15 s) at micro-batch 1, and 2 when twice the measured
      peak fits, with exact launch counts (per micro-batch 96 FFN-core
-     forwards, 48 backwards, no flash attention);
+     forwards, 48 backwards, no flash attention); its peak printed beside
+     the mma.sync kernels' 40.94 GiB plus #9's scratch cap and partials;
  13. xlarge train-step parity: kernel path against plain path at 1 x 1 s,
      the gradients' relative L2 per parameter group, rejecting the model
      with its blocks skipped;
@@ -299,6 +304,29 @@ def phase_gates():
         if not FA.forward_resident(seq, 16):
             raise AssertionError(f"gates: the xlarge serving forward at L {seq} should be "
                                  f"resident")
+    # the unfused route's FFN cores: the Hopper kernels (wgmma) at C 128 and
+    # 256, the mma.sync kernels at the other widths; #9's row groups
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
+    for name, path, rows, _, seq, _, c, inner in _unfused_train_shapes():
+        k = 4
+        lin = seq + 2 * (k - 1)
+        if SF.hopper_route(c):
+            plan = SF.wg_backward_plan(rows, lin, c, inner, k)
+            what = (f"Hopper kernels: forward ffn_core_wg_kernel ({SF.core_bytes(c)} B), "
+                    f"backward ffn_bwd_dx_wg_kernel + ffn_wgrad_gemm_kernel "
+                    f"({SF.backward_bytes(c, k)}), {plan['groups']} row groups of "
+                    f"{plan['rows']}, {plan['splits']} splits, scratch "
+                    f"{plan['scratch_bytes'] / 2**20:.1f} MiB of "
+                    f"{SF.SCRATCH_CAP / 2**20:.0f}, partials "
+                    f"{plan['partial_bytes'] / 2**20:.1f} MiB")
+        else:
+            what = (f"mma.sync kernels: forward ffn_core_kernel ({SF.core_bytes(c)} B), "
+                    f"backward ffn_core_bwd_dx_kernel + ffn_core_bwd_w_kernel "
+                    f"({SF.backward_bytes(c, k)})")
+        print(f"[gates] FFN core {name} {path} [{rows}, {lin}, {c}], I {inner}: {what}")
+        if SF.hopper_route(c) != (name == "xlarge"):
+            raise AssertionError(f"gates: the FFN core of {name} should take the "
+                                 f"{'Hopper' if name == 'xlarge' else 'mma.sync'} kernels")
 
 
 def _rand(gen, shape, scale=1.0):
@@ -729,11 +757,13 @@ def phase_xlarge_kernels(results):
         del got, ref
         torch.cuda.empty_cache()
         ms = _time_ms(lambda: SF.swiglu_conv_deconv(x, *w, k), iters=3)
+        per_kernel = _kernel_device_ms(lambda: SF.swiglu_conv_deconv(x, *w, k), "ffn_")
         plain_ms = _time_ms(lambda: SF.reference_swiglu_conv_deconv(x, *w, k), iters=2)
         r = results.setdefault("swiglu_ffn", dict(err=0.0))
         r["err"] = max(r["err"], err)
         r[path] = dict(shape=(rows, lin, c), ms=ms, plain_ms=plain_ms, library_ms=None,
-                       bound=_bound(*ffn_core_work(rows, seq, c, inner, k)))
+                       bound=_bound(*ffn_core_work(rows, seq, c, inner, k)),
+                       kernels=per_kernel)
         del x, w
         torch.cuda.empty_cache()
 
@@ -1140,6 +1170,10 @@ def phase_train_timing(reps: int = 1):
 SMALL_SEGMENT = 132300   # 3 s (configs/musdb18_small.yaml)
 SMALL_BATCH = 16
 XL_SEGMENT = 661500      # 15 s (configs/musdb18_xlarge.yaml)
+# The xlarge train step's peak with #9 on the mma.sync kernels, which
+# keep no scratch (NVIDIA H100 80GB HBM3, 700 W): the step fails if the
+# Hopper kernels' scratch and partials raise it by more than their cap
+XL_PEAK_GIB = 40.94
 
 
 def small_model_config():
@@ -1196,14 +1230,18 @@ def _unfused_train_shapes():
     return out
 
 
-def _kernel_device_ms(fn, prefix: str, reps: int = 3) -> dict:
-    """Device ms per launch of each kernel named ``prefix...`` that ``fn``
-    launches, from a ``torch.profiler`` trace of ``reps`` calls (so a call
-    of several launches is timed launch by launch), each kernel's total over
-    the launches the trace holds (late in a process it loses some); empty
-    when it holds none."""
+def _kernel_device_ms(fn, prefix: str, per_call=None, reps: int = 3) -> dict:
+    """Device ms per call of each kernel named ``prefix...`` (a regular
+    expression) that ``fn`` launches, from a ``torch.profiler`` trace of
+    ``reps`` calls (so a call of several launches is timed kernel by
+    kernel): each kernel's mean over the launches the trace holds (late in
+    a process it loses some) times its launches a call, ``per_call[name]``
+    (1 where not named); keyed ``name xn`` when n > 1.  Raises when the
+    trace holds more launches than ``reps`` calls make; empty when it holds
+    none."""
     import re
     import torch
+    per_call = per_call or {}
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1214,8 +1252,24 @@ def _kernel_device_ms(fn, prefix: str, reps: int = 3) -> dict:
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         m = re.search(rf"({prefix}\w+)", e.key)
         if t and m and e.count:
-            out[m.group(1)] = t / 1e3 / e.count
+            name = m.group(1)
+            n = per_call.get(name, 1)
+            if e.count > reps * n:
+                raise AssertionError(f"{name}: {e.count} launches in the trace of {reps} "
+                                     f"calls, expected {n} a call")
+            out[name + (f" x{n}" if n > 1 else "")] = t / 1e3 / e.count * n
     return out
+
+
+def ffn_bwd_launches(sf, rows, lin, c, inner, k) -> dict:
+    """Launches one #9 call of the wrapper module ``sf`` makes of each of its
+    kernels (1 where not named): per row group the Hopper dx kernel and
+    weight-gradient GEMM, then two reductions; or the mma.sync dx and weight
+    kernels once each, then three reductions."""
+    if getattr(sf, "hopper_route", lambda _: False)(c):
+        n = sf.wg_backward_plan(rows, lin, c, inner, k)["groups"]
+        return {"ffn_bwd_dx_wg_kernel": n, "ffn_wgrad_gemm_kernel": n, "wg::reduce_kernel": 2}
+    return {"wg::reduce_kernel": 3}
 
 
 def phase_unfused_train_kernels(results):
@@ -1326,15 +1380,48 @@ def phase_unfused_train_kernels(results):
         _, ref = _autograd(pfn, xs.float(), w, gs.float())
         gerr, grel = _check_grads(f"swiglu_ffn_backward {tag} [{n} of {rows}, {lin}, {c}], "
                                   f"I {inner}", got, ref, gs)
+        # on the Hopper route the slices again in as many row groups as the
+        # full shape runs (a scratch cap of that many rows' dyvg and h), so
+        # the partials' accumulation across groups, each group's row offset
+        # and its dropout rows are held too; the dropout slice's groups of 5
+        # start off the full shape's group boundaries and end ragged
+        if SF.hopper_route(c):
+            per_row = SF.wg_backward_plan(1, lin, c, inner, k)["scratch_bytes"]
+            groups = SF.wg_backward_plan(rows, lin, c, inner, k)["groups"]
+            cap = per_row * -(-n // groups)
+            grouped = SF.swiglu_ffn_backward(gs, xs, *w[:3], k, scratch_cap=cap)
+            _check_grads(f"swiglu_ffn_backward {tag} [{n} of {rows}, {lin}, {c}] in "
+                         f"{-(-n // (cap // per_row))} row groups", grouped, ref, gs)
+            del grouped
         del got, ref
         r0 = rows // 2
         xs, gs = x[r0:r0 + 16].contiguous(), g[r0:r0 + 16].contiguous()
         _, got = _autograd(lambda *a: fn(*a, p=0.1, r0=r0), xs, w, gs)
         _, ref = _autograd(lambda *a: pfn(*a, p=0.1, r0=r0), xs.float(), w, gs.float())
         _check_grads(f"swiglu_ffn_backward {tag} rows {r0}..{r0 + 16}, dropout 0.1", got, ref, gs)
+        if SF.hopper_route(c):
+            grouped = SF.swiglu_ffn_backward(gs, xs, *w[:3], k, 0.1, 777, r0,
+                                             scratch_cap=5 * per_row)
+            _check_grads(f"swiglu_ffn_backward {tag} rows {r0}..{r0 + 16}, dropout 0.1, in "
+                         f"row groups of 5", grouped, ref, gs)
+            del grouped
         del got, ref, xs, gs
         torch.cuda.empty_cache()
-        ms = _time_ms(lambda: SF.swiglu_ffn_backward(g, x, *w[:3], k), iters=3)
+        if tag == "xlarge freq":
+            # no atomics: a second run gives the same bits (split partials
+            # summed in a fixed order, across 8 row groups)
+            first = SF.swiglu_ffn_backward(g, x, *w[:3], k, 0.1, 777, 0)
+            again = SF.swiglu_ffn_backward(g, x, *w[:3], k, 0.1, 777, 0)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"swiglu_ffn_backward {tag}: two runs differ")
+            print(f"[train-kernels] swiglu_ffn_backward {tag}: two runs bit-equal "
+                  f"(dropout 0.1)")
+            del first, again
+        bwd = lambda: SF.swiglu_ffn_backward(g, x, *w[:3], k)
+        ms = _time_ms(bwd, iters=3)
+        per_kernel = _kernel_device_ms(bwd, "(?:ffn_|wg::reduce_)",
+                                       ffn_bwd_launches(SF, rows, lin, c, inner, k))
         xp = x.detach().requires_grad_(True)
         wp = [t.detach().requires_grad_(True) for t in w]
         pout = pfn(xp, *wp)
@@ -1344,7 +1431,8 @@ def phase_unfused_train_kernels(results):
         r["err"] = max(r["err"], gerr)
         r["rel_l2"] = max(r["rel_l2"], grel)
         r[tag] = dict(shape=(rows, lin, c), ms=ms, plain_ms=plain_ms, library_ms=None,
-                      bound=_bound(*ffn_core_bwd_work(rows, seq, c, inner, k)))
+                      bound=_bound(*ffn_core_bwd_work(rows, seq, c, inner, k)),
+                      kernels=per_kernel)
         del x, w, g, xp, wp, pout
         torch.cuda.empty_cache()
 
@@ -1433,7 +1521,9 @@ def phase_xlarge_train_step():
     next micro-batch)``."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.config import TrainingConfig
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
     from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    cfg = xlarge_model_config()
     model = _xl_train_model()
     opt = make_optimizer(model.parameters(), TrainingConfig())
     counters = _counters()
@@ -1462,7 +1552,19 @@ def phase_xlarge_train_step():
         out[mb] = (sec, peak)
         print(f"[xl-train] micro-batch {mb} x 15 s: {sec:.2f} s, peak {peak / 2**30:.2f} GiB, "
               f"loss {float(ld['total_loss']):.4f}")
-    cfg = xlarge_model_config()
+        if mb == 1:   # #9's scratch and partials (the freq path's, the larger)
+            k = cfg.conv1d_kernel
+            plan = SF.wg_backward_plan(1 + XL_SEGMENT // cfg.hop_length,
+                                       cfg.n_freqs + 2 * (k - 1), cfg.emb_dim,
+                                       _inner_dims(cfg)[0], k)
+            limit = XL_PEAK_GIB + (SF.SCRATCH_CAP + plan["partial_bytes"]) / 2**30
+            print(f"[xl-train] peak {peak / 2**30:.2f} GiB against {XL_PEAK_GIB:.2f} GiB "
+                  f"before #9's scratch (the mma.sync kernels') + its cap "
+                  f"{SF.SCRATCH_CAP / 2**30:.2f} GiB + partials "
+                  f"{plan['partial_bytes'] / 2**30:.3f} GiB = {limit:.2f} GiB")
+            if peak > limit * 2**30:
+                raise AssertionError(f"xlarge train step: peak {peak / 2**30:.2f} GiB above "
+                                     f"{limit:.2f} GiB")
     ffns = cfg.n_layers * 2 * len(_inner_dims(cfg))
     if launches["dropout_mask"] <= 0:
         raise AssertionError("xlarge train step drew no dropout mask on the card")
@@ -2117,7 +2219,8 @@ def main():
             r = results[k][path]
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
             where = path if path.startswith("small") else "xlarge " + path
-            print(f"[timing] {k} {where} {list(r['shape'])}: kernel {r['ms']:.3f} ms, "
+            split = "".join(f"; {n} {t:.3f} ms" for n, t in r.get("kernels", {}).items())
+            print(f"[timing] {k} {where} {list(r['shape'])}: kernel {r['ms']:.3f} ms{split}, "
                   f"plain {r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
                   f"({r['bound'][1]}) {card}")
     for tag in ("bs", "base", "speech 128", "speech 256"):
@@ -2263,6 +2366,8 @@ def main():
             at = r["shapes"]["base"] if k == "stft" else r["bs"]
             entry.update({f"{p}host_ms": at[f"{p}host_ms"]
                           for p in ("", "plain_", "library_", "istft_") if f"{p}host_ms" in at})
+        if k in ("swiglu_ffn", "swiglu_ffn_backward"):
+            entry["kernels"] = f["kernels"]   # device ms per call, kernel by kernel
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]

@@ -42,13 +42,14 @@
 // Row strides are 8 bf16 past a multiple of 64 bytes, so that the eight
 // 16-byte rows of every ldmatrix fall in distinct banks.  C is a template
 // parameter (every multiple of 16 up to 256), so the loops over C unroll.
-// 157,696 bytes of shared memory at C 256 whatever k; weights are re-read
-// from L2 by every block (~6 MB per block at xlarge); several tiles per
-// block, TMA and wgmma are later work.
+// These mma.sync kernels serve the widths other than 128 and 256 (the
+// small config's C 48); C 128 and 256 (xlarge) take the Hopper route at the
+// end of this file.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 #include "wgrad.cuh"
 
@@ -765,7 +766,678 @@ int launch_bwd(const bf16* x, const bf16* gz, const bf16* wc, const float* bc,
   return (int)wg::launch_reduce(part_b, out_b, 1, Sp, (long long)ncw * 2 * WIC, st);
 }
 
+
+// ============================================================ Hopper route
+//
+// The redesign of #8 and #9 for C 128 and 256 (``wg`` below; the kernels
+// above serve the other widths).  What held the kernels above: every block
+// staged each weight panel synchronously with all its threads, so the
+// tensor cores idled through 128 exposed panel loads per block, and the
+// products ran on mma.sync at ~17% of the bf16 peak; #9's weight kernel
+// recomputed conv and dh for 8 channels at a time (1.5x the FLOP) and
+// re-staged x and the cotangent once per 8-channel block.
+//
+// Design, on wgmma, bulk copies and mbarriers (``hopper.cuh``):
+//   * 256 threads: two warpgroups, 64 conv positions each (128 positions a
+//     block: half the weight stream per position of the 64-row tiles); one
+//     thread also issues every copy.  No producer warp: a ninth warp would
+//     cap a thread at 168 registers (three warps on one of the SM's four
+//     register files), and the accumulators of C 256 take 160-176;
+//   * the x (and cotangent) tile, with its k-1 halo, arrives as C/64 TMA
+//     boxes of 136 rows x 128 bytes, 128-byte swizzled;
+//   * the weights stream through a ring of ``NS`` stages (16 KB forward, 64
+//     C bytes in the dx kernel), in the order the consumers use them; the
+//     wrapper lays every stage out in device memory already in the 128-
+//     byte-swizzled K-major order wgmma reads, so each stage is one bulk
+//     copy, ordered by a full and an empty mbarrier;
+//   * the tap shift: a tap reads x rows at offset t (the deconv and dx read
+//     h / dyvg at k-1-t).  The swizzle follows the shared-memory address, so
+//     a descriptor may start at any row of a swizzled tile (measured on the
+//     card): every product reads A (x, h, the cotangent, dyvg) from shared
+//     memory, and one stage's products stay in flight while the next
+//     stage's issue;
+//   * the inner dimension runs in chunks, 64 value + 64 gate channels in
+//     the forward (the conv m64n128, 64 registers; h in whole 128-byte
+//     rows), 32 + 32 in the dx kernel (its dh and dx accumulators leave no
+//     room for more); the deconv's or dx's accumulators (m64 x C, 128
+//     registers at C 256) stay in registers across chunks, the SwiGLU
+//     (backward) runs in fp32 on the conv's, and h / dyvg go to shared
+//     memory in bf16 once (the halo rows cross the two warpgroups: a named
+//     barrier per chunk);
+//   * #9's weight gradients are GEMMs over positions (``wgrad_gemm_kernel``):
+//     the dx kernel also writes dyvg [q, 2I] and the dropped h [q, I] to a
+//     scratch with x's row stride Lin (zeros at conv positions >= l1), so
+//     that a flat position q pairs dyvg[q] with x[q + t] and h[q] with
+//     g[q + t] and never crosses a row: each tap's offset is a coordinate of
+//     the copy.  dWc [kC, 2I] = sum_q x[q + t]^T dyvg[q] and dWd^T [kC, I] =
+//     sum_q g[q + t]^T h[q], both operands read MN-major from TMA boxes,
+//     split over positions into fp32 partials summed in a fixed order: no
+//     atomics, the same bits on every run.  The scratch is bounded (the
+//     wrapper runs the backward in row groups); the partials accumulate
+//     across groups in stream order.
+// What bounds them: the products (6 k C I FLOP a position forward, 16 k C I
+// backward) against the weights, which every block still streams from L2
+// (6.3 MB a block forward at xlarge, 74 GB a call; 10.5 MB a block in the dx
+// kernel).  Measured on the card (PERF.md §6): the stream, the products
+// and the per-chunk epilogues overlap little; sharing the stream across a
+// 2-block cluster (multicast) made the forward slower, not faster.
+namespace wgk {
+
+using namespace hop;
+
+constexpr int MT = 128;        // conv positions per block
+constexpr int XR = MT + 8;     // staged rows: tile, halo (k-1 <= 7), zeros
+constexpr int ICH = 32;        // inner channels per dx-kernel chunk (value and gate each)
+constexpr int NTH = 256;    // two warpgroups
+constexpr int NTH_G = 288;  // the GEMM: two warpgroups and a producer warp
+constexpr int SMEM_MAX = 232448;
+constexpr int MAX_STAGES = 8;
+
+__host__ __device__ constexpr int ring_stages(int fixed, int sb) {
+  int n = MAX_STAGES;
+  while (n > 2 && fixed + n * sb + (2 * n + 1) * 8 > SMEM_MAX) --n;
+  return n;
+}
+
+// The x (and cotangent) tile: XR rows from conv position p0 on, as C/64
+// atom columns of XR rows x 128 bytes (128-byte swizzle, by address), one
+// TMA box each.  A tap's rows start anywhere: the swizzle follows the
+// address, so a descriptor may start at any row of a column.
+constexpr int XCOL = XR * 128;
+
+// Forward: ring | x tile | h [2][XR][64] (swizzled) | barriers; +1 KB of
+// slack to align the ring and the tiles to 1024 bytes.  Its chunks are 64
+// value + 64 gate channels (``FICH``), its stages [128 n][64 k] (16 KB).
+constexpr int FICH = 64;
+template <int C>
+struct FwdLay {
+  static constexpr int SB = 128 * 64 * 2;
+  static constexpr int XS = (C / 64) * XCOL;
+  static constexpr int HS = 2 * XCOL;
+  static constexpr int FIXED = 1024 + XS + HS;
+  static constexpr int NS = ring_stages(FIXED, SB);
+  static constexpr int BYTES = FIXED + NS * SB + (2 * NS + 1) * 8;
+};
+
+// dx: ring | x tile | cotangent tile | dyvg [XR][64] (one swizzled atom
+// column) | barriers.
+template <int C>
+struct DxLay {
+  static constexpr int SB = 64 * C;
+  static constexpr int XS = (C / 64) * XCOL;
+  static constexpr int YS = XCOL;
+  static constexpr int FIXED = 1024 + 2 * XS + YS;
+  static constexpr int NS = ring_stages(FIXED, SB);
+  static constexpr int BYTES = FIXED + NS * SB + (2 * NS + 1) * 8;
+};
+
+// The weight-gradient GEMM: stages of two A boxes and four B boxes (64 x 64
+// bf16 each) | barriers.
+constexpr int GSB = 6 * 8192;
+constexpr int GNS = 4;
+constexpr int GEMM_BYTES = 1024 + GNS * GSB + (2 * GNS) * 8;
+
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return desc_sw128(addr, 16, 1024); }
+
+// The k16 step kc (16 channels) of rows ``row`` .. row + 63 of a tile.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int row, int kc) {
+  return kdesc(tile + (kc / 4) * XCOL + row * 128 + (kc % 4) * 32);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// The tile of flat rows [r0, r0 + XR) of a [rows, C] tensor map: C/64 boxes.
+template <int C>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int r0,
+                                          uint64_t* bar) {
+#pragma unroll
+  for (int a = 0; a < C / 64; ++a) tma_g2s_2d(dst + a * XCOL, map, 64 * a, r0, bar);
+}
+
+// The ring of weight stages.  Stage ``s`` (counted from 0 over the block's
+// life) sits in slot s % NS, its n-th use with n = s / NS; each of the 8
+// warps releases it (lane 0) once its products are done.  ``retire`` leaves
+// a stage's products in flight while the next stage's issue, and releases
+// the stage before it; ``drain`` waits for all.  Thread 0 is also the
+// producer: it fills the first NS stages up front and, on releasing stage
+// s, refills the slot of stage s - LAG with stage s - LAG + NS once both
+// warpgroups are done with it (LAG stages of slack, so that it rarely waits).
+template <int NS>
+struct Ring {
+  static constexpr int LAG = NS >= 8 ? 2 : 1;
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int sb;
+  const unsigned char* src;
+  long long total;
+  __device__ __forceinline__ void fill(long long s) const {
+    const int slot = (int)(s % NS);
+    if (s >= NS) mbar_wait(&empty[slot], (uint32_t)((s / NS - 1) & 1));
+    mbar_arrive_expect(&full[slot], sb);
+    bulk_g2s(base + slot * sb, src + s * sb, sb, &full[slot]);
+  }
+  __device__ __forceinline__ void start() const {
+    for (long long s = 0; s < NS && s < total; ++s) fill(s);
+  }
+  __device__ __forceinline__ uint32_t wait(int s) const {
+    mbar_wait(&full[s % NS], (s / NS) & 1);
+    return smem_u32(base + (s % NS) * sb);
+  }
+  __device__ __forceinline__ void release(int s, int lane) const {
+    if (lane == 0) mbar_arrive(&empty[s % NS]);
+    if (threadIdx.x == 0 && s >= LAG && s - LAG + NS < total) fill(s - LAG + NS);
+  }
+  __device__ __forceinline__ void retire(int& s, int& pending, int lane) const {
+    wgmma_wait<1>();
+    if (pending >= 0) release(pending, lane);
+    pending = s++;
+  }
+  __device__ __forceinline__ void drain(int& pending, int lane) const {
+    wgmma_wait<0>();
+    if (pending >= 0) release(pending, lane);
+    pending = -1;
+  }
+};
+
+// One tap of a dx-kernel product over C into acc [m64 x N] from tile rows
+// ``row`` on: ``halves`` stages of [N n][C/halves k] (the conv: two of
+// [64][C/2]; the deconv's adjoint: one of [32][C]); ``first`` overwrites
+// acc.
+template <int C, int N, int NS>
+__device__ __forceinline__ void tap_products(float* acc, uint32_t tile, int row, bool first,
+                                             const Ring<NS>& ring, int& s, int& pending,
+                                             int lane) {
+  constexpr int HALVES = N == 64 ? 2 : 1;
+  constexpr int KS = C / 16 / HALVES;     // k16 steps per stage
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+    const uint32_t sb = ring.wait(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t da = tile_desc(tile, row, h * KS + kk);
+      const uint64_t db = kdesc(sb + (kk / 4) * (N * 128) + (kk % 4) * 32);
+      if constexpr (N == 64)
+        wgmma_ss_n64(acc, da, db, !first || h || kk);
+      else
+        wgmma_ss_n32(acc, da, db, !first || h || kk);
+    }
+    wgmma_commit();
+    ring.retire(s, pending, lane);
+  }
+}
+
+// Writes acc [m64 x C] (+ bias) as bf16 rows j0 + l of out, l < lt.
+template <int C>
+__device__ __forceinline__ void store_rows(const float* acc, const float* __restrict__ bias,
+                                           bf16* outr, int j0, int lt, int Lin, int rbase,
+                                           int lane) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int l = rbase + g + 8 * hr, pos = j0 + l;
+    if (l < lt && pos < Lin) {
+#pragma unroll
+      for (int b = 0; b < C / 64; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * b + 8 * j + 2 * c;
+          float v0 = acc[32 * b + 4 * j + 2 * hr], v1 = acc[32 * b + 4 * j + 2 * hr + 1];
+          if (bias) {
+            v0 += bias[col];
+            v1 += bias[col + 1];
+          }
+          *(__nv_bfloat162*)(outr + (size_t)pos * C + col) = __floats2bfloat162_rn(v0, v1);
+        }
+    }
+  }
+}
+
+// Barriers, the tile loads (rows outside the row: the neighbours' zero
+// padding, or zeros past the tensor; either way they feed only conv
+// positions outside [0, l1), whose h and dyvg are set to 0) and the first
+// stages.
+template <int NS>
+__device__ __forceinline__ void prologue(uint64_t* full, uint64_t* empty, uint64_t* xbar) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init(xbar, 1);
+    mbar_init_fence();
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(NTH, 1) ffn_core_wg_kernel(
+    const __grid_constant__ CUtensorMap mx, const bf16* __restrict__ panels,
+    const float* __restrict__ bc, const float* __restrict__ bd, bf16* __restrict__ out, int Lin,
+    int nch, int K, int tiles, DropParams dp) {
+  using L = FwdLay<C>;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  unsigned char* sm = aligned_smem(smraw);
+  unsigned char* xs = sm + L::NS * L::SB;
+  unsigned char* hs = xs + L::XS;
+  uint64_t* full = (uint64_t*)(hs + L::HS);
+  uint64_t* empty = full + L::NS;
+  uint64_t* xbar = empty + L::NS;
+
+  const int row = blockIdx.x / tiles;
+  const int lt = MT - (K - 1);
+  const int j0 = (blockIdx.x % tiles) * lt;
+  const int p0 = j0 - (K - 1);
+  const int l1 = Lin - K + 1;
+  const int tid = threadIdx.x;
+  const int spc = K * (C / 64 + C / 128);   // stages per chunk
+  const Ring<L::NS> ring{sm, full, empty, L::SB, (const unsigned char*)panels,
+                         (long long)nch * spc};
+  prologue<L::NS>(full, empty, xbar);
+  for (int i = tid; i < 2 * (XR - MT) * 8; i += NTH)   // h rows past the tile: zeros
+    *(uint4*)(hs + (i / ((XR - MT) * 8)) * XCOL + (MT + (i / 8) % (XR - MT)) * 128 +
+              (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect(xbar, L::XS);
+    load_tile<C>(xs, &mx, row * Lin + p0, xbar);
+    ring.start();
+  }
+  const int cw = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int rbase = 64 * cw + 16 * w;
+  const uint32_t xt = smem_u32(xs);
+  mbar_wait(xbar, 0);
+
+  float z[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) z[i] = 0.f;
+  int s = 0, pending = -1;
+  for (int ch = 0; ch < nch; ++ch) {
+    // the conv, y [m64 x (64 value | 64 gate)]: per tap C/64 stages [128 n][64 k]
+    float y[64];
+    for (int t = 0; t < K; ++t) {
+#pragma unroll
+      for (int kq = 0; kq < C / 64; ++kq) {
+        const uint32_t sb = ring.wait(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128(y, tile_desc(xt, 64 * cw + t, kq * 4 + kk), kdesc(sb + kk * 32),
+                        t || kq || kk);
+        wgmma_commit();
+        ring.retire(s, pending, lane);
+      }
+    }
+    ring.drain(pending, lane);   // y, and the previous chunk's deconv (it read h)
+    fence_regs<64>(y);
+    // SwiGLU in fp32, h = 0 off [0, l1), the inner mask; bf16 h rows,
+    // swizzled (value channel cl in 16-byte chunk j of its row)
+    unsigned char* hb = hs + (ch & 1) * XCOL;
+    const float* bch = bc + ch * 2 * FICH;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = rbase + g + 8 * hr, p = p0 + m;
+      const bool live = p >= 0 && p < l1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 8 * j + 2 * c;
+        Philox4 wd;
+        if (dp.on && live)
+          wd = dropout_words(dp.seed, SITE_FFN_INNER, dp.row0 + row, p, (ch * FICH + cl) >> 2, 0);
+        float h[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          h[e] = 0.f;
+          if (live) {
+            const float v = y[4 * j + 2 * hr + e] + __ldg(bch + cl + e);
+            const float gt = y[4 * (j + 8) + 2 * hr + e] + __ldg(bch + FICH + cl + e);
+            h[e] = v * (gt / (1.f + __expf(-gt)));
+            if (dp.on) h[e] = wd.w[(cl + e) & 3] < dp.thr ? h[e] * dp.scale : 0.f;
+          }
+        }
+        *(__nv_bfloat162*)(hb + m * 128 + ((j ^ (m % 8)) * 16) + 4 * c) =
+            __floats2bfloat162_rn(h[0], h[1]);
+      }
+    }
+    fence_proxy_async();   // the deconv reads h through the async proxy
+    named_sync(1, 256);    // h rows of both warpgroups (the deconv's halo crosses them)
+    // the deconv, z[l] += sum_t h[l + k-1 - t] Wd_t: per tap C/128 stages
+    // [128 n (output channels)][64 k (inner)]
+    const uint32_t ht = smem_u32(hb);
+    for (int t = 0; t < K; ++t) {
+#pragma unroll
+      for (int nq = 0; nq < C / 128; ++nq) {
+        const uint32_t sb = ring.wait(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128(z + nq * 64, kdesc(ht + (64 * cw + K - 1 - t) * 128 + kk * 32),
+                        kdesc(sb + kk * 32), 1);
+        wgmma_commit();
+        ring.retire(s, pending, lane);
+      }
+    }
+  }
+  ring.drain(pending, lane);
+  fence_regs<C / 2>(z);
+  store_rows<C>(z, bd, out + (size_t)row * Lin * C, j0, lt, Lin, rbase, lane);
+}
+
+template <int C>
+__global__ void __launch_bounds__(NTH, 1) ffn_bwd_dx_wg_kernel(
+    const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mg,
+    const bf16* __restrict__ panels, const float* __restrict__ bc, bf16* __restrict__ dx,
+    bf16* __restrict__ sy, bf16* __restrict__ sh, int r0, int Lin, int nch, int K, int tiles,
+    DropParams dp) {
+  using L = DxLay<C>;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  unsigned char* sm = aligned_smem(smraw);
+  unsigned char* xs = sm + L::NS * L::SB;
+  unsigned char* gs = xs + L::XS;
+  unsigned char* ys = gs + L::XS;
+  uint64_t* full = (uint64_t*)(ys + L::YS);
+  uint64_t* empty = full + L::NS;
+  uint64_t* xbar = empty + L::NS;
+
+  const int row = blockIdx.x / tiles;       // within the group
+  const int lt = MT - (K - 1);
+  const int j0 = (blockIdx.x % tiles) * lt;
+  const int p0 = j0 - (K - 1);
+  const int l1 = Lin - K + 1;
+  const int Ip = nch * ICH;
+  const int tid = threadIdx.x;
+  const Ring<L::NS> ring{sm, full, empty, L::SB, (const unsigned char*)panels,
+                         (long long)nch * 5 * K};
+  prologue<L::NS>(full, empty, xbar);
+  for (int i = tid; i < (XR - MT) * 8; i += NTH)   // dyvg rows past the tile: zeros
+    *(uint4*)(ys + (MT + i / 8) * 128 + (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect(xbar, 2 * L::XS);
+    load_tile<C>(xs, &mx, (r0 + row) * Lin + p0, xbar);
+    load_tile<C>(gs, &mg, (r0 + row) * Lin + p0, xbar);
+    ring.start();
+  }
+  const int cw = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int rbase = 64 * cw + 16 * w;
+  const uint32_t xt = smem_u32(xs), gtile = smem_u32(gs), yt = smem_u32(ys);
+  mbar_wait(xbar, 0);
+
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  int s = 0, pending = -1;
+  for (int ch = 0; ch < nch; ++ch) {
+    // conv (y) and the deconv's adjoint (dh [m64 x 32 inner]), tap by tap
+    float y[32], dh[16];
+    for (int t = 0; t < K; ++t) {
+      tap_products<C, 64, L::NS>(y, xt, 64 * cw + t, t == 0, ring, s, pending, lane);
+      tap_products<C, 32, L::NS>(dh, gtile, 64 * cw + t, t == 0, ring, s, pending, lane);
+    }
+    ring.drain(pending, lane);   // also the previous chunk's dx products, which read dyvg
+    fence_regs<32>(y);
+    fence_regs<16>(dh);
+    named_sync(1, 256);   // both warpgroups are done with the previous dyvg
+    // SwiGLU backward in fp32 through the inner mask: dyvg (bf16, swizzled)
+    // into shared memory, the dropped h straight to the scratch (owned rows)
+    const float* bch = bc + ch * 2 * ICH;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = rbase + g + 8 * hr, p = p0 + m;
+      const bool live = p >= 0 && p < l1;
+      const bool own = m >= K - 1 && p < Lin;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = 8 * j + 2 * c;
+        Philox4 wd;
+        if (dp.on && live)
+          wd = dropout_words(dp.seed, SITE_FFN_INNER, dp.row0 + row, p, (ch * ICH + cl) >> 2, 0);
+        float dv[2] = {0.f, 0.f}, dg[2] = {0.f, 0.f}, hv[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (live) {
+            float sc = 1.f;
+            if (dp.on) sc = wd.w[(cl + e) & 3] < dp.thr ? dp.scale : 0.f;
+            const float v = y[4 * j + 2 * hr + e] + __ldg(bch + cl + e);
+            const float gt = y[4 * (j + 4) + 2 * hr + e] + __ldg(bch + ICH + cl + e);
+            swiglu_bwd(v, gt, dh[4 * j + 2 * hr + e], sc, dv[e], dg[e]);
+            hv[e] = v * gt * sigmoid(gt) * sc;
+          }
+        }
+        // dyvg row m: value channel cl in 16-byte chunk j, gate in chunk j + 4
+        unsigned char* yr = ys + m * 128 + (2 * c) * 2;
+        *(__nv_bfloat162*)(yr + ((j ^ (m % 8)) * 16)) = __floats2bfloat162_rn(dv[0], dv[1]);
+        *(__nv_bfloat162*)(yr + (((j + 4) ^ (m % 8)) * 16)) = __floats2bfloat162_rn(dg[0], dg[1]);
+        if (own)
+          *(__nv_bfloat162*)(sh + ((size_t)row * Lin + p) * Ip + ch * ICH + cl) =
+              __floats2bfloat162_rn(hv[0], hv[1]);
+      }
+    }
+    fence_proxy_async();   // the products read dyvg through the async proxy
+    named_sync(1, 256);    // dyvg rows of both warpgroups
+    // the owned rows of dyvg to the scratch, 16 bytes a thread-step
+    for (int i = tid; i < lt * 8; i += NTH) {
+      const int m = K - 1 + i / 8, p = p0 + m;
+      if (p < Lin)
+        *(uint4*)(sy + ((size_t)row * Lin + p) * 2 * Ip + ch * 2 * ICH + (i % 8) * 8) =
+            *(const uint4*)(ys + m * 128 + (((i % 8) ^ (m % 8)) * 16));
+    }
+    // dx[l] += sum_t dyvg[l + k-1 - t] Wc_t^T: per tap two stages [C/2 n][64 k]
+    for (int t = 0; t < K; ++t) {
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        const uint32_t sb = ring.wait(s);
+        wgmma_fence();
+#pragma unroll
+        for (int ko = 0; ko < 4; ++ko) {
+          const uint64_t da = kdesc(yt + (64 * cw + K - 1 - t) * 128 + ko * 32);
+          if constexpr (C == 256)
+            wgmma_ss_n128(acc + nh * 64, da, kdesc(sb + ko * 32), 1);
+          else
+            wgmma_ss_n64(acc + nh * 32, da, kdesc(sb + ko * 32), 1);
+        }
+        wgmma_commit();
+        ring.retire(s, pending, lane);
+      }
+    }
+  }
+  ring.drain(pending, lane);
+  fence_regs<C / 2>(acc);
+  store_rows<C>(acc, nullptr, dx + (size_t)row * Lin * C, j0, lt, Lin, rbase, lane);
+}
+
+// Weight gradients of one row group: part[s][m][col] (+)= sum over the
+// split's positions q of A[q + t][c] B[q][col], m = t C + c, for
+//   cols [0, 2Ip):   A = x (map ax), B = dyvg (map by);
+//   cols [2Ip, 3Ip): A = the cotangent (map ag), B = h (map bh);
+// one block per (128 m x 256 col tile, split), two warpgroups of 64 m and a
+// producer warp (its 163 registers fit nine warps), the boxes by TMA into 4
+// stages; the conv bias's partials (the
+// column sums of dyvg) from the blocks of m tile 0.  ``xrow0`` is the flat
+// position of the group's first row in x and the cotangent.
+__global__ void __launch_bounds__(NTH_G, 1) ffn_wgrad_gemm_kernel(
+    const __grid_constant__ CUtensorMap ax, const __grid_constant__ CUtensorMap ag,
+    const __grid_constant__ CUtensorMap by, const __grid_constant__ CUtensorMap bh,
+    float* __restrict__ part, float* __restrict__ part_b, int C, int Ip, int n1, int n2,
+    long long Q, long long per, int xrow0, int accumulate) {
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  unsigned char* sm = aligned_smem(smraw);
+  uint64_t* full = (uint64_t*)(sm + GNS * GSB);
+  uint64_t* empty = full + GNS;
+  const int nt_all = n1 + n2;
+  const int mt = blockIdx.x / nt_all, nt = blockIdx.x % nt_all, split = blockIdx.y;
+  const bool first = nt < n1;     // dWc (x, dyvg) or dWd^T (cotangent, h)
+  const int col0 = first ? nt * 256 : (nt - n1) * 256;
+  const int ncols = first ? 2 * Ip : Ip;
+  const long long q0 = (long long)split * per;
+  const long long q1 = Q < q0 + per ? Q : q0 + per;
+  const int steps = (int)((q1 - q0 + 63) / 64);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < GNS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= 256) {   // the producer warp: step i's boxes once step i - GNS is done
+    if (tid == 256) {
+      const CUtensorMap* am = first ? &ax : &ag;
+      const CUtensorMap* bm = first ? &by : &bh;
+      prefetch_map(am);
+      prefetch_map(bm);
+      for (int i = 0; i < steps; ++i) {
+        const int slot = i % GNS;
+        if (i >= GNS) mbar_wait(&empty[slot], (uint32_t)((i / GNS - 1) & 1));
+        mbar_arrive_expect(&full[slot], GSB);
+        unsigned char* st = sm + slot * GSB;
+        const int q = (int)(q0 + 64LL * i);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int m = mt * 128 + 64 * a;
+          tma_g2s_2d(st + a * 8192, am, m % C, xrow0 + q + m / C, &full[slot]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_g2s_2d(st + (2 + j) * 8192, bm, col0 + 64 * j, q, &full[slot]);
+      }
+    }
+    return;
+  }
+  const int cw = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const bool sums = first && mt == 0;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float csum = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int slot = i % GNS;
+    mbar_wait(&full[slot], (uint32_t)((i / GNS) & 1));
+    unsigned char* st = sm + slot * GSB;
+    const uint32_t sa = smem_u32(st + cw * 8192), sb = smem_u32(st + 2 * 8192);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tt_n256(acc, desc_sw128(sa + kk * 2048, 8192, 1024),
+                       desc_sw128(sb + kk * 2048, 8192, 1024), 1);
+    wgmma_commit();
+    if (sums) {   // column tid of the B tile, rows 0..63 (swizzled chunks)
+      const bf16* bt = (const bf16*)(st + (2 + tid / 64) * 8192);
+      const int nn = tid % 64;
+#pragma unroll 8
+      for (int k = 0; k < 64; ++k)
+        csum += __bfloat162float(bt[k * 64 + (((nn / 8) ^ (k % 8)) * 8) + nn % 8]);
+    }
+    wgmma_wait<1>();
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % GNS]);
+  }
+  wgmma_wait<0>();
+  fence_regs<128>(acc);
+  // partials [S][K C][3 Ip]: this tile's rows and columns
+  const int g = lane >> 2, c = lane & 3;
+  const int pc0 = (first ? 0 : 2 * Ip) + col0;
+  const size_t ld = (size_t)3 * Ip;
+  float* pr = part + (size_t)split * (size_t)(gridDim.x / nt_all) * 128 * ld;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = mt * 128 + 64 * cw + 16 * w + g + 8 * hr;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = col0 + 8 * j + 2 * c;
+      if (col < ncols) {
+        float2* dst = (float2*)(pr + (size_t)m * ld + pc0 + 8 * j + 2 * c);
+        float2 v = make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+        if (accumulate) {
+          const float2 o = *dst;
+          v.x += o.x;
+          v.y += o.y;
+        }
+        *dst = v;
+      }
+    }
+  }
+  if (sums && col0 + tid < ncols) {
+    float* b = part_b + (size_t)split * 2 * Ip + col0 + tid;
+    *b = accumulate ? *b + csum : csum;
+  }
+}
+
+template <int C>
+int launch_fwd(const bf16* x, const bf16* panels, const float* bc, const float* bd, bf16* out,
+               int R, int Lin, int Ip, int K, DropParams dp, cudaStream_t st) {
+  const int lt = MT - (K - 1);
+  const int tiles = (Lin + lt - 1) / lt;
+  const int smem = FwdLay<C>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(ffn_core_wg_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mx;
+  if ((e = make_map_2d(&mx, x, (uint64_t)R * Lin, C, C, XR)) != cudaSuccess) return (int)e;
+  ffn_core_wg_kernel<C><<<R * tiles, NTH, smem, st>>>(mx, panels, bc, bd, out, Lin, Ip / FICH,
+                                                      K, tiles, dp);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_bwd(const bf16* x, const bf16* gz, const bf16* panels, const float* bc, bf16* dx,
+               bf16* sy, bf16* sh, float* part, float* part_b, float* out_w, float* out_b, int R,
+               int Lin, int Ip, int K, int Rg, int S, DropParams dp, cudaStream_t st) {
+  const int lt = MT - (K - 1);
+  const int tiles = (Lin + lt - 1) / lt;
+  int smem = DxLay<C>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(ffn_bwd_dx_wg_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(ffn_wgrad_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           GEMM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int n1 = (2 * Ip + 255) / 256, n2 = (Ip + 255) / 256;
+  const int mtiles = K * C / 128;
+  CUtensorMap ax, ag, by, bh, tx, tg;
+  if ((e = make_map_2d(&ax, x, (uint64_t)R * Lin, C, C)) != cudaSuccess) return (int)e;
+  if ((e = make_map_2d(&ag, gz, (uint64_t)R * Lin, C, C)) != cudaSuccess) return (int)e;
+  if ((e = make_map_2d(&tx, x, (uint64_t)R * Lin, C, C, XR)) != cudaSuccess) return (int)e;
+  if ((e = make_map_2d(&tg, gz, (uint64_t)R * Lin, C, C, XR)) != cudaSuccess) return (int)e;
+  for (int r0 = 0; r0 < R; r0 += Rg) {
+    const int rows = R - r0 < Rg ? R - r0 : Rg;
+    DropParams dpg = dp;
+    dpg.row0 = dp.row0 + r0;
+    const size_t off = (size_t)r0 * Lin * C;
+    ffn_bwd_dx_wg_kernel<C><<<rows * tiles, NTH, smem, st>>>(
+        tx, tg, panels, bc, dx + off, sy, sh, r0, Lin, Ip / ICH, K, tiles, dpg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const long long Q = (long long)rows * Lin;
+    const long long per = ((Q + S - 1) / S + 63) / 64 * 64;
+    if ((e = make_map_2d(&by, sy, Q, 2 * Ip, 2 * Ip)) != cudaSuccess) return (int)e;
+    if ((e = make_map_2d(&bh, sh, Q, Ip, Ip)) != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)(mtiles * (n1 + n2)), (unsigned)S);
+    ffn_wgrad_gemm_kernel<<<grid, NTH_G, GEMM_BYTES, st>>>(ax, ag, by, bh, part, part_b, C, Ip, n1,
+                                                         n2, Q, per, r0 * Lin, r0 > 0);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if ((e = wg::launch_reduce(part, out_w, 1, S, (long long)K * C * 3 * Ip, st)) != cudaSuccess)
+    return (int)e;
+  return (int)wg::launch_reduce(part_b, out_b, 1, S, 2LL * Ip, st);
+}
+
+}  // namespace wgk
+
 }  // namespace
+
+static DropParams drop_params(unsigned seed, unsigned thr, unsigned row0, float scale, int on) {
+  DropParams dp;
+  dp.seed = seed;
+  dp.thr = thr;
+  dp.row0 = row0;
+  dp.scale = scale;
+  dp.on = on;
+  return dp;
+}
 
 // Shared-memory bytes of the kernel at width C (any k);
 // ops/cuda/swiglu_ffn.py::core_bytes computes the same.
@@ -773,8 +1445,9 @@ extern "C" long long swiglu_ffn_smem_bytes(int C) { return (long long)CoreLay(C)
 
 // x, out [R, Lin, C] bf16; wc [I/64][K][C][128] bf16 (per chunk and tap: rows
 // c, columns 64 value then 64 gate channels); bc [I/64][128] fp32;
-// wd [I/64][K][64][C] bf16; bd [C] fp32.  C % 16 == 0, C <= 256, I % 64 == 0
-// (the wrapper zero-pads), 2 <= K <= 8.  Dropout: seed, the keep threshold,
+// wd [I/64][K][64][C] bf16; bd [C] fp32.  C % 16 == 0, C <= 256, C not 128
+// or 256 (those take swiglu_ffn_wg_forward), I % 64 == 0 (the wrapper
+// zero-pads), 2 <= K <= 8.  Dropout: seed, the keep threshold,
 // the absolute row of x's first row, 1/(1-p), on (0 at p = 0).
 extern "C" int swiglu_ffn_forward(const void* x, const void* wc, const void* bc,
                                   const void* wd, const void* bd, void* out, int R,
@@ -782,12 +1455,7 @@ extern "C" int swiglu_ffn_forward(const void* x, const void* wc, const void* bc,
                                   unsigned thr, unsigned row0, float scale, int on,
                                   void* stream) {
   if (I % IC || I < IC || K < 2 || K > 8 || Lin < K) return (int)cudaErrorInvalidValue;
-  DropParams dp;
-  dp.seed = seed;
-  dp.thr = thr;
-  dp.row0 = row0;
-  dp.scale = scale;
-  dp.on = on;
+  const DropParams dp = drop_params(seed, thr, row0, scale, on);
 #define CORE_CASE(CC)                                                                \
   case CC:                                                                           \
     return launch<CC>((const bf16*)x, (const bf16*)wc, (const float*)bc,             \
@@ -795,9 +1463,9 @@ extern "C" int swiglu_ffn_forward(const void* x, const void* wc, const void* bc,
                       (cudaStream_t)stream);
   switch (C) {
     CORE_CASE(16) CORE_CASE(32) CORE_CASE(48) CORE_CASE(64)
-    CORE_CASE(80) CORE_CASE(96) CORE_CASE(112) CORE_CASE(128)
-    CORE_CASE(144) CORE_CASE(160) CORE_CASE(176) CORE_CASE(192)
-    CORE_CASE(208) CORE_CASE(224) CORE_CASE(240) CORE_CASE(256)
+    CORE_CASE(80) CORE_CASE(96) CORE_CASE(112) CORE_CASE(144)
+    CORE_CASE(160) CORE_CASE(176) CORE_CASE(192) CORE_CASE(208)
+    CORE_CASE(224) CORE_CASE(240)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -811,8 +1479,9 @@ extern "C" long long swiglu_ffn_bwd_smem_bytes(int C, int K, int which) {
   return (long long)(which ? WLay(C, K).bytes() : DxLay(C).bytes());
 }
 
-// Backward (kernel #9).  x [R, Lin, C] and gz (the cotangent of the output)
-// [R, Lin, C] bf16; the forward's panels wc, bc, wd (I padded to 64) and the
+// Backward (kernel #9) at the widths of swiglu_ffn_forward.  x [R, Lin, C]
+// and gz (the cotangent of the output) [R, Lin, C] bf16; the forward's
+// panels wc, bc, wd (I padded to 64) and the
 // same weights chunked by 8 inner channels: wc8 [I8/8][K][C][16] bf16 (8
 // value then 8 gate), bc8 [I8/8][16] fp32, wd8 [I8/8][K][8][C] bf16.
 // Outputs: dx [R, Lin, C] bf16; out_c [K][I8/8][C][16], out_d [K][I8/8][C][8],
@@ -826,12 +1495,7 @@ extern "C" int swiglu_ffn_backward(const void* x, const void* gz, const void* wc
                                    float scale, int on, void* stream) {
   if (I % IC || I < IC || I8 % WIC || K < 2 || K > 8 || Lin < K || S < 1)
     return (int)cudaErrorInvalidValue;
-  DropParams dp;
-  dp.seed = seed;
-  dp.thr = thr;
-  dp.row0 = row0;
-  dp.scale = scale;
-  dp.on = on;
+  const DropParams dp = drop_params(seed, thr, row0, scale, on);
 #define BWD_CASE(CC)                                                                      \
   case CC:                                                                                \
     return launch_bwd<CC>((const bf16*)x, (const bf16*)gz, (const bf16*)wc,               \
@@ -841,11 +1505,76 @@ extern "C" int swiglu_ffn_backward(const void* x, const void* gz, const void* wc
                           (float*)out_b, R, Lin, I, I8, K, S, dp, (cudaStream_t)stream);
   switch (C) {
     BWD_CASE(16) BWD_CASE(32) BWD_CASE(48) BWD_CASE(64)
-    BWD_CASE(80) BWD_CASE(96) BWD_CASE(112) BWD_CASE(128)
-    BWD_CASE(144) BWD_CASE(160) BWD_CASE(176) BWD_CASE(192)
-    BWD_CASE(208) BWD_CASE(224) BWD_CASE(240) BWD_CASE(256)
+    BWD_CASE(80) BWD_CASE(96) BWD_CASE(112) BWD_CASE(144)
+    BWD_CASE(160) BWD_CASE(176) BWD_CASE(192) BWD_CASE(208)
+    BWD_CASE(224) BWD_CASE(240)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef BWD_CASE
+}
+
+// ------------------------------------------------------------ Hopper route
+
+// Shared-memory bytes of the Hopper route's kernels at width C (128 or
+// 256): which = 0 the forward, 1 the backward's dx kernel, 2 its weight-
+// gradient GEMM (ops/cuda/swiglu_ffn.py::wg_bytes computes the same).
+extern "C" long long swiglu_ffn_wg_smem_bytes(int C, int which) {
+  if (which == 2) return wgk::GEMM_BYTES;
+  if (C == 128) return which ? wgk::DxLay<128>::BYTES : wgk::FwdLay<128>::BYTES;
+  if (C == 256) return which ? wgk::DxLay<256>::BYTES : wgk::FwdLay<256>::BYTES;
+  return -1;
+}
+
+// Forward (kernel #8) at C 128 or 256.  x, out [R, Lin, C] bf16; panels: per
+// 64-channel chunk K (C/64 + C/128) stages [128 n][64 k] (16 KB), each
+// 128-byte swizzled K-major: per tap the conv's C/64 (n = 64 value then 64
+// gate channels, k = 64 of C), then per tap the deconv's C/128 (n = 128
+// output channels, k = the chunk's 64) (ops/cuda/swiglu_ffn.py::
+// wg_forward_panels); bc [Ip/64][128] fp32 (64 value, 64 gate); bd [C] fp32.
+// Ip (the padded inner width) % 64 == 0.
+extern "C" int swiglu_ffn_wg_forward(const void* x, const void* panels, const void* bc,
+                                     const void* bd, void* out, int R, int Lin, int C, int Ip,
+                                     int K, unsigned seed, unsigned thr, unsigned row0,
+                                     float scale, int on, void* stream) {
+  if (Ip % 64 || Ip < 64 || K < 2 || K > 8 || Lin < K || R < 1)
+    return (int)cudaErrorInvalidValue;
+  const DropParams dp = drop_params(seed, thr, row0, scale, on);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (C == 128)
+    return wgk::launch_fwd<128>((const bf16*)x, (const bf16*)panels, (const float*)bc,
+                                (const float*)bd, (bf16*)out, R, Lin, Ip, K, dp, st);
+  if (C == 256)
+    return wgk::launch_fwd<256>((const bf16*)x, (const bf16*)panels, (const float*)bc,
+                                (const float*)bd, (bf16*)out, R, Lin, Ip, K, dp, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward (kernel #9) at C 128 or 256, in row groups of Rg rows.  x, gz
+// (the output's cotangent), dx [R, Lin, C] bf16; panels: per chunk, per tap
+// its two conv stages and its dh stage [32][C], then per tap its two dx
+// stages [C/2][64] (ops/cuda/swiglu_ffn.py::wg_backward_panels); bc as the
+// forward's.  Scratch: sy [Rg, Lin, 2 Ip], sh [Rg, Lin, Ip] bf16; part [S][K
+// C][3 Ip], part_b [S][2 Ip] fp32.  Out: out_w [K C][3 Ip] (dWc in columns
+// [0, 2 Ip), chunk-major: 32 value then 32 gate; dWd^T in [2 Ip, 3 Ip)),
+// out_b [2 Ip] fp32.
+extern "C" int swiglu_ffn_wg_backward(const void* x, const void* gz, const void* panels,
+                                      const void* bc, void* dx, void* sy, void* sh, void* part,
+                                      void* part_b, void* out_w, void* out_b, int R, int Lin,
+                                      int C, int Ip, int K, int Rg, int S, unsigned seed,
+                                      unsigned thr, unsigned row0, float scale, int on,
+                                      void* stream) {
+  if (Ip % 64 || Ip < 64 || K < 2 || K > 8 || Lin < K || R < 1 || Rg < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const DropParams dp = drop_params(seed, thr, row0, scale, on);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define WG_BWD(CC)                                                                            \
+  return wgk::launch_bwd<CC>((const bf16*)x, (const bf16*)gz, (const bf16*)panels,            \
+                             (const float*)bc, (bf16*)dx, (bf16*)sy, (bf16*)sh, (float*)part, \
+                             (float*)part_b, (float*)out_w, (float*)out_b, R, Lin, Ip, K, Rg, \
+                             S, dp, st);
+  if (C == 128) WG_BWD(128)
+  if (C == 256) WG_BWD(256)
+#undef WG_BWD
+  return (int)cudaErrorInvalidValue;
 }

@@ -346,7 +346,8 @@ def _core_inputs(dev, r, seq, c, inner, k, seed=6):
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("r,seq,c,inner,k", [(2, 37, 48, 64, 4), (2, 130, 256, 96, 4),
                                              (3, 5, 16, 32, 8), (1, 61, 256, 1024, 4),
-                                             (2, 70, 96, 192, 3), (1, 9, 112, 40, 2)])
+                                             (2, 70, 96, 192, 3), (1, 9, 112, 40, 2),
+                                             (2, 300, 128, 160, 3), (1, 4, 256, 64, 8)])
 def test_swiglu_ffn_kernel(dev, r, seq, c, inner, k, drop):
     x, w = _core_inputs(dev, r, seq, c, inner, k)
     got = SF.swiglu_conv_deconv(x, *w, k, drop, 1234, 7)
@@ -426,7 +427,8 @@ def test_flash_attention_backward_is_deterministic(dev, r, h, seq, d):
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("r,seq,c,inner,k", [(2, 37, 48, 192, 4), (2, 130, 256, 96, 4),
                                              (3, 5, 16, 32, 8), (1, 61, 256, 1024, 4),
-                                             (2, 70, 96, 200, 3), (1, 9, 112, 36, 2)])
+                                             (2, 70, 96, 200, 3), (1, 9, 112, 36, 2),
+                                             (2, 300, 128, 160, 3), (1, 4, 256, 64, 8)])
 def test_swiglu_ffn_backward_kernel(dev, r, seq, c, inner, k, drop):
     """#9 through the autograd Function against autograd through the plain
     version in fp32, the inner mask replayed (rows offset by 7)."""
@@ -441,6 +443,43 @@ def test_swiglu_ffn_backward_kernel(dev, r, seq, c, inner, k, drop):
                           [x.float(), *w], go.float())
     _close(out, ref_out, STEP_TOL)
     _grad_close(got, ref)
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_swiglu_ffn_backward_is_deterministic(dev, c):
+    """Two #9 runs on the same inputs give the same bits (no atomics: the
+    weight gradients' split partials are summed in a fixed order)."""
+    r, seq, inner, k = 3, 300, 192, 4
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(9)).to(dev, torch.bfloat16)
+    first = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7)
+    again = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_swiglu_ffn_backward_row_groups(dev):
+    """A scratch cap of two rows' dyvg and h splits 5 rows into 3 groups
+    (the last one short): the gradients match autograd through the plain
+    version, dx is bit-equal to the one-group run's and the weight
+    gradients differ from it only by the order of their fp32 sums."""
+    r, seq, c, inner, k = 5, 200, 256, 128, 4
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(10)).to(
+        dev, torch.bfloat16)
+    lin = x.shape[1]
+    cap = 2 * lin * 3 * inner * 2
+    assert SF.wg_backward_plan(r, lin, c, inner, k, cap)["groups"] == 3
+    got = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7, scratch_cap=cap)
+    whole = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7)
+    torch.cuda.synchronize()
+    _, ref = _all_grads(lambda *a: SF.reference_swiglu_conv_deconv(*a, k, 0.1, 1234, 7),
+                        [x.float(), *w], go.float())
+    _grad_close(got, ref)
+    assert torch.equal(got[0], whole[0])
+    for a, b in zip(got[1:], whole[1:]):
+        assert _rel_l2(a, b) < 1e-5
 
 
 @pytest.mark.parametrize("shape_kind", ["rows", "inner", "group", "probability"])
