@@ -21,7 +21,9 @@ result line):
      and the xlarge config (unfused route), in eval and in training, and
      which flash-attention kernels the unfused route's shapes take (the
      resident forward everywhere; the one-pass resident backward at the
-     small config, the streaming one at xlarge), and which FFN-core kernels
+     small config, the streaming one at xlarge), the FFN step's Hopper
+     kernels at the base and BS-Locoformer widths (C 96, 128) with #5's
+     row groups at the base training shapes, and which FFN-core kernels
      (the Hopper kernels at xlarge's C 256, with #9's row groups, splits
      and scratch; the mma.sync kernels at the small config's C 48);
   3. kernels: each base forward kernel against its plain PyTorch version at
@@ -52,7 +54,9 @@ result line):
      the FFN and attention steps at the training path's full rows (micro-
      batch 2 of 3 s: freq [518, 1025, 96], time [2050, 259, 96]) against
      autograd through their plain versions in fp32 on the same inputs at
-     dropout 0, and at dropout 0.1 on a 16-row slice; timed;
+     dropout 0, and at dropout 0.1 on a 16-row slice (#5's slice again in
+     as many row groups as the full shape runs); timed, #5 kernel by kernel
+     (``torch.profiler``) and run twice for the same bits;
   8. training: the training CLI on a synthetic MUSDB tree (16 train tracks
      of 4 s, 2 test tracks), base model and training sections (batch 8 as 4
      micro-batches of 2 x 3 s, bf16, dropout 0.1, AdamW, clip 5): one epoch
@@ -62,7 +66,7 @@ result line):
   9. train-step parity: the kernel path against the plain path, same
      weights, batch and dropout seeds (1 x 1 s, dropout 0.1);
  10. train-step timing in turns (plain, kernel, kernel, plain), with peak
-     device memory;
+     device memory (the kernel path's no higher than BASE_TRAIN_PEAK_GIB);
  11. unfused training kernels: the flash-attention backward (#7) and the
      FFN-core backward (#9) at the small config's training shapes (batch
      16 x 3 s) and the xlarge config's (micro-batch 1 x 15 s) against
@@ -285,6 +289,19 @@ def phase_gates():
             if routes != [fused] * len(routes):
                 raise AssertionError(f"gates: {name} should take the "
                                      f"{'fused' if fused else 'unfused'} route")
+    # the fused FFN step's kernels: the Hopper ones (wgmma) at C 96 and 128,
+    # with #5's row groups at the base training shapes
+    for name, c in (("base", 96), ("bs", 128)):
+        if not FB.hopper_route(c):
+            raise AssertionError(f"gates: the FFN step of {name} should take the Hopper kernels")
+        print(f"[gates] FFN step {name} (C {c}): Hopper kernels ffn_step_wg_kernel / "
+              f"ffn_step_dx_wg_kernel + ffn_wgrad_gemm_kernel, {FB.wg_step_bytes(c)} B")
+    for path, rows, seq in _train_steps(base_model_config()):
+        plan = FB.wg_step_plan(rows, seq, 96, 384, 4)
+        print(f"[gates] FFN step backward, base training {path} [{rows}, {seq}, 96]: "
+              f"{plan['groups']} row groups of {plan['rows']}, {plan['splits']} splits, scratch "
+              f"{plan['scratch_bytes'] / 2**20:.1f} MiB of {FB.SCRATCH_CAP / 2**20:.0f}, "
+              f"partials {plan['partial_bytes'] / 2**20:.1f} MiB")
     # the unfused route's attention: which flash kernels each path's shape
     # takes (resident K/V forward; one-pass resident backward)
     from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
@@ -923,6 +940,19 @@ def phase_train_kernels(results):
             _compare(f"{name} {path} rows {r0}..{r0 + 16}, dropout 0.1 forward", out, ref_out,
                      STEP_TOL, null=xs)
             _check_grads(f"{name} {path} rows {r0}..{r0 + 16}, dropout 0.1", got, ref, gs)
+            if name == "ffn_step" and FB.hopper_route(96):
+                # the slice again in as many row groups as the full shape runs
+                # (a scratch cap of that many rows), so that the partials'
+                # accumulation across groups, each group's row offset and
+                # its dropout rows are held too
+                groups = FB.wg_step_plan(rows, seq, 96, 384, cfg.conv1d_kernel)["groups"]
+                per_row = FB.wg_step_plan(1, seq, 96, 384, cfg.conv1d_kernel)["scratch_bytes"]
+                cap = per_row * -(-16 // groups)
+                grouped = FB.ffn_step_backward(gs, xs, *params[:4], *dargs, scratch_cap=cap)
+                _check_grads(f"{name} {path} rows {r0}..{r0 + 16}, dropout 0.1, in "
+                             f"{FB.wg_step_plan(16, seq, 96, 384, 4, cap)['groups']} row groups",
+                             grouped, ref, gs)
+                del grouped
             del out, got, ref_out, ref
 
             kf, kb = _timed_grad(lambda *a: kfn(*a, *args, 0.1, 777), x, params, g)
@@ -934,6 +964,20 @@ def phase_train_kernels(results):
             r[path] = dict(rows=rows, seq=seq, fwd_ms=kf, ms=kb, plain_fwd_ms=pf, plain_ms=pb,
                            bound=_bound(bflop, bbytes, exps),
                            fwd_bound=_bound(fflop, fbytes, exps))
+            if name == "ffn_step":
+                # #5 kernel by kernel (device time, torch.profiler), and no
+                # atomics: a second run gives the same bits
+                call = lambda: FB.ffn_step_backward(g, x, *params[:4], *args, 0.1, 777)
+                r[path]["kernels"] = _kernel_device_ms(
+                    call, "(?:ffn_|wgrad_|reduce_)",
+                    ffn_step_bwd_launches(FB, rows, seq, 96, 384, cfg.conv1d_kernel))
+                first, again = call(), call()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"ffn_step_backward {path}: two runs differ")
+                print(f"[train-kernels] ffn_step_backward {path}: two runs bit-equal "
+                      f"(dropout 0.1); kernels {r[path]['kernels']}")
+                del first, again
             torch.cuda.empty_cache()
         del x, g, ffn, attn
         torch.cuda.empty_cache()
@@ -1125,6 +1169,12 @@ def phase_train_parity():
     return rel_loss, worst
 
 
+# The base train step's peak with the FFN step's wmma backward, which
+# allocated its whole scratch at once (NVIDIA H100 80GB HBM3, 700 W, printed
+# as 8.92 GiB): the step fails if the Hopper backward's scratch raises it
+BASE_TRAIN_PEAK_GIB = 8.925
+
+
 def phase_train_timing(reps: int = 1):
     """One optimizer step (AdamW, clip 5, dropout 0.1) on one micro-batch of
     2 x 3 s, kernel path against plain path, in turns (plain, kernel,
@@ -1270,6 +1320,17 @@ def ffn_bwd_launches(sf, rows, lin, c, inner, k) -> dict:
         n = sf.wg_backward_plan(rows, lin, c, inner, k)["groups"]
         return {"ffn_bwd_dx_wg_kernel": n, "ffn_wgrad_gemm_kernel": n, "wg::reduce_kernel": 2}
     return {"wg::reduce_kernel": 3}
+
+
+def ffn_step_bwd_launches(fb, rows, seq, c, inner, k) -> dict:
+    """Launches one #5 call of the wrapper module ``fb`` makes of each of its
+    kernels (1 where not named): on the Hopper route per row group the dx
+    kernel and the weight-gradient GEMM, then four reductions; else the dx
+    kernel, two split-K weight kernels and four reductions."""
+    if getattr(fb, "hopper_route", lambda _: False)(c):
+        n = fb.wg_step_plan(rows, seq, c, inner, k)["groups"]
+        return {"ffn_step_dx_wg_kernel": n, "ffn_wgrad_gemm_kernel": n, "reduce_kernel": 4}
+    return {"wgrad_kernel": 2, "reduce_kernel": 4}
 
 
 def phase_unfused_train_kernels(results):
@@ -2171,6 +2232,12 @@ def main():
         train_launches, train_wall = phase_train(workdir)
     phase_train_parity()
     train_time = phase_train_timing()
+    peak_gib = train_time["kernel"][1] / 2**30
+    print(f"[train] kernel-path train step peak {peak_gib:.3f} GiB (bound "
+          f"{BASE_TRAIN_PEAK_GIB} GiB, the wmma backward's)")
+    if not peak_gib <= BASE_TRAIN_PEAK_GIB:
+        raise AssertionError(f"train step: peak {peak_gib:.3f} GiB above the wmma backward's "
+                             f"{BASE_TRAIN_PEAK_GIB} GiB")
 
     phase_unfused_train_kernels(results)
     xl_train, xl_train_launches, xl_next_peak = phase_xlarge_train_step()
@@ -2210,9 +2277,10 @@ def main():
     for k in ("ffn_step_backward", "attention_step_backward"):
         for path in ("freq", "time"):
             r = results[k][path]
+            split = "".join(f"; {n} {t:.3f} ms" for n, t in r.get("kernels", {}).items())
             print(f"[timing] training {k[:-9]} {path} [{r['rows']}, {r['seq']}, 96], dropout "
                   f"0.1: forward (stash) {r['fwd_ms']:.3f} ms (plain {r['plain_fwd_ms']:.3f}, "
-                  f"bound {r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms (plain "
+                  f"bound {r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms{split} (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
     for k in ("flash_attention", "swiglu_ffn"):
         for path in [t for t, r in results[k].items() if isinstance(r, dict)]:
@@ -2368,6 +2436,8 @@ def main():
                           for p in ("", "plain_", "library_", "istft_") if f"{p}host_ms" in at})
         if k in ("swiglu_ffn", "swiglu_ffn_backward"):
             entry["kernels"] = f["kernels"]   # device ms per call, kernel by kernel
+        if k == "ffn_step_backward":
+            entry["kernels"] = r["freq"]["kernels"]
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]

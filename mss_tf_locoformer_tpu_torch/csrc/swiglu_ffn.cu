@@ -49,11 +49,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ffn_wg.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
 #include "wgrad.cuh"
-
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -350,8 +349,6 @@ __device__ __forceinline__ void ld_at(uint32_t* a, const bf16* base, int ld, int
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
-
 // Rows [p0, p0 + ROWS) of a [Lin, C] row into shared memory (zero outside).
 template <int C>
 __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int p0, int Lin,
@@ -375,16 +372,6 @@ __device__ __forceinline__ void stage_panel(const bf16* __restrict__ src, int ro
     const int r = i / vw, c8 = i % vw;
     *(uint4*)(dst + r * ld + c8 * 8) = *(const uint4*)(src + (size_t)r * cols + c8 * 8);
   }
-}
-
-// The SwiGLU backward of one element: (dyv, dyg) from the conv outputs
-// (biases added), dh and the keep scale s (1 without dropout, 0 dropped).
-__device__ __forceinline__ void swiglu_bwd(float v, float gt, float dh, float s, float& dv,
-                                           float& dg) {
-  const float sig = sigmoid(gt);
-  const float dhm = dh * s;
-  dv = dhm * gt * sig;
-  dg = dhm * v * sig * (1.f + gt * (1.f - sig));
 }
 
 struct DxLay {
@@ -804,7 +791,8 @@ int launch_bwd(const bf16* x, const bf16* gz, const bf16* wc, const float* bc,
 //     (backward) runs in fp32 on the conv's, and h / dyvg go to shared
 //     memory in bf16 once (the halo rows cross the two warpgroups: a named
 //     barrier per chunk);
-//   * #9's weight gradients are GEMMs over positions (``wgrad_gemm_kernel``):
+//   * #9's weight gradients are GEMMs over positions (``ffn_wgrad_gemm_kernel``
+//     in ``ffn_wg.cuh``, with the ring: the FFN step's backward uses them too):
 //     the dx kernel also writes dyvg [q, 2I] and the dropped h [q, I] to a
 //     scratch with x's row stride Lin (zeros at conv positions >= l1), so
 //     that a flat position q pairs dyvg[q] with x[q + t] and h[q] with
@@ -825,25 +813,7 @@ namespace wgk {
 
 using namespace hop;
 
-constexpr int MT = 128;        // conv positions per block
-constexpr int XR = MT + 8;     // staged rows: tile, halo (k-1 <= 7), zeros
 constexpr int ICH = 32;        // inner channels per dx-kernel chunk (value and gate each)
-constexpr int NTH = 256;    // two warpgroups
-constexpr int NTH_G = 288;  // the GEMM: two warpgroups and a producer warp
-constexpr int SMEM_MAX = 232448;
-constexpr int MAX_STAGES = 8;
-
-__host__ __device__ constexpr int ring_stages(int fixed, int sb) {
-  int n = MAX_STAGES;
-  while (n > 2 && fixed + n * sb + (2 * n + 1) * 8 > SMEM_MAX) --n;
-  return n;
-}
-
-// The x (and cotangent) tile: XR rows from conv position p0 on, as C/64
-// atom columns of XR rows x 128 bytes (128-byte swizzle, by address), one
-// TMA box each.  A tap's rows start anywhere: the swizzle follows the
-// address, so a descriptor may start at any row of a column.
-constexpr int XCOL = XR * 128;
 
 // Forward: ring | x tile | h [2][XR][64] (swizzled) | barriers; +1 KB of
 // slack to align the ring and the tiles to 1024 bytes.  Its chunks are 64
@@ -871,23 +841,6 @@ struct DxLay {
   static constexpr int BYTES = FIXED + NS * SB + (2 * NS + 1) * 8;
 };
 
-// The weight-gradient GEMM: stages of two A boxes and four B boxes (64 x 64
-// bf16 each) | barriers.
-constexpr int GSB = 6 * 8192;
-constexpr int GNS = 4;
-constexpr int GEMM_BYTES = 1024 + GNS * GSB + (2 * GNS) * 8;
-
-__device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return desc_sw128(addr, 16, 1024); }
-
-// The k16 step kc (16 channels) of rows ``row`` .. row + 63 of a tile.
-__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int row, int kc) {
-  return kdesc(tile + (kc / 4) * XCOL + row * 128 + (kc % 4) * 32);
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
 // The tile of flat rows [r0, r0 + XR) of a [rows, C] tensor map: C/64 boxes.
 template <int C>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int r0,
@@ -895,52 +848,6 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
 #pragma unroll
   for (int a = 0; a < C / 64; ++a) tma_g2s_2d(dst + a * XCOL, map, 64 * a, r0, bar);
 }
-
-// The ring of weight stages.  Stage ``s`` (counted from 0 over the block's
-// life) sits in slot s % NS, its n-th use with n = s / NS; each of the 8
-// warps releases it (lane 0) once its products are done.  ``retire`` leaves
-// a stage's products in flight while the next stage's issue, and releases
-// the stage before it; ``drain`` waits for all.  Thread 0 is also the
-// producer: it fills the first NS stages up front and, on releasing stage
-// s, refills the slot of stage s - LAG with stage s - LAG + NS once both
-// warpgroups are done with it (LAG stages of slack, so that it rarely waits).
-template <int NS>
-struct Ring {
-  static constexpr int LAG = NS >= 8 ? 2 : 1;
-  unsigned char* base;
-  uint64_t* full;
-  uint64_t* empty;
-  int sb;
-  const unsigned char* src;
-  long long total;
-  __device__ __forceinline__ void fill(long long s) const {
-    const int slot = (int)(s % NS);
-    if (s >= NS) mbar_wait(&empty[slot], (uint32_t)((s / NS - 1) & 1));
-    mbar_arrive_expect(&full[slot], sb);
-    bulk_g2s(base + slot * sb, src + s * sb, sb, &full[slot]);
-  }
-  __device__ __forceinline__ void start() const {
-    for (long long s = 0; s < NS && s < total; ++s) fill(s);
-  }
-  __device__ __forceinline__ uint32_t wait(int s) const {
-    mbar_wait(&full[s % NS], (s / NS) & 1);
-    return smem_u32(base + (s % NS) * sb);
-  }
-  __device__ __forceinline__ void release(int s, int lane) const {
-    if (lane == 0) mbar_arrive(&empty[s % NS]);
-    if (threadIdx.x == 0 && s >= LAG && s - LAG + NS < total) fill(s - LAG + NS);
-  }
-  __device__ __forceinline__ void retire(int& s, int& pending, int lane) const {
-    wgmma_wait<1>();
-    if (pending >= 0) release(pending, lane);
-    pending = s++;
-  }
-  __device__ __forceinline__ void drain(int& pending, int lane) const {
-    wgmma_wait<0>();
-    if (pending >= 0) release(pending, lane);
-    pending = -1;
-  }
-};
 
 // One tap of a dx-kernel product over C into acc [m64 x N] from tile rows
 // ``row`` on: ``halves`` stages of [N n][C/halves k] (the conv: two of
@@ -993,22 +900,6 @@ __device__ __forceinline__ void store_rows(const float* acc, const float* __rest
           *(__nv_bfloat162*)(outr + (size_t)pos * C + col) = __floats2bfloat162_rn(v0, v1);
         }
     }
-  }
-}
-
-// Barriers, the tile loads (rows outside the row: the neighbours' zero
-// padding, or zeros past the tensor; either way they feed only conv
-// positions outside [0, l1), whose h and dyvg are set to 0) and the first
-// stages.
-template <int NS>
-__device__ __forceinline__ void prologue(uint64_t* full, uint64_t* empty, uint64_t* xbar) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < NS; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);
-    }
-    mbar_init(xbar, 1);
-    mbar_init_fence();
   }
 }
 
@@ -1250,123 +1141,6 @@ __global__ void __launch_bounds__(NTH, 1) ffn_bwd_dx_wg_kernel(
   store_rows<C>(acc, nullptr, dx + (size_t)row * Lin * C, j0, lt, Lin, rbase, lane);
 }
 
-// Weight gradients of one row group: part[s][m][col] (+)= sum over the
-// split's positions q of A[q + t][c] B[q][col], m = t C + c, for
-//   cols [0, 2Ip):   A = x (map ax), B = dyvg (map by);
-//   cols [2Ip, 3Ip): A = the cotangent (map ag), B = h (map bh);
-// one block per (128 m x 256 col tile, split), two warpgroups of 64 m and a
-// producer warp (its 163 registers fit nine warps), the boxes by TMA into 4
-// stages; the conv bias's partials (the
-// column sums of dyvg) from the blocks of m tile 0.  ``xrow0`` is the flat
-// position of the group's first row in x and the cotangent.
-__global__ void __launch_bounds__(NTH_G, 1) ffn_wgrad_gemm_kernel(
-    const __grid_constant__ CUtensorMap ax, const __grid_constant__ CUtensorMap ag,
-    const __grid_constant__ CUtensorMap by, const __grid_constant__ CUtensorMap bh,
-    float* __restrict__ part, float* __restrict__ part_b, int C, int Ip, int n1, int n2,
-    long long Q, long long per, int xrow0, int accumulate) {
-  extern __shared__ __align__(1024) unsigned char smraw[];
-  unsigned char* sm = aligned_smem(smraw);
-  uint64_t* full = (uint64_t*)(sm + GNS * GSB);
-  uint64_t* empty = full + GNS;
-  const int nt_all = n1 + n2;
-  const int mt = blockIdx.x / nt_all, nt = blockIdx.x % nt_all, split = blockIdx.y;
-  const bool first = nt < n1;     // dWc (x, dyvg) or dWd^T (cotangent, h)
-  const int col0 = first ? nt * 256 : (nt - n1) * 256;
-  const int ncols = first ? 2 * Ip : Ip;
-  const long long q0 = (long long)split * per;
-  const long long q1 = Q < q0 + per ? Q : q0 + per;
-  const int steps = (int)((q1 - q0 + 63) / 64);
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int i = 0; i < GNS; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-  if (tid >= 256) {   // the producer warp: step i's boxes once step i - GNS is done
-    if (tid == 256) {
-      const CUtensorMap* am = first ? &ax : &ag;
-      const CUtensorMap* bm = first ? &by : &bh;
-      prefetch_map(am);
-      prefetch_map(bm);
-      for (int i = 0; i < steps; ++i) {
-        const int slot = i % GNS;
-        if (i >= GNS) mbar_wait(&empty[slot], (uint32_t)((i / GNS - 1) & 1));
-        mbar_arrive_expect(&full[slot], GSB);
-        unsigned char* st = sm + slot * GSB;
-        const int q = (int)(q0 + 64LL * i);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const int m = mt * 128 + 64 * a;
-          tma_g2s_2d(st + a * 8192, am, m % C, xrow0 + q + m / C, &full[slot]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          tma_g2s_2d(st + (2 + j) * 8192, bm, col0 + 64 * j, q, &full[slot]);
-      }
-    }
-    return;
-  }
-  const int cw = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
-  const bool sums = first && mt == 0;
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  float csum = 0.f;
-  for (int i = 0; i < steps; ++i) {
-    const int slot = i % GNS;
-    mbar_wait(&full[slot], (uint32_t)((i / GNS) & 1));
-    unsigned char* st = sm + slot * GSB;
-    const uint32_t sa = smem_u32(st + cw * 8192), sb = smem_u32(st + 2 * 8192);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_tt_n256(acc, desc_sw128(sa + kk * 2048, 8192, 1024),
-                       desc_sw128(sb + kk * 2048, 8192, 1024), 1);
-    wgmma_commit();
-    if (sums) {   // column tid of the B tile, rows 0..63 (swizzled chunks)
-      const bf16* bt = (const bf16*)(st + (2 + tid / 64) * 8192);
-      const int nn = tid % 64;
-#pragma unroll 8
-      for (int k = 0; k < 64; ++k)
-        csum += __bfloat162float(bt[k * 64 + (((nn / 8) ^ (k % 8)) * 8) + nn % 8]);
-    }
-    wgmma_wait<1>();
-    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % GNS]);
-  }
-  wgmma_wait<0>();
-  fence_regs<128>(acc);
-  // partials [S][K C][3 Ip]: this tile's rows and columns
-  const int g = lane >> 2, c = lane & 3;
-  const int pc0 = (first ? 0 : 2 * Ip) + col0;
-  const size_t ld = (size_t)3 * Ip;
-  float* pr = part + (size_t)split * (size_t)(gridDim.x / nt_all) * 128 * ld;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int m = mt * 128 + 64 * cw + 16 * w + g + 8 * hr;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = col0 + 8 * j + 2 * c;
-      if (col < ncols) {
-        float2* dst = (float2*)(pr + (size_t)m * ld + pc0 + 8 * j + 2 * c);
-        float2 v = make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
-        if (accumulate) {
-          const float2 o = *dst;
-          v.x += o.x;
-          v.y += o.y;
-        }
-        *dst = v;
-      }
-    }
-  }
-  if (sums && col0 + tid < ncols) {
-    float* b = part_b + (size_t)split * 2 * Ip + col0 + tid;
-    *b = accumulate ? *b + csum : csum;
-  }
-}
-
 template <int C>
 int launch_fwd(const bf16* x, const bf16* panels, const float* bc, const float* bd, bf16* out,
                int R, int Lin, int Ip, int K, DropParams dp, cudaStream_t st) {
@@ -1393,12 +1167,8 @@ int launch_bwd(const bf16* x, const bf16* gz, const bf16* panels, const float* b
   cudaError_t e = cudaFuncSetAttribute(ffn_bwd_dx_wg_kernel<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(ffn_wgrad_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           GEMM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int n1 = (2 * Ip + 255) / 256, n2 = (Ip + 255) / 256;
-  const int mtiles = K * C / 128;
-  CUtensorMap ax, ag, by, bh, tx, tg;
+  if ((e = gemm_attr()) != cudaSuccess) return (int)e;
+  CUtensorMap ax, ag, tx, tg;
   if ((e = make_map_2d(&ax, x, (uint64_t)R * Lin, C, C)) != cudaSuccess) return (int)e;
   if ((e = make_map_2d(&ag, gz, (uint64_t)R * Lin, C, C)) != cudaSuccess) return (int)e;
   if ((e = make_map_2d(&tx, x, (uint64_t)R * Lin, C, C, XR)) != cudaSuccess) return (int)e;
@@ -1411,14 +1181,9 @@ int launch_bwd(const bf16* x, const bf16* gz, const bf16* panels, const float* b
     ffn_bwd_dx_wg_kernel<C><<<rows * tiles, NTH, smem, st>>>(
         tx, tg, panels, bc, dx + off, sy, sh, r0, Lin, Ip / ICH, K, tiles, dpg);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const long long Q = (long long)rows * Lin;
-    const long long per = ((Q + S - 1) / S + 63) / 64 * 64;
-    if ((e = make_map_2d(&by, sy, Q, 2 * Ip, 2 * Ip)) != cudaSuccess) return (int)e;
-    if ((e = make_map_2d(&bh, sh, Q, Ip, Ip)) != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)(mtiles * (n1 + n2)), (unsigned)S);
-    ffn_wgrad_gemm_kernel<<<grid, NTH_G, GEMM_BYTES, st>>>(ax, ag, by, bh, part, part_b, C, Ip, n1,
-                                                         n2, Q, per, r0 * Lin, r0 > 0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if ((e = gemm_group(ax, ag, sy, sh, (long long)rows * Lin, C, Ip, K, S, part, part_b,
+                        r0 * Lin, r0 > 0, st)) != cudaSuccess)
+      return (int)e;
   }
   if ((e = wg::launch_reduce(part, out_w, 1, S, (long long)K * C * 3 * Ip, st)) != cudaSuccess)
     return (int)e;

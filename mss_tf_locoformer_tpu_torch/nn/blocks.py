@@ -86,7 +86,7 @@ class LocoformerBlock(nn.Module):
         # (training?) -> route of each FFN step and of the attention step
         self._step_routes = {
             training: ([fused_ffn and rms and conv1d_shift == 1
-                        and supports_step(emb_dim, d, conv1d_kernel, training)
+                        and supports_step(emb_dim, d, conv1d_kernel, training, num_groups)
                         for d in dims],
                        flash_attention and rms
                        and supports_block(emb_dim, attention_dim, n_heads, training))

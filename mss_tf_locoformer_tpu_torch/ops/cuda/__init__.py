@@ -31,7 +31,7 @@ from typing import Dict
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "SMEM_OPTIN", "load", "build_all", "check",
-           "ptr", "stream_handle", "wgrad_splits"]
+           "ptr", "stream_handle", "weight_splits", "wgrad_splits"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -113,9 +113,20 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# The H100's SMs: the weight-gradient kernels' position splits fill them
+# about four times over.
+_SMS = 132
+
+
+def weight_splits(blocks: int, units: int, least: int = 4) -> int:
+    """Position splits of a weight-gradient kernel of ``blocks`` blocks a
+    split: enough to fill the card's SMs about four times over, at least
+    ``least`` units of positions (the kernel's step) per split."""
+    return max(1, min(-(-4 * _SMS // blocks), units // least))
+
+
 def wgrad_splits(m: int, taps: int, positions: int) -> int:
-    """Position splits of a weight-gradient product (``csrc/wgrad.cuh``):
-    enough blocks to fill the card's 132 SMs about four times over, and at
-    least 4 chunks of 32 positions per block."""
-    blocks = -(-m // 64) * taps
-    return max(1, min(-(-4 * 132 // blocks), positions // (4 * 32)))
+    """Position splits of a split-K weight-gradient product of ``csrc/
+    wgrad.cuh`` (64-wide tiles of ``m`` per tap): :func:`weight_splits` with
+    at least 4 chunks of 32 positions per split."""
+    return weight_splits(-(-m // 64) * taps, positions // 32)

@@ -16,38 +16,85 @@ Dispatch: a CPU tensor takes :func:`reference_norm_ffn_residual` (autograd
 through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedFFNStep` (forward kernel, and the backward kernels when a
 gradient is asked for) or raises.  The kernels take bf16 rows only (fp32
-rows on the card are a later item, ROADMAP.md).
+rows on the card are a later item, ROADMAP.md).  Two routes, by width
+(:func:`hopper_route`): at C 96 and 128 the Hopper kernels (wgmma, bulk
+copies and mbarrier rings; 128 conv positions a block; the inner dimension
+in 64-channel chunks, zero-padded to a multiple of 64), whose weight stages
+the wrapper lays out in the swizzled order wgmma reads
+(:func:`wg_step_panels`) and whose backward runs in row groups that bound
+its bf16 scratch (:func:`wg_step_plan`) and takes its weight gradients on
+the FFN core's GEMM; at C 32 and 64 the wmma kernels (64 conv outputs a
+block, 32-channel chunks, :func:`ffn_panels`).
 
 :func:`supports_step` is the block's gate: whether the kernels serve a step
-of width C, inner I and k taps, decided from the shared-memory layouts
-(``Lay<C>`` and, in training, ``BLay<C>`` of the .cu file) before any
-launch, with the same answer on the CPU and on the card.
+of width C, inner I and k taps, decided from the shared-memory layouts of
+the .cu file (forward and, in training, backward) before any launch, with
+the same answer on the CPU and on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ...nn.norms import rms_group_norm
 from .. import dropout as D
-from . import SMEM_OPTIN, check, load, ptr, stream_handle, wgrad_splits
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, weight_splits, wgrad_splits
 
 __all__ = ["fused_norm_ffn_residual", "reference_norm_ffn_residual",
            "ffn_panels", "inner_mask", "FusedFFNStep", "IC", "step_bytes",
-           "compiled_step_bytes", "supports_step"]
+           "compiled_step_bytes", "supports_step", "hopper_route", "wg_step_bytes",
+           "wg_step_panels", "wg_step_plan", "flat_tiles", "SCRATCH_CAP"]
 
-IC = 32                       # inner channels per kernel chunk
-_M = 64                       # conv outputs per kernel tile
-_CHANNELS = (32, 64, 96, 128)  # template instantiations in the .cu file
+IC = 32                       # inner channels per chunk of the wmma kernels
+_M = 64                       # conv outputs per wmma-kernel tile
+_CHANNELS = (32, 64, 96, 128)  # the widths the .cu file takes
+# The Hopper route (``stp`` in csrc/swiglu_block.cu): the base config's C 96
+# and the C 128 configs; C 32 and 64 keep the wmma kernels.
+WG_WIDTHS = (96, 128)
+SICH = 64                     # inner channels per Hopper chunk (value and gate each)
+WG_M = 128                    # conv positions per Hopper block
+WG_ROWS = WG_M + 8            # staged rows: tile, halo, zeros
+MAX_GROUPS = 16               # the Hopper prologue's inverse RMS: 136 rows x 16 groups
+SCRATCH_CAP = 1 << 30         # bytes of the Hopper backward's bf16 scratch
+_CG = 128                     # the GEMM's taps of 128 channels (C 96 padded)
+
+
+def hopper_route(c: int) -> bool:
+    """Whether width ``c`` takes the Hopper kernels (else the wmma ones)."""
+    return c in WG_WIDTHS
+
+
+def wg_step_bytes(c: int) -> dict:
+    """Dynamic shared memory of the Hopper kernels at width ``c``: the
+    forward's ``FLay`` (1 KB of alignment slack, the normed tile of two
+    64-channel columns and the h tile as swizzled rows of 128 bytes, a ring
+    of stages of 256 C bytes, its barriers), the dx kernel's ``DLay``
+    (normed, dz and dyvg tiles of two columns each, the ring) and the FFN
+    core's weight-gradient GEMM."""
+    from .swiglu_ffn import _ring_stages, wg_bytes
+    col = WG_ROWS * 128
+    out = {}
+    for name, fixed in (("fwd", 1024 + 3 * col), ("dx", 1024 + 6 * col)):
+        n = _ring_stages(fixed, 256 * c)
+        out[name] = fixed + n * 256 * c + (2 * n + 1) * 8
+    out["gemm"] = wg_bytes(c)["gemm"]
+    return out
 
 
 def step_bytes(c: int, k: int, training: bool = False) -> int:
     """Dynamic shared memory of the FFN-step kernels at width ``c`` and ``k``
-    taps: the forward's ``Lay<C>::bytes(k)`` and, in training, the larger of
-    it and the backward's ``BLay<C>::bytes(k)`` (csrc/swiglu_block.cu)."""
+    taps: the forward's and, in training, the largest of it and the
+    backward's -- the Hopper kernels' (:func:`wg_step_bytes`) at C 96 and
+    128, else ``Lay<C>::bytes(k)`` and ``BLay<C>::bytes(k)``
+    (csrc/swiglu_block.cu)."""
+    if hopper_route(c):
+        b = wg_step_bytes(c)
+        return max(b.values()) if training else b["fwd"]
     rows = _M + 16
     wc = max(k * c * (2 * IC + 8) * 2, _M * (c + 4) * 4)   # panel or staging
     tail = wc + k * IC * (c + 8) * 2 + 2 * IC * 4
@@ -69,10 +116,21 @@ def compiled_step_bytes(c: int, k: int, training: bool = False) -> int:
     return fn(c, k, int(training))
 
 
-def supports_step(c: int, inner: int, k: int, training: bool) -> bool:
-    """Whether the FFN-step kernels serve a step: an instantiated width, whole
-    inner chunks, 2 <= k <= 8, and layouts within :data:`SMEM_OPTIN`."""
-    return (c in _CHANNELS and inner % IC == 0 and 2 <= k <= 8
+def groups_fit(c: int, num_groups: int) -> bool:
+    """Whether the kernels take ``num_groups`` norm groups at width ``c``: on
+    the Hopper route at most :data:`MAX_GROUPS` groups of a multiple of 8
+    channels (whole 16-byte chunks of the prologue's rows)."""
+    return (c % num_groups == 0 and (not hopper_route(c)
+                                     or (num_groups <= MAX_GROUPS and c // num_groups % 8 == 0)))
+
+
+def supports_step(c: int, inner: int, k: int, training: bool, num_groups: int = 1) -> bool:
+    """Whether the FFN-step kernels serve a step: a width of the .cu file,
+    2 <= k <= 8, whole 32-channel chunks on the wmma route (the Hopper
+    route pads the inner dimension), norm groups the kernels take
+    (:func:`groups_fit`), and layouts within :data:`SMEM_OPTIN`."""
+    return (c in _CHANNELS and inner > 0 and (hopper_route(c) or inner % IC == 0)
+            and 2 <= k <= 8 and groups_fit(c, num_groups)
             and step_bytes(c, k, training) <= SMEM_OPTIN)
 
 
@@ -136,6 +194,78 @@ def ffn_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16, ic: int = IC):
             wd.to(dtype).contiguous())
 
 
+def wg_step_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16):
+    """The Hopper kernels' weight stages, each of 256 C bytes and 128-byte
+    swizzled (csrc/swiglu_block.cu reads them by descriptor): per 64-channel
+    chunk (the inner dimension zero-padded to a multiple of 64), per tap
+    ``t`` the conv's ``[C][128]`` (row c: the chunk's 64 value then 64 gate
+    channels' ``conv_w[o, c, t]``; the forward reads it as [C k][128 n], the
+    dx kernel again as [C n][128 k]), then per pair of taps the deconv's
+    ``[2][C][64]`` (row c of tap t: ``deconv_w[i, c, t]`` over the chunk's
+    i; a tap past k is zeros) -> ``([nch, k + ceil(k/2), 128 C], bc [nch,
+    128] fp32)``."""
+    from .swiglu_ffn import _sw128, _wg_pad
+    w, b, d = _wg_pad(conv_w, conv_b, deconv_w, SICH)   # [2, nch, 64, C, k], [nch, 64, C, k]
+    nch, _, c, k = d.shape
+    conv = _sw128(w.permute(1, 4, 3, 0, 2).reshape(nch, k, c, 2 * SICH))
+    k2 = -(-k // 2)
+    dec = F.pad(d.permute(0, 3, 2, 1), (0, 0, 0, 0, 0, 2 * k2 - k))   # [nch, 2 k2, C, 64]
+    dec = _sw128(dec).reshape(nch, k2, 128 * c)
+    panels = torch.cat([conv.reshape(nch, k, 128 * c), dec], dim=1)
+    return panels.to(dtype).contiguous(), b
+
+
+# The Hopper stages of the weights they were laid out from: a step's
+# forward, its backward and a remat replay reuse one layout, and serving
+# lays each step's weights out once.  An entry holds the three tensors
+# weakly with their versions (an in-place update, as an optimizer step,
+# bumps them), so a stale layout is never used.
+_PANELS = WeakIdKeyDictionary()
+
+
+def _step_panels(conv_w, conv_b, deconv_w):
+    ver = (conv_w._version, conv_b._version, deconv_w._version)
+    hit = _PANELS.get(conv_w)
+    if hit is not None and hit[0]() is conv_b and hit[1]() is deconv_w and hit[2] == ver:
+        return hit[3]
+    panels = wg_step_panels(conv_w, conv_b, deconv_w)
+    _PANELS[conv_w] = (weakref.ref(conv_b), weakref.ref(deconv_w), ver, panels)
+    return panels
+
+
+def wg_step_plan(rows: int, seq: int, c: int, inner: int, k: int,
+                 scratch_cap: int = SCRATCH_CAP) -> dict:
+    """The Hopper backward's plan: the padded inner width, the rows per
+    group (the bf16 scratch -- xn and dz [rows, Lin, C], dyvg [rows, Lin,
+    2 Ip], h [rows, Lin, Ip], Lin = L + 2(k-1) -- within ``scratch_cap``
+    bytes), the groups, the dx kernel's blocks over all groups
+    (:func:`flat_tiles` each), the weight-gradient GEMM's tiles (128 of k x
+    128 channel rows x 256 of its 3 Ip columns) and position splits (about
+    four blocks an SM, at least 8 steps of 64 positions a split), and the
+    scratch and fp32 partials' bytes."""
+    ip = -(-inner // 64) * 64
+    lin = seq + 2 * (k - 1)
+    per_row = lin * (3 * ip + 2 * c) * 2
+    group = max(1, min(rows, scratch_cap // per_row))
+    groups = -(-rows // group)
+    blocks = ((groups - 1) * flat_tiles(group, seq, k)
+              + flat_tiles(rows - (groups - 1) * group, seq, k))
+    tiles = k * _CG // 128 * (-(-2 * ip // 256) + -(-ip // 256))
+    splits = weight_splits(tiles, group * lin // 64, least=8)
+    return {"ip": ip, "rows": group, "groups": groups, "blocks": blocks, "tiles": tiles,
+            "splits": splits, "scratch_bytes": group * per_row,
+            "partial_bytes": splits * (k * _CG * 3 * ip + 2 * ip) * 4}
+
+
+def flat_tiles(rows: int, seq: int, k: int) -> int:
+    """Blocks of the Hopper kernels over ``rows`` rows: tiles of 128 - (k-1)
+    outputs over the rows laid end to end with their 2(k-1) padding
+    positions each (``Flat`` in csrc/swiglu_block.cu), so that a tile packs
+    the end of one row and the start of the next."""
+    lt = WG_M - (k - 1)
+    return -(-(rows * (seq + 2 * (k - 1)) - (k - 1)) // lt)
+
+
 def _fwd_fn():
     fn = load("swiglu_block").ffn_step_forward
     fn.restype = ctypes.c_int
@@ -155,15 +285,33 @@ def _bwd_fn():
     return fn
 
 
+def _wg_fwd_fn():
+    fn = load("swiglu_block").ffn_step_wg_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _wg_bwd_fn():
+    fn = load("swiglu_block").ffn_step_wg_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_uint32] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
 def _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups):
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_norm_ffn_residual: the CUDA kernel takes bf16 "
                         f"rows, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused_norm_ffn_residual: x must be contiguous")
-    if c not in _CHANNELS or inner % IC or not 2 <= kernel <= 8 or c % num_groups:
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("fused_norm_ffn_residual: x must be contiguous and 16-byte aligned")
+    if (c not in _CHANNELS or (not hopper_route(c) and inner % IC) or not 2 <= kernel <= 8
+            or not groups_fit(c, num_groups)):
         raise ValueError(f"fused_norm_ffn_residual: unsupported shape C={c} "
                          f"I={inner} k={kernel} groups={num_groups}")
     if conv_w.shape != (2 * inner, c, kernel) or deconv_w.shape != (inner, c, kernel):
@@ -178,30 +326,79 @@ def ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
     """One launch of the forward kernel (no autograd)."""
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
-    wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
     g32 = gamma.to(torch.float32).contiguous()
     bd32 = deconv_b.to(torch.float32).contiguous()
     out = torch.empty_like(x)
-    check(_fwd_fn()(ptr(x), ptr(g32), ptr(wc), ptr(bc), ptr(wd), ptr(bd32),
-                    ptr(out), r, seq, c, inner, kernel, num_groups, float(eps),
-                    *D.kernel_args(drop_rate, seed, row0), stream_handle(x.device)),
-          "ffn_step")
+    args = (*D.kernel_args(drop_rate, seed, row0), stream_handle(x.device))
+    if hopper_route(c):
+        panels, bc = _step_panels(conv_w, conv_b, deconv_w)
+        check(_wg_fwd_fn()(ptr(x), ptr(g32), ptr(panels), ptr(bc), ptr(bd32), ptr(out), r,
+                           seq, c, panels.shape[0] * SICH, kernel, num_groups, float(eps),
+                           *args), "ffn_step")
+    else:
+        wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
+        check(_fwd_fn()(ptr(x), ptr(g32), ptr(wc), ptr(bc), ptr(wd), ptr(bd32),
+                        ptr(out), r, seq, c, inner, kernel, num_groups, float(eps),
+                        *args), "ffn_step")
     fused_norm_ffn_residual.launches += 1
     return out
 
 
+def _wg_backward(g, x, g32, conv_w, conv_b, deconv_w, k, num_groups, eps, drop_rate, seed,
+                 row0, scratch_cap):
+    """The Hopper backward: per row group the dx kernel (dx; xn, dz, dyvg
+    and h into the scratch; dgamma and deconv-bias partials per block) and
+    the weight-gradient GEMM (fp32 partials per position split, accumulated
+    across groups), then the partials summed in order: the GEMM's per split,
+    the blocks' in segments of 64 and then the segments."""
+    from .swiglu_ffn import wg_unpack_grads
+    r, seq, c = x.shape
+    inner = deconv_w.shape[0]
+    dev = x.device
+    plan = wg_step_plan(r, seq, c, inner, k, scratch_cap)
+    ip, group, splits = plan["ip"], plan["rows"], plan["splits"]
+    lin = seq + 2 * (k - 1)
+    panels, bc = _step_panels(conv_w, conv_b, deconv_w)
+    f32, bf = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(x)
+    sxn, sdz = torch.empty(group, lin, c, **bf), torch.empty(group, lin, c, **bf)
+    sy, sh = torch.empty(group, lin, 2 * ip, **bf), torch.empty(group, lin, ip, **bf)
+    segs = -(-plan["blocks"] // 64)   # the blocks' partials, summed 64 at a time
+    part = torch.empty(segs * 64, 2 * c, **f32)
+    part[plan["blocks"]:].zero_()
+    pmid = torch.empty(segs, 2 * c, **f32)
+    wpart, bpart = torch.empty(splits, k * _CG, 3 * ip, **f32), torch.empty(splits, 2 * ip, **f32)
+    out_w, out_b = torch.empty(k, _CG, 3 * ip, **f32), torch.empty(2 * ip, **f32)
+    out_gb = torch.empty(2 * c, **f32)
+    check(_wg_bwd_fn()(ptr(x), ptr(g), ptr(g32), ptr(panels), ptr(bc), ptr(dx), ptr(sxn),
+                       ptr(sdz), ptr(sy), ptr(sh), ptr(part), ptr(pmid), ptr(wpart),
+                       ptr(bpart),
+                       ptr(out_w), ptr(out_b), ptr(out_gb), r, seq, c, ip, k, num_groups,
+                       float(eps), group, splits, *D.kernel_args(drop_rate, seed, row0),
+                       stream_handle(dev)), "ffn_step_backward")
+    dcw, dcb, ddw = wg_unpack_grads(out_w[:, :c], out_b, inner, SICH)
+    return dx, out_gb[:c].clone(), dcw, dcb, ddw, out_gb[c:].clone()
+
+
 def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
-                      num_groups, eps, drop_rate=0.0, seed=0, row0=0):
+                      num_groups, eps, drop_rate=0.0, seed=0, row0=0,
+                      scratch_cap=SCRATCH_CAP):
     """The backward kernels (one counted launch): returns ``(dx, dgamma,
     dconv_w, dconv_b, ddeconv_w, ddeconv_b)`` in torch layouts (fp32 for the
-    weights, ``x.dtype`` for dx)."""
+    weights, ``x.dtype`` for dx).  ``scratch_cap`` bounds the Hopper
+    route's scratch (its row groups)."""
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     k = kernel
     dev = x.device
     g = g.to(x.dtype).contiguous()
-    wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
     g32 = gamma.to(torch.float32).contiguous()
+    if hopper_route(c):
+        grads = _wg_backward(g, x, g32, conv_w, conv_b, deconv_w, k, num_groups, eps,
+                             drop_rate, seed, row0, scratch_cap)
+        ffn_step_backward.launches += 1
+        return grads
+    wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
     lt = _M - (k - 1)
     tiles = -(-seq // lt)
     lc = seq + k - 1

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import dropout as D
-from . import SMEM_OPTIN, check, load, ptr, stream_handle
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, weight_splits
 from .swiglu_block import ffn_panels, inner_mask
 
 __all__ = ["swiglu_conv_deconv", "swiglu_ffn_backward", "SwiGLUCore",
@@ -62,14 +62,6 @@ FICH = 64        # and of the Hopper forward
 WG_M = 128       # conv positions per Hopper block
 WG_ROWS = WG_M + 8
 SCRATCH_CAP = 1 << 30   # bytes of the Hopper backward's bf16 scratch (dyvg, h)
-_SMS = 132       # the H100's SMs: the weight-gradient kernels' splits fill them 4x
-
-
-def weight_splits(blocks: int, units: int, least: int = 4) -> int:
-    """Position splits of a weight-gradient kernel: enough blocks to fill
-    the card's SMs about four times over, at least ``least`` units (64 conv
-    positions each) per block."""
-    return max(1, min(-(-4 * _SMS // blocks), units // least))
 
 
 def hopper_route(c: int) -> bool:
@@ -368,17 +360,17 @@ def _wg_backward(g, x, conv_w, conv_b, deconv_w, k, drop_rate, seed, row0, scrat
     return (dx, *wg_unpack_grads(out_w, out_b, inner))
 
 
-def wg_unpack_grads(out_w, out_b, inner: int):
+def wg_unpack_grads(out_w, out_b, inner: int, ich: int = ICH):
     """The Hopper GEMM's sums in torch layouts: ``out_w [k, C, 3 Ip]``
-    (columns [0, 2 Ip) chunk-major: 32 value then 32 gate channels; [2 Ip,
-    3 Ip) the inner channels) and ``out_b [2 Ip]`` -> ``(dconv_w [2I, C,
-    k], dconv_b [2I], ddeconv_w [I, C, k])``."""
+    (columns [0, 2 Ip) chunk-major: ``ich`` value then ``ich`` gate
+    channels; [2 Ip, 3 Ip) the inner channels) and ``out_b [2 Ip]`` ->
+    ``(dconv_w [2I, C, k], dconv_b [2I], ddeconv_w [I, C, k])``."""
     k, c, ip3 = out_w.shape
     ip = ip3 // 3
-    nch = ip // ICH
-    dwc = out_w[:, :, :2 * ip].reshape(k, c, nch, 2, ICH).permute(3, 2, 4, 1, 0)
+    nch = ip // ich
+    dwc = out_w[:, :, :2 * ip].reshape(k, c, nch, 2, ich).permute(3, 2, 4, 1, 0)
     dconv_w = dwc.reshape(2, ip, c, k)[:, :inner].reshape(2 * inner, c, k)
-    dconv_b = out_b.reshape(nch, 2, ICH).permute(1, 0, 2).reshape(2, ip)[:, :inner]
+    dconv_b = out_b.reshape(nch, 2, ich).permute(1, 0, 2).reshape(2, ip)[:, :inner]
     ddeconv_w = out_w[:, :, 2 * ip:].permute(2, 1, 0)[:inner].contiguous()
     return dconv_w, dconv_b.reshape(2 * inner), ddeconv_w
 

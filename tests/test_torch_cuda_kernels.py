@@ -75,8 +75,14 @@ def test_fft_kernels_refuse_other_sizes(dev):
 
 
 @pytest.mark.parametrize("r,seq,c,inner,k", [(1, 5, 96, 384, 4), (3, 61, 32, 64, 8),
-                                             (2, 130, 64, 96, 3), (2, 200, 128, 64, 6)])
+                                             (2, 130, 64, 96, 3), (2, 200, 128, 64, 6),
+                                             (2, 300, 96, 384, 4), (3, 62, 128, 384, 4),
+                                             (2, 250, 96, 100, 8), (2, 130, 128, 192, 8)])
 def test_ffn_step_kernel(dev, r, seq, c, inner, k):
+    """C 32 and 64 on the wmma kernels; C 96 and 128 on the Hopper kernels,
+    whose tiles run over the rows laid end to end: tiles across row ends
+    (300), several short rows in a tile (5, 62), k 8 (121 outputs a tile)
+    and inner widths padded to 64 (100)."""
     g = torch.Generator().manual_seed(1)
     b = (c * k) ** -0.5
     x = torch.randn(r, seq, c, generator=g).to(dev, torch.bfloat16)
@@ -174,12 +180,14 @@ def test_steps_at_bs_width(dev, r, seq):
 
 
 def test_ffn_step_too_large_for_shared_memory_raises(dev):
-    """C 128 with k 8 needs more shared memory than a block may have: the
-    launch is refused and the wrapper raises."""
+    """Every routed shape fits a block's shared memory now (C 128 with k 8,
+    the speech configs', takes the Hopper kernels), so the launch refuses
+    what the layouts do not take -- 9 taps, a halo past the tile's 8 spare
+    rows -- and the wrapper raises."""
     x = torch.zeros(1, 16, 128, device=dev, dtype=torch.bfloat16)
-    w = [torch.zeros(*s, device=dev) for s in ((64, 128, 8), (64,), (32, 128, 8), (128,))]
+    w = [torch.zeros(*s, device=dev) for s in ((128, 128, 9), (128,), (64, 128, 9), (128,))]
     with pytest.raises(RuntimeError, match="cudaError"):
-        FB.fused_norm_ffn_residual(x, torch.ones(128, device=dev), *w, 8, 4, 1e-5)
+        FB.ffn_step_forward(x, torch.ones(128, device=dev), *w, 9, 4, 1e-5)
 
 
 def test_kernels_refuse_fp32_rows(dev):
@@ -245,7 +253,9 @@ def _ffn_inputs(dev, r, seq, c, inner, k, seed=3):
 
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("r,seq,c,inner,k", [(2, 1, 96, 384, 4), (3, 37, 32, 64, 4),
-                                             (2, 130, 64, 96, 3), (2, 130, 96, 384, 4)])
+                                             (2, 130, 64, 96, 3), (2, 130, 96, 384, 4),
+                                             (3, 62, 128, 384, 4), (2, 300, 128, 192, 8),
+                                             (2, 250, 96, 100, 8)])
 def test_ffn_step_backward_kernel(dev, r, seq, c, inner, k, drop):
     x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
     args = (k, 4, 1e-5, drop, 1234, 7)
@@ -255,6 +265,43 @@ def test_ffn_step_backward_kernel(dev, r, seq, c, inner, k, drop):
     torch.cuda.synchronize()
     _close(out, ref_out, STEP_TOL)
     _check_grads(got, ref, ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+@pytest.mark.parametrize("c", [96, 128])
+def test_ffn_step_backward_is_deterministic(dev, c):
+    """Two #5 runs on the same inputs give the same bits (no atomics: every
+    partial is summed in a fixed order), here across 3 row groups."""
+    r, seq, inner, k = 5, 300, 192, 4
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    cap = 2 * FB.wg_step_plan(1, seq, c, inner, k)["scratch_bytes"]
+    args = (g, x, *params[:4], k, 4, 1e-5, 0.1, 1234, 7)
+    first = FB.ffn_step_backward(*args, scratch_cap=cap)
+    again = FB.ffn_step_backward(*args, scratch_cap=cap)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c", [96, 128])
+def test_ffn_step_backward_row_groups(dev, c):
+    """A scratch cap of two rows splits 5 rows into 3 groups (the last one
+    short): the gradients match autograd through the plain version, dx is
+    bit-equal to the one-group run's and the weight gradients differ from
+    it only by the order of their fp32 sums."""
+    r, seq, inner, k = 5, 200, 128, 4
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    cap = 2 * FB.wg_step_plan(1, seq, c, inner, k)["scratch_bytes"]
+    assert FB.wg_step_plan(r, seq, c, inner, k, cap)["groups"] == 3
+    args = (g, x, *params[:4], k, 4, 1e-5, 0.1, 1234, 7)
+    got = FB.ffn_step_backward(*args, scratch_cap=cap)
+    whole = FB.ffn_step_backward(*args)
+    torch.cuda.synchronize()
+    _, ref = _grads(lambda *a: FB.reference_norm_ffn_residual(*a, k, 4, 1e-5, 0.1, 1234, 7),
+                    x.float(), params, g.float())
+    _check_grads(got, ref, ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+    assert torch.equal(got[0], whole[0])
+    for a, b in zip(got[1:], whole[1:]):
+        assert _rel_l2(a, b) < 1e-5
 
 
 def _attn_inputs(dev, r, seq, c, a, seed=4):
@@ -516,9 +563,13 @@ def test_gate_bytes_match_the_compiled_layouts(dev):
             assert AB.compiled_launch_bytes(c, a, h, training) == \
                 AB.launch_bytes(c, a, h, training)
     for c in (32, 64, 96, 128):
-        for k in (2, 4, 8):
+        for k in (2, 3, 4, 8):
             for training in (False, True):
                 assert FB.compiled_step_bytes(c, k, training) == FB.step_bytes(c, k, training)
+    for c in FB.WG_WIDTHS:   # the Hopper layouts: forward, and the largest in training
+        b = FB.wg_step_bytes(c)
+        assert FB.compiled_step_bytes(c, 4, False) == b["fwd"]
+        assert FB.compiled_step_bytes(c, 4, True) == max(b.values())
     for c in range(16, 257, 16):
         assert SF.compiled_core_bytes(c) == SF.core_bytes(c)
         for k in (2, 4, 8):

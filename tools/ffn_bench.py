@@ -134,8 +134,9 @@ def time_plain(tag, x, w, g, fwd, bwd) -> dict:
     return out
 
 
-def sass_counts(so_path: str) -> dict:
-    """Per kernel function of ``so_path``: the count of each of ``OPCODES``."""
+def sass_counts(so_path: str, kernels=KERNELS) -> dict:
+    """Per kernel function of ``so_path``: the count of each of ``OPCODES``
+    (a function named after one of ``kernels`` keyed by that name)."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import _nvcc
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
@@ -143,7 +144,7 @@ def sass_counts(so_path: str) -> dict:
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        known = [k for k in KERNELS if k in name]
+        known = [k for k in kernels if k in name]
         tmpl = re.search(r"ILi(\d+)E", name)
         key = (max(known, key=len) if known else name) + (f"<{tmpl.group(1)}>" if tmpl else "")
         ops = collections.Counter(
