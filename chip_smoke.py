@@ -23,13 +23,17 @@ result line):
      resident forward everywhere; the one-pass resident backward at the
      small config, the streaming one at xlarge), the FFN step's Hopper
      kernels at the base and BS-Locoformer widths (C 96, 128) with #5's
-     row groups at the base training shapes, and which FFN-core kernels
-     (the Hopper kernels at xlarge's C 256, with #9's row groups, splits
-     and scratch; the mma.sync kernels at the small config's C 48);
+     row groups at the base training shapes, which FFN-core kernels (the
+     Hopper kernels at xlarge's C 256, with #9's row groups, splits and
+     scratch; the mma.sync kernels at the small config's C 48), and which
+     attention-step core each fused shape takes (resident k and v at every
+     shipped shape, streaming beyond L 1808);
   3. kernels: each base forward kernel against its plain PyTorch version at
      the shapes the serving path gives it (one engine batch: 2 chunks of
      8 s); the STFT (#1) timed beside ``torch.stft``, in device time and
-     with the host's time;
+     with the host's time; #3 kernel by kernel (``torch.profiler``) and
+     beside ``scaled_dot_product_attention`` on q, k, v of its shape (the
+     core alone: no one PyTorch call computes the whole step);
   4. slice parity: the whole model with its kernels against the same model
      with every kernel replaced by its plain version (1 s, batch 1, bf16);
      the check must reject the model with its blocks skipped;
@@ -55,8 +59,10 @@ result line):
      batch 2 of 3 s: freq [518, 1025, 96], time [2050, 259, 96]) against
      autograd through their plain versions in fp32 on the same inputs at
      dropout 0, and at dropout 0.1 on a 16-row slice (#5's slice again in
-     as many row groups as the full shape runs); timed, #5 kernel by kernel
-     (``torch.profiler``) and run twice for the same bits;
+     as many row groups as the full shape runs); timed, #3, #4 and #5
+     kernel by kernel (``torch.profiler``), #4 and #5 run twice at dropout
+     0.1 for the same bits, #4 beside SDPA's autograd backward; #3 and #4
+     at ``[16, 1900, 96]``, beyond the resident core, at dropout 0 and 0.1;
   8. training: the training CLI on a synthetic MUSDB tree (16 train tracks
      of 4 s, 2 test tracks), base model and training sections (batch 8 as 4
      micro-batches of 2 x 3 s, bf16, dropout 0.1, AdamW, clip 5): one epoch
@@ -317,6 +323,21 @@ def phase_gates():
         if (name, path) in want and got != want[name, path]:
             raise AssertionError(f"gates: flash attention {name} {path} should be "
                                  f"{want[name, path]}")
+    # the fused attention step's core: k and v resident at every shipped
+    # shape; the streaming core beyond L 1808
+    base, bs = base_model_config(), bs_model_config()
+    for name, shapes in (("base serving", _main_path_steps(base)),
+                         ("base training", _train_steps(base)),
+                         ("bs serving", _bs_main_path_steps(bs)),
+                         ("beyond the resident gate", [("stream", *ATTN_STREAM_SHAPE[:2])])):
+        for path, rows, seq in shapes:
+            res = AB.core_resident(seq)
+            print(f"[gates] attention step {name} {path} [{rows}, {seq}]: "
+                  f"{'resident' if res else 'streaming'} core "
+                  f"({AB.core_resident_bytes(seq) or AB.launch_bytes(96, 96, 4)['core']} B)")
+            if res != (path != "stream"):
+                raise AssertionError(f"gates: attention step {name} {path} should take the "
+                                     f"{'resident' if path != 'stream' else 'streaming'} core")
     for seq in (2049, 345):   # xlarge serving
         if not FA.forward_resident(seq, 16):
             raise AssertionError(f"gates: the xlarge serving forward at L {seq} should be "
@@ -453,12 +474,18 @@ def phase_kernels(results):
         ref = AB.reference_attention_block(x, gamma, *attn, *aargs)
         err = _compare(f"attention_step {path} [{rows}, {seq}, 96]", got, ref,
                        STEP_TOL, null=x)
-        r = results.setdefault("attention_step", dict(err=0.0))
+        r = results.setdefault("attention_step", dict(err=0.0, kernels={}, core_library_ms={}))
         r["err"] = max(r["err"], err)
-        r[path] = (rows, _time_ms(lambda: AB.fused_attention_block(x, gamma, *attn, *aargs)),
+        call = lambda: AB.fused_attention_block(x, gamma, *attn, *aargs)
+        r[path] = (rows, _time_ms(call),
                    _time_ms(lambda: AB.reference_attention_block(x, gamma, *attn, *aargs),
                             iters=3))
+        r["kernels"][path] = _kernel_device_ms(call, "attn_")
         del x, ffn, attn, got, ref
+        torch.cuda.empty_cache()
+        r["core_library_ms"][path] = _sdpa_core_ms(rows, seq, cfg.n_heads, 96 // cfg.n_heads)
+        print(f"[kernels] attention_step {path}: kernels {r['kernels'][path]}; SDPA on the "
+              f"core alone {r['core_library_ms'][path]:.3f} ms")
         torch.cuda.empty_cache()
 
 
@@ -797,6 +824,9 @@ PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
 SFU_RATE = 3.9e12
 SEGMENT = 132300     # 3 s training segments (configs/musdb18.yaml)
 TRAIN_MB = 2         # micro-batch of the base config (batch 8 = 4 x 2)
+# An attention step beyond the resident core's gate (L > 1808): a time path
+# with a longer --chunk_seconds gets there; the streaming core takes it
+ATTN_STREAM_SHAPE = (16, 1900, 96)
 # Gradient bounds.  Weight and gamma gradients are sums over ~5e5
 # positions whose summands the kernels take from bf16-rounded operands (xn,
 # the SwiGLU output, dy, P, dS, as the TPU kernels do); the rounding errors
@@ -849,6 +879,23 @@ def _train_steps(cfg):
     n_frames = 1 + SEGMENT // cfg.hop_length
     return (("freq", TRAIN_MB * n_frames, cfg.n_freqs),
             ("time", TRAIN_MB * cfg.n_freqs, n_frames))
+
+
+def _sdpa_core_ms(rows, seq, h, d, backward=False, iters=5) -> float:
+    """``scaled_dot_product_attention`` on random bf16 q, k, v ``[rows, h,
+    seq, d]`` at dropout 0 (or, with ``backward``, its autograd backward):
+    the attention core alone, the nearest one PyTorch call comes to an
+    attention step (none computes the norm, projections and residual)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(rows, h, seq, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_(backward) for _ in range(3))
+    if not backward:
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+    o = F.scaled_dot_product_attention(q, k, v)
+    go = torch.randn_like(o)
+    return _time_ms(lambda: torch.autograd.grad(o, [q, k, v], go, retain_graph=True), iters)
 
 
 def _rel_l2(got, ref) -> float:
@@ -978,9 +1025,71 @@ def phase_train_kernels(results):
                 print(f"[train-kernels] ffn_step_backward {path}: two runs bit-equal "
                       f"(dropout 0.1); kernels {r[path]['kernels']}")
                 del first, again
+            else:
+                # #3 (with the stash) and #4 kernel by kernel (device time,
+                # torch.profiler), #4 beside SDPA's backward on the core
+                # alone, and no atomics: a second run gives the same bits
+                dargs = args + (0.1, 777, 0)
+                fwd = lambda: AB.attention_step_forward(x, *params, *dargs, stash=True)
+                r[path]["fwd_kernels"] = _kernel_device_ms(fwd, "attn_")
+                _, stash = fwd()
+                call = lambda: AB.attention_step_backward(g, x, *params, stash, *dargs)
+                r[path]["kernels"] = _kernel_device_ms(call, "(?:attn_|wgrad_|reduce_)",
+                                                       attn_bwd_launches(AB))
+                first, again = call(), call()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"attention_step_backward {path}: two runs differ")
+                del first, again, stash
+                torch.cuda.empty_cache()
+                r[path]["core_library_ms"] = _sdpa_core_ms(rows, seq, cfg.n_heads,
+                                                           96 // cfg.n_heads, backward=True)
+                print(f"[train-kernels] attention_step_backward {path}: two runs bit-equal "
+                      f"(dropout 0.1); forward kernels {r[path]['fwd_kernels']}; backward "
+                      f"kernels {r[path]['kernels']}; SDPA's backward on the core alone "
+                      f"{r[path]['core_library_ms']:.3f} ms")
             torch.cuda.empty_cache()
         del x, g, ffn, attn
         torch.cuda.empty_cache()
+
+
+def phase_attention_stream(results):
+    """#3 and #4 at ``ATTN_STREAM_SHAPE``, beyond the resident core's gate
+    (the streaming core), forward and backward against autograd through
+    the plain version in fp32 on the same bf16 inputs, at dropout 0 and
+    0.1 (rows offset by 5); timed at 0.1."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    cfg = base_model_config()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows, seq, c = ATTN_STREAM_SHAPE
+    if AB.core_resident(seq):
+        raise AssertionError(f"attention step at L {seq} should take the streaming core")
+    x, gamma, _, attn = _step_inputs(gen, rows, seq, dev)
+    g = _rand(gen, (rows, seq, c)).to(dev, torch.bfloat16)
+    params = [gamma, *attn]
+    for p in (0.0, 0.1):
+        args = (cfg.n_heads, cfg.num_groups, cfg.eps, True, 10000.0, p, 777, 5)
+        fn = lambda *a: AB.fused_attention_block(*a, *args)
+        out, got = _autograd(fn, x, params, g)
+        torch.cuda.synchronize()
+        ref_out, ref = _autograd(lambda *a: AB.reference_attention_block(*a, *args),
+                                 x.float(), params, g.float())
+        label = f"attention_step streaming core [{rows}, {seq}, {c}], dropout {p:g}"
+        err = _compare(f"{label} forward", out, ref_out, STEP_TOL, null=x)
+        gerr, grel = _check_grads(f"{label} backward", got, ref, g)
+        results["attention_step"]["err"] = max(results["attention_step"]["err"], err)
+        rb = results["attention_step_backward"]
+        rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+        del out, got, ref_out, ref
+        torch.cuda.empty_cache()
+    fwd, bwd = _timed_grad(fn, x, params, g)
+    _, _, _, _, exps = attn_work(rows, seq)
+    flop, nbytes, bflop, bbytes, _ = attn_work(rows, seq)
+    results["attention_step"]["stream"] = dict(
+        shape=ATTN_STREAM_SHAPE, fwd_ms=fwd, ms=bwd, fwd_bound=_bound(flop, nbytes, exps),
+        bound=_bound(bflop, bbytes, exps))
 
 
 def _write_musdb(root, n_train=16, n_test=2, seconds=4.0, seed=SEED):
@@ -1331,6 +1440,14 @@ def ffn_step_bwd_launches(fb, rows, seq, c, inner, k) -> dict:
         n = fb.wg_step_plan(rows, seq, c, inner, k)["groups"]
         return {"ffn_step_dx_wg_kernel": n, "ffn_wgrad_gemm_kernel": n, "reduce_kernel": 4}
     return {"wgrad_kernel": 2, "reduce_kernel": 4}
+
+
+def attn_bwd_launches(ab) -> dict:
+    """Launches one #4 call of the wrapper module ``ab`` makes of the kernels
+    it runs more than once (the others once); a wrapper without
+    ``BACKWARD_LAUNCHES`` (the first design) made two weight products and
+    three reductions."""
+    return getattr(ab, "BACKWARD_LAUNCHES", {"wgrad_kernel": 2, "reduce_kernel": 3})
 
 
 def phase_unfused_train_kernels(results):
@@ -2228,6 +2345,7 @@ def main():
     profiles = {"base": phase_profile(), "xlarge": phase_profile(xl)}
 
     phase_train_kernels(results)
+    phase_attention_stream(results)
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, train_wall = phase_train(workdir)
     phase_train_parity()
@@ -2274,6 +2392,15 @@ def main():
             rows, ms, plain_ms = results[k][path]
             print(f"[timing] {k} {path} ({rows} rows): kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms {card}")
+    r = results["attention_step"]
+    for path in ("freq", "time"):
+        split = "; ".join(f"{n} {t:.3f} ms" for n, t in r["kernels"][path].items())
+        print(f"[timing] attention_step {path} kernels: {split}; SDPA on the core alone "
+              f"{r['core_library_ms'][path]:.3f} ms {card}")
+    s = r["stream"]
+    print(f"[timing] attention_step streaming core {list(s['shape'])}, dropout 0.1: forward "
+          f"{s['fwd_ms']:.3f} ms (bound {s['fwd_bound'][0]:.3f}), backward {s['ms']:.3f} ms "
+          f"(bound {s['bound'][0]:.3f}) {card}")
     for k in ("ffn_step_backward", "attention_step_backward"):
         for path in ("freq", "time"):
             r = results[k][path]
@@ -2438,6 +2565,15 @@ def main():
             entry["kernels"] = f["kernels"]   # device ms per call, kernel by kernel
         if k == "ffn_step_backward":
             entry["kernels"] = r["freq"]["kernels"]
+        if k == "attention_step":
+            # device ms per call kernel by kernel; SDPA on the same q, k, v
+            # shape at dropout 0, the core alone (library_ms stays null: no
+            # one PyTorch call computes the whole step)
+            entry["kernels"] = r["kernels"]["freq"]
+            entry["core_library_ms"] = r["core_library_ms"]["freq"]
+        if k == "attention_step_backward":
+            entry["kernels"] = r["freq"]["kernels"]
+            entry["core_library_ms"] = r["freq"]["core_library_ms"]
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]

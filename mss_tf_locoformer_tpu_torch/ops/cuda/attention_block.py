@@ -17,14 +17,18 @@ query) and (row, position, channel); ``row0`` is the absolute row of
 Dispatch: a CPU tensor takes :func:`reference_attention_block` (autograd
 through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedAttentionStep` or raises.  The forward keeps what the backward
-needs only when a gradient is asked for: q/k/v after RoPE, the head outputs
-o and the per-query log-sum-exp.  The kernels take bf16 rows only (fp32 rows
-on the card are a later item, ROADMAP.md).
+needs only when a gradient is asked for: q' = R(q) scale log2 e, k after
+RoPE, v, the head outputs o and the per-query log-sum-exp in log2 units.
+The kernels take bf16 rows only (fp32 rows on the card are a later item,
+ROADMAP.md).
 
 :func:`supports_block` is the block's gate: whether the kernels serve a step
 of width C, attention width A and H heads, decided from the shared-memory
-layouts of the .cu file (``QkvLay``, ``CoreLay`` and, in training, the four
-backward launches) before any launch, the same on the CPU and on the card.
+layouts of the .cu file (the QKV launch, the streaming core, the
+out-projection and, in training, the four backward launches) before any
+launch, the same on the CPU and on the card.  Per call, the sequence length
+decides between the resident and the streaming core
+(:func:`core_resident`).
 """
 
 from __future__ import annotations
@@ -42,30 +46,54 @@ from . import SMEM_OPTIN, check, load, ptr, stream_handle, wgrad_splits
 
 __all__ = ["fused_attention_block", "reference_attention_block",
            "FusedAttentionStep", "probability_mask", "launch_bytes",
-           "compiled_launch_bytes", "supports_block"]
+           "compiled_launch_bytes", "core_resident_bytes", "core_resident",
+           "compiled_core_resident_bytes", "supports_block"]
 
 _DP = 32   # head dim padded for the MMA depth
-_TQ = 64   # positions per kernel tile
+_TQ = 64   # positions per QKV / out-projection tile (Lpad a multiple)
+_MAX_CHUNKS = 8   # the resident core's staged chunks of 256 keys
+# Kernels one backward call launches more than once (each other once): the
+# two weight-gradient products and their reductions, dgamma's in two
+# levels.  chip_smoke.py splits a call's trace by them.
+BACKWARD_LAUNCHES = {"wgrad_kernel": 2, "reduce_kernel": 4}
 _CHANNELS = (32, 64, 96, 128)
 
 
 def launch_bytes(c: int, a: int, h: int, training: bool = False) -> dict:
     """Dynamic shared memory of each attention-step launch at width ``c``,
     attention width ``a`` and ``h`` heads (csrc/attention_block.cu): the QKV
-    launch (``QkvLay``) and the core (``CoreLay``); in training also the
-    backward's pre, dq, dk/dv and final launches."""
-    ldk, lds, ldp, ldo = _DP + 8, _TQ + 4, _TQ + 16, _DP + 4
-    work = 16 * lds * 4 + 16 * ldp * 2 + 2 * 16 * ldo * 4
-    warp = -(-max(work, 16 * (c + 4) * 4) // 128) * 128
-    out = {"qkv": _TQ * (c + 16) * 2 + a * (c + 8) * 2 + _TQ * (a + 4) * 4,
-           "core": 2 * _TQ * ldk * 2 + 4 * warp + _TQ * (h * _DP + 16) * 2}
+    launch (``qkv_bytes``: 64 rows of x and one part's ``a`` rows of Wqkv,
+    each ``c / 8 + 1`` chunks of 16 bytes), the streaming core (k and v
+    tiles, two stages) and the out-projection (64 rows of o and 128 rows of
+    Wo, 128 head dims at a time: rows of 17 and ``c / 8 + 1`` chunks); in
+    training also the backward's pre, dq, dk/dv and final launches.  The
+    resident core's bytes depend on L (:func:`core_resident_bytes`) and it
+    runs only where they fit, so the gate leaves it out."""
+    tile = 64 * _DP * 2   # one 64-row tile of [*, 32] bf16
+    out = {"qkv": (_TQ + a) * (c // 8 + 1) * 16,
+           "core": 2 * 2 * tile, "out": _TQ * 17 * 16 + 128 * (c // 8 + 1) * 16}
     if training:
-        dq = 2 * _TQ * ldk * 2 + 4 * (2 * 16 * lds * 4 + 2 * 16 * ldp * 2 + 16 * ldo * 4)
         out.update(
-            bwd_pre=_TQ * (c + 16) * 2 + _TQ * (h * _DP + 4) * 4, bwd_dq=dq,
-            bwd_dkdv=dq + 2 * _TQ * 4,
-            bwd_final=3 * a * (c + 8) * 2 + _TQ * (3 * a + 16) * 2 + _TQ * (c + 4) * 4)
+            bwd_pre=_TQ * (c + 16) * 2 + _TQ * (h * _DP + 4) * 4, bwd_dq=2 * 2 * tile,
+            bwd_dkdv=2 * (2 * tile + 2 * 64 * 4 + 2 * 64 * 8),
+            bwd_final=max(_TQ * (c + 4) * 4, _TQ * 17 * 16 + 128 * (c // 8 + 1) * 16))
     return out
+
+
+def core_resident_bytes(seq: int) -> int:
+    """Shared memory of the resident core (``attn_core_res_kernel``) at
+    sequence length ``seq``: k and v as swizzled ``[pad16(L), 32]`` bf16
+    rows and one mbarrier per staged chunk of 256 keys (8); 0 where that is
+    above :data:`SMEM_OPTIN` (L > 1808) and the streaming core
+    (``attn_core_stream_kernel``) takes the call."""
+    lp = -(-seq // 16) * 16
+    n = 2 * lp * _DP * 2 + _MAX_CHUNKS * 8
+    return n if n <= SMEM_OPTIN and -(-lp // 256) <= _MAX_CHUNKS else 0
+
+
+def core_resident(seq: int) -> bool:
+    """Whether a call at sequence length ``seq`` takes the resident core."""
+    return core_resident_bytes(seq) > 0
 
 
 def compiled_launch_bytes(c: int, a: int, h: int, training: bool = False) -> dict:
@@ -74,8 +102,16 @@ def compiled_launch_bytes(c: int, a: int, h: int, training: bool = False) -> dic
     fn = load("attention_block").attention_step_smem_bytes
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int] * 4
-    names = ("qkv", "core", "bwd_pre", "bwd_dq", "bwd_dkdv", "bwd_final")
-    return {n: fn(c, a, h, i) for i, n in enumerate(names[:6 if training else 2])}
+    names = ("qkv", "core", "out", "bwd_pre", "bwd_dq", "bwd_dkdv", "bwd_final")
+    return {n: fn(c, a, h, i) for i, n in enumerate(names[:7 if training else 3])}
+
+
+def compiled_core_resident_bytes(seq: int) -> int:
+    """:func:`core_resident_bytes` as the compiled kernels count it."""
+    fn = load("attention_block").attention_core_resident_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int]
+    return fn(seq)
 
 
 def supports_block(c: int, a: int, h: int, training: bool) -> bool:
@@ -144,7 +180,7 @@ def _fwd_fn():
 def _bwd_fn():
     fn = load("attention_block").attention_step_backward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_uint32] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -195,15 +231,14 @@ def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
     cos, sin = _rope_tables(seq, d, float(theta), bool(rope), dev)
     q, k, v = (torch.empty(r, n_heads, lpad, _DP, dtype=torch.bfloat16, device=dev)
                for _ in range(3))
-    o = lse = None
-    if stash:
-        o = torch.empty(r, lpad, n_heads * _DP, dtype=torch.bfloat16, device=dev)
-        lse = torch.empty(r, n_heads, lpad, dtype=torch.float32, device=dev)
+    # the head outputs meet in the out-projection launch (kept in training)
+    o = torch.empty(r, lpad, n_heads * _DP, dtype=torch.bfloat16, device=dev)
+    lse = (torch.empty(r, n_heads, lpad, dtype=torch.float32, device=dev) if stash
+           else None)
     out = torch.empty_like(x)
-    nul = ctypes.c_void_p(None)
     check(_fwd_fn()(ptr(x), ptr(g32), ptr(wqkv), ptr(wo), ptr(cos), ptr(sin),
-                    ptr(q), ptr(k), ptr(v), ptr(out),
-                    ptr(o) if stash else nul, ptr(lse) if stash else nul,
+                    ptr(q), ptr(k), ptr(v), ptr(out), ptr(o),
+                    ptr(lse) if stash else ctypes.c_void_p(None),
                     r, seq, lpad, c, n_heads, d, num_groups, float(eps), int(rope),
                     *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),
           "attention_step")
@@ -238,15 +273,23 @@ def attention_step_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
     dout = torch.empty(r, n_heads, lpad, _DP, **bf)
     dsum = torch.empty(r, n_heads, lpad, **f32)
     dqkv = torch.empty(r, lpad, 3 * a, **bf)
+    # the probability mask as the dq pass draws it, for the dk/dv pass: a
+    # 64-bit word per (row, head, 64-key tile, query)
+    mbits = (torch.empty(r * n_heads * (lpad // 64) * lpad, dtype=torch.int64, device=dev)
+             if drop_rate > 0.0 else None)
     xn = torch.empty(r, lpad, c, **bf)
-    part = torch.empty(r * tiles, c, **f32)
+    segs = -(-(r * tiles) // 64)   # the blocks' dgamma partials, summed 64 at a time
+    part = torch.empty(segs * 64, c, **f32)
+    part[r * tiles:].zero_()
+    pmid = torch.empty(segs, c, **f32)
     wpart_q, wpart_o = torch.empty(s1, mq, c, **f32), torch.empty(s2, mo, c, **f32)
     out_qkv, out_o, out_g = (torch.empty(mq, c, **f32), torch.empty(mo, c, **f32),
                              torch.empty(c, **f32))
     check(_bwd_fn()(ptr(x), ptr(g), ptr(g32), ptr(wqkv), ptr(wo), ptr(cos),
                     ptr(sin), ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(dx),
-                    ptr(dproj), ptr(dout), ptr(dsum), ptr(dqkv), ptr(xn),
-                    ptr(part), ptr(wpart_q), ptr(wpart_o), ptr(out_qkv),
+                    ptr(dproj), ptr(dout), ptr(dsum), ptr(dqkv),
+                    ctypes.c_void_p(None) if mbits is None else ptr(mbits), ptr(xn),
+                    ptr(part), ptr(pmid), ptr(wpart_q), ptr(wpart_o), ptr(out_qkv),
                     ptr(out_o), ptr(out_g), r, seq, lpad, c, n_heads, d,
                     num_groups, float(eps), s1, s2,
                     *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),

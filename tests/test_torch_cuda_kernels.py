@@ -330,6 +330,34 @@ def test_attention_step_backward_kernel(dev, r, seq, c, a, h, rope, drop):
     _check_grads(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
 
 
+# The two cores of #3 (and #4's passes over them): resident k and v at L
+# <= 1808, the streaming core beyond; ragged tails on both
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,a,h,resident", [(2, 70, 64, 64, 2, True),
+                                                  (1, 1850, 32, 32, 2, False)])
+def test_attention_step_core_routes(dev, r, seq, c, a, h, resident, drop):
+    assert AB.core_resident(seq) == resident
+    x, params, g = _attn_inputs(dev, r, seq, c, a, seed=11)
+    args = (h, 4, 1e-5, True, 10000.0, drop, 99, 2)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
+
+
+def test_attention_step_backward_gives_the_same_bits_twice(dev):
+    """No atomics: two runs of #4 at dropout 0.1 are bit-equal."""
+    x, (gamma, w_qkv, w_out), g = _attn_inputs(dev, 3, 300, 96, 96)
+    args = (4, 4, 1e-5, True, 10000.0, 0.1, 5, 0)
+    _, stash = AB.attention_step_forward(x, gamma, w_qkv, w_out, *args, stash=True)
+    first = AB.attention_step_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    again = AB.attention_step_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def test_dropout_masks_change_with_the_seed_and_replay(dev):
     """Two seeds give two outputs; one seed gives the same output twice."""
     x, params, _ = _ffn_inputs(dev, 2, 50, 64, 64, 4)
@@ -562,6 +590,8 @@ def test_gate_bytes_match_the_compiled_layouts(dev):
         for training in (False, True):
             assert AB.compiled_launch_bytes(c, a, h, training) == \
                 AB.launch_bytes(c, a, h, training)
+    for seq in (1, 62, 259, 690, 1025, 1808, 1809, 2049):
+        assert AB.compiled_core_resident_bytes(seq) == AB.core_resident_bytes(seq)
     for c in (32, 64, 96, 128):
         for k in (2, 3, 4, 8):
             for training in (False, True):

@@ -103,13 +103,13 @@ def test_core_panels_pad_the_inner_channels(rng):
 def test_gates_pin_the_layout_bytes():
     """The bytes the gates compute are those of the .cu layouts (the FFN
     step's Lay<C>::bytes(4) at C 256, its Hopper forward's FLay at C 96 and
-    128; the attention step's QkvLay), which
+    128; the attention step's QKV launch, qkv_bytes), which
     tests/test_torch_cuda_kernels.py holds against the compiled kernels'
     own count."""
     assert SMEM_OPTIN == 232448
     assert [FB.step_bytes(c, 4) for c in (256, 96, 128)] == [283904, 225400, 217176]
     assert [AB.launch_bytes(c, c, h)["qkv"] for c, h in ((256, 16), (96, 4), (128, 8))] \
-        == [236544, 59904, 87040]
+        == [168960, 33280, 52224]
     assert SF.core_bytes(256) == 220280 <= SMEM_OPTIN
 
 
