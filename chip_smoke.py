@@ -6,14 +6,16 @@
 Drives the port (``mss_tf_locoformer_tpu_torch``) at the base config of
 ``configs/musdb18.yaml``, the xlarge config of ``configs/musdb18_xlarge.yaml``,
 the small config of ``configs/musdb18_small.yaml`` and the BS-Locoformer
-config of ``configs/musdb18_bslocoformer.yaml`` (all built here in code: the
-GPU machine may have no PyYAML), with seeded random weights, through its main
-paths: base serving (the separation CLI), xlarge serving (the separation
-CLI, through the unfused route's kernels), base training (the training CLI),
-training through the unfused route (xlarge and small), BS-Locoformer stereo
-serving (the separation CLI) and evaluation (the evaluation CLI, base and
-BS-Locoformer).  Phases, each of which raises on failure (exit code != 0, no
-result line):
+config of ``configs/musdb18_bslocoformer.yaml`` and the speech configs of
+``configs/speech_*.yaml`` (all built here in code: the GPU machine may have
+no PyYAML), with seeded random weights, through its main paths: base
+serving (the separation CLI), xlarge serving (the separation CLI, through
+the unfused route's kernels), base training (the training CLI), training
+through the unfused route (xlarge and small), BS-Locoformer stereo serving
+(the separation CLI), evaluation (the evaluation CLI, base and
+BS-Locoformer), speech serving, training and evaluation (the speech CLIs)
+and BS-Locoformer training (the training CLI).  Phases, each of which
+raises on failure (exit code != 0, no result line):
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
@@ -123,7 +125,39 @@ result line):
      launch counts, the plain route with ``--bss_eval``, ``results.json``
      checked; each kernel-route stem held against the plain route's stem
      (SI-SDR from slice parity's bound) and its score against the plain
-     route's score.
+     route's score;
+ 18. speech gates: the speech configs (wsj0-2mix, WHAMR, DNS) take the fused
+     steps in eval and in training, the Hopper FFN-step kernels and the
+     resident attention core at every speech shape;
+ 19. speech kernels: #2 and #3 against their plain versions at speech
+     serving shapes (8 s at 8 kHz, n_fft 128: [1001, 65, 128] / [65, 1001,
+     128]; 8 s of DNS at 16 kHz, n_fft 256: [1001, 129, 128] / [129, 1001,
+     128]), #3 with its stash, #4 and #5 against autograd through the plain
+     versions in fp32 at the wsj0-2mix and WHAMR (I 192, k 8) training
+     shapes (batch 4 x 4 s: [2004, 65, 128] / [260, 501, 128]), dropout 0
+     as the speech configs; timed beside the plain versions and the bounds;
+ 20. speech slice parity: the wsj0-2mix separator (6 layers) through STFT
+     and iSTFT on 4 s, kernel path against plain path per speaker,
+     rejecting the blocks-skipped model, 24 FFN and 12 attention steps per
+     forward exactly;
+ 21. speech serving: the speech separation CLI on three 8 kHz WAVs (3.3, 5
+     and 9.7 s), 2 WAVs of the input's length each, exact launches, the
+     realtime factor of a second run;
+ 22. speech training: the speech training CLI with the wsj0-2mix sections
+     (batch 4 x 4 s, bf16, PIT SI-SNR; 2 steps, validation, checkpoint,
+     then ``--resume``) and with the DNS sections (one source, 16 kHz,
+     n_fft 256, fixed-order ``mr_l1_tfd``), exact forward and backward
+     launches, finite gradients; a train step of each timed in turns with
+     the plain path, with its peak device memory;
+ 23. speech evaluation: the speech evaluation CLI on 2 utterances, kernel
+     route against plain route (estimates by SI-SNR, scores within 1 dB),
+     ``results.json`` checked, exact launches;
+ 24. BS-Locoformer training: train-step parity (1 x 1 s stereo, dropout
+     0.1, the kernel path against the plain path in fp32, per parameter
+     group, rejecting the blocks-skipped model); the training CLI on the
+     synthetic MUSDB tree (stereo, 4 micro-batches of 2 x 3 s a step, 2
+     steps, validation, then ``--resume``) with exact launches; a micro-
+     batch step timed in turns with the plain path, with its peak.
 
 ``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
 time breakdown of one xlarge micro-batch train step (minutes of trace
@@ -147,6 +181,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 SR = 44100
+# The device of the model pairs and of the speech and BS-training phases; a
+# CPU rehearsal of them at a tiny size sets "cpu"
+DEV = "cuda"
 
 
 def base_model_config():
@@ -428,9 +465,8 @@ def _main_path_steps(cfg):
             ("time", BATCH * cfg.n_freqs, n_frames))
 
 
-def _step_inputs(gen, rows, seq, device, c=96):
+def _step_inputs(gen, rows, seq, device, c=96, inner=384, k=4):
     import torch
-    inner, k = 384, 4
     x = _rand(gen, (rows, seq, c), 0.5).to(device, torch.bfloat16)
     gamma = (1.0 + _rand(gen, (c,), 0.1)).to(device)
     ffn = (_uniform(gen, (2 * inner, c, k), (c * k) ** -0.5),
@@ -510,9 +546,8 @@ def _model_pair(cfg=None):
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import build_model
     cfg = cfg or base_model_config()
-    dev = torch.device("cuda", 0)
-    fused = build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to(dev).eval()
-    plain = build_model(_plain_config(cfg), BF16).to(dev).eval()
+    fused = build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to(DEV).eval()
+    plain = build_model(_plain_config(cfg), BF16).to(DEV).eval()
     plain.load_state_dict(fused.state_dict(), strict=True)
     return fused, plain
 
@@ -1230,16 +1265,17 @@ def _counters():
             "istft": SK.istft_fused, "istft_overlap_add": SK.frames_to_audio}
 
 
-def _train_models():
-    """The bf16 base model twice on the same weights, kernel and plain, in
-    training mode."""
-    fused, plain = _model_pair()
+def _train_models(cfg=None):
+    """The bf16 model (the base config by default) twice on the same
+    weights, kernel and plain, in training mode."""
+    fused, plain = _model_pair(cfg)
     return fused.train(), plain.train()
 
 
-def _batch(gen, b, n, dev):
-    import torch
-    stems = {s: _rand(gen, (b, n), 0.1).to(dev) for s in ("vocals", "drums", "bass", "other")}
+def _batch(gen, b, n, dev, cfg=None):
+    """A mixture and its 4 stems, ``[b, n]`` (``[b, 2, n]`` for a stereo ``cfg``)."""
+    stems = {s: _rand(gen, _mix_shape(cfg, b, n), 0.1).to(dev)
+             for s in ("vocals", "drums", "bass", "other")}
     return sum(stems.values()), stems
 
 
@@ -1284,19 +1320,20 @@ def phase_train_parity():
 BASE_TRAIN_PEAK_GIB = 8.925
 
 
-def phase_train_timing(reps: int = 1):
+def phase_train_timing(reps: int = 1, cfg=None):
     """One optimizer step (AdamW, clip 5, dropout 0.1) on one micro-batch of
-    2 x 3 s, kernel path against plain path, in turns (plain, kernel,
-    kernel, plain), after a warm-up step of each (its peak device memory
-    kept).  The plain attention keeps no scores for the backward (its 1 GiB
-    groups are recomputed), so both paths fit at the same micro-batch."""
+    2 x 3 s of ``cfg`` (the base config by default), kernel path against
+    plain path, in turns (plain, kernel, kernel, plain), after a warm-up
+    step of each (its peak device memory kept).  The plain attention keeps
+    no scores for the backward (its 1 GiB groups are recomputed), so both
+    paths fit at the same micro-batch."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
     from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
     from mss_tf_locoformer_tpu_torch.train.step import train_step
-    models = dict(zip(("kernel", "plain"), _train_models()))
-    dev = models["kernel"].deconv.weight.device
-    batch = _batch(torch.Generator().manual_seed(SEED + 5), TRAIN_MB, SEGMENT, dev)
+    models = dict(zip(("kernel", "plain"), _train_models(cfg)))
+    dev = next(models["kernel"].parameters()).device
+    batch = _batch(torch.Generator().manual_seed(SEED + 5), TRAIN_MB, SEGMENT, dev, cfg)
     opts = {p: make_optimizer(m.parameters(), TrainingConfig()) for p, m in models.items()}
     gens = {p: torch.Generator().manual_seed(11) for p in models}
 
@@ -1778,19 +1815,17 @@ def phase_xlarge_train_profile():
     return wall, rows
 
 
-def phase_xlarge_train_parity():
-    """One xlarge micro-batch (1 x 1 s, remat on, dropout 0.1) through the
-    kernel path and the plain path with the same weights, batch and seeds:
-    the relative L2 of the gradients per parameter group (encoder, each
-    block, decoder) within ``STEP_GRAD_REL_L2``; the gradients of the plain
-    model with its blocks skipped must miss the bound."""
+def _grad_parity(tag, fused, plain, mix, tg, group, others=None):
+    """One micro-batch through the kernel path and the plain path with the
+    same weights, batch and dropout seeds: the relative L2 of the gradients
+    per parameter group (``group(name)``) within ``STEP_GRAD_REL_L2``; the
+    gradients of the plain model with its blocks skipped must miss the
+    bound.  ``others`` (``{label: model}``): models whose gradients' distance
+    from the plain path's is printed beside, unchecked.  Returns ``(worst,
+    least of the blocks-skipped model)``."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.config import LossConfig
     from mss_tf_locoformer_tpu_torch.losses.mss_loss import mss_loss
-    fused = _xl_train_model()
-    plain = _xl_train_model(plain=True)
-    plain.load_state_dict(fused.state_dict(), strict=True)
-    mix, tg = _batch(torch.Generator().manual_seed(SEED + 4), 1, SR, "cuda")
 
     def grads(model):
         model.zero_grad(set_to_none=True)
@@ -1800,15 +1835,12 @@ def phase_xlarge_train_parity():
         return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
                              if p.grad is not None}
 
-    def group(name):
-        return ".".join(name.split(".")[:2]) if name.startswith("blocks.") else name.split(".")[0]
-
     def by_group(ga, gb):
         out = {}
         for name, a in ga.items():
             ref = gb[name]
             if not torch.isfinite(a).all():
-                raise AssertionError(f"xlarge parity: gradient of {name} is not finite")
+                raise AssertionError(f"{tag}: gradient of {name} is not finite")
             num, den = out.get(group(name), (0.0, 0.0))
             out[group(name)] = (num + (a.float() - ref.float()).pow(2).sum().item(),
                                 den + ref.float().pow(2).sum().item())
@@ -1817,25 +1849,47 @@ def phase_xlarge_train_parity():
     lk, gk = grads(fused)
     lp, gp = grads(plain)
     if set(gk) != set(gp):
-        raise AssertionError("xlarge parity: the two paths' gradients cover other parameters")
+        raise AssertionError(f"{tag}: the two paths' gradients cover other parameters")
     rel = by_group(gk, gp)
     blocks, plain.blocks = plain.blocks, torch.nn.ModuleList()
     _, gs = grads(plain)
     plain.blocks = blocks
     skip = by_group(gs, gp)     # the encoder and the decoder: no blocks to differentiate
     worst = max(rel.values())
-    print(f"[xl-parity] loss kernel {lk:.5f} plain {lp:.5f}; gradient relative L2 by group: "
+    print(f"[{tag}] loss kernel {lk:.5f} plain {lp:.5f}; gradient relative L2 by group: "
           + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
           + f" (bound {STEP_GRAD_REL_L2:g}); blocks skipped: "
           + ", ".join(f"{k} {v:.2e}" for k, v in skip.items()))
+    for label, model in (others or {}).items():
+        lo, go = grads(model)
+        print(f"[{tag}] {label}: loss {lo:.5f}; gradient relative L2 by group against the "
+              f"plain path: " + ", ".join(f"{k} {v:.2e}" for k, v in by_group(go, gp).items()))
     if not worst <= STEP_GRAD_REL_L2:
-        raise AssertionError(f"xlarge train parity: relative L2 {worst:.3e} above bound")
+        raise AssertionError(f"{tag}: relative L2 {worst:.3e} above bound")
     if not min(skip.values()) > STEP_GRAD_REL_L2:
-        raise AssertionError("xlarge train parity: cannot tell the model from the model "
-                             "with its blocks skipped")
-    del fused, plain, gk, gp, gs
-    torch.cuda.empty_cache()
+        raise AssertionError(f"{tag}: cannot tell the model from the model with its "
+                             f"blocks skipped")
+    del gk, gp, gs
     return worst, min(skip.values())
+
+
+def phase_xlarge_train_parity():
+    """One xlarge micro-batch (1 x 1 s, remat on, dropout 0.1), kernel path
+    against plain path (``_grad_parity``; groups: encoder, each block,
+    decoder)."""
+    import torch
+    fused = _xl_train_model()
+    plain = _xl_train_model(plain=True)
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 4), 1, SR, "cuda")
+
+    def group(name):
+        return ".".join(name.split(".")[:2]) if name.startswith("blocks.") else name.split(".")[0]
+
+    out = _grad_parity("xl-parity", fused, plain, mix, tg, group)
+    del fused, plain
+    torch.cuda.empty_cache()
+    return out
 
 
 def _unfused_train_config(root, name, epochs):
@@ -2140,6 +2194,15 @@ def _bs_main_path_steps(cfg):
     return (("freq", BATCH * n_frames, bands), ("time", BATCH * bands, n_frames))
 
 
+def _bs_train_steps(cfg):
+    """(path, rows, sequence) of the steps of one BS-Locoformer training
+    micro-batch (``TRAIN_MB`` x ``SEGMENT``)."""
+    from mss_tf_locoformer_tpu_torch.models.bslocoformer import compute_bands
+    n_frames = 1 + SEGMENT // cfg.hop_length
+    bands = len(compute_bands(cfg.stft_size, cfg.sample_rate))
+    return (("freq", TRAIN_MB * n_frames, bands), ("time", TRAIN_MB * bands, n_frames))
+
+
 def phase_bs_kernels(results):
     """The FFN step (#2) and the attention step (#3) against their plain
     versions at the BS-Locoformer engine batch's shapes (C 128, I 384, 4
@@ -2290,6 +2353,590 @@ def phase_evaluate(workdir):
     return out
 
 
+# ------------------------------------------- the speech family and BS training
+
+SPEECH_TRAINING = {"batch_size": 4, "num_epochs": 150, "gradient_clip": 5.0, "num_workers": 4,
+                   "optimizer": {"type": "adamw", "lr": 0.001, "weight_decay": 0.01},
+                   "scheduler": {"type": "reducelronplateau", "factor": 0.5, "patience": 3,
+                                 "warmup_steps": 4000},
+                   "use_amp": True, "amp_dtype": "bfloat16", "save_interval": 1,
+                   "val_interval": 1, "early_stopping": {"enabled": True, "patience": 10}}
+SPEECH_SEGMENT_S = 4.0     # the configs' segment_length: 4 s
+SPEECH_BATCH = 4           # and their batch_size
+
+
+def speech_raw(name):
+    """``configs/speech_{name}.yaml`` (wsj0_2mix, whamr, whamr_nope, dns) as
+    the mapping its YAML holds, built in code."""
+    whamr = name.startswith("whamr")
+    dns = name == "dns"
+    root = {"wsj0_2mix": "/data/wsj0_2mix", "dns": "/data/dns_ins20"}.get(name, "/data/whamr")
+    dataset = {"root_dir": f"{root}/tr", "valid_dir": f"{root}/cv", "num_spk": 1 if dns else 2,
+               "mix_dir": "noisy" if dns else "mix_both_reverb" if whamr else "mix",
+               "sample_rate": 16000 if dns else 8000,
+               "segment_length": 64000 if dns else 32000}
+    if dns or whamr:
+        dataset["spk_dirs"] = ["clean"] if dns else ["s1_anechoic", "s2_anechoic"]
+    inner = 192 if whamr else 384
+    separator = {"num_spk": 1 if dns else 2, "n_layers": 6, "emb_dim": 128,
+                 "norm_type": "rmsgroupnorm", "num_groups": 4, "tf_order": "ft", "n_heads": 4,
+                 "flash_attention": True, "fused_ffn": True, "attention_dim": 128,
+                 "pos_enc": "nope" if name == "whamr_nope" else "rope",
+                 "ffn_type": ["swiglu_conv1d", "swiglu_conv1d"], "ffn_hidden_dim": [inner, inner],
+                 "conv1d_kernel": 8 if whamr else 4, "conv1d_shift": 1, "dropout": 0.0}
+    return {"task": "speech_separation", "dataset": dataset,
+            "stft": {"n_fft": 256, "hop_length": 128} if dns else {"n_fft": 128, "hop_length": 64},
+            "separator": separator,
+            "loss": ({"criterion": "mr_l1_tfd", "wrapper": "fixed_order"} if dns
+                     else {"criterion": "si_snr", "wrapper": "pit"}),
+            "training": json.loads(json.dumps(SPEECH_TRAINING)),
+            "paths": {"output_dir": f"./experiments/{'dns_ins20' if dns else name}"},
+            "mesh": {"dp": -1, "mp": 1}, "seed": 42}
+
+
+def speech_config(name):
+    from mss_tf_locoformer_tpu_torch.core.config import speech_config_from_dict
+    return speech_config_from_dict(speech_raw(name))
+
+
+def _speech_steps(cfg, batch, seconds):
+    """(path, rows, sequence) of the steps of a speech batch: the freq path
+    attends over F = n_fft/2 + 1 bins on rows B*N, the time path over N =
+    T/hop + 1 frames on rows B*F."""
+    n_frames = 1 + int(seconds * cfg.dataset.sample_rate) // cfg.stft.hop_length
+    n_bins = cfg.stft.n_fft // 2 + 1
+    return (("freq", batch * n_frames, n_bins), ("time", batch * n_bins, n_frames))
+
+
+def phase_speech_gates():
+    """The route the step gates give the speech configs (wsj0-2mix, WHAMR,
+    DNS), in eval and in training: the fused steps; and which attention-step
+    core their shapes take (resident)."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    for name in ("wsj0_2mix", "whamr", "dns"):
+        cfg = speech_config(name)
+        sep = cfg.separator
+        c, a, h, k = sep.emb_dim, sep.attention_dim, sep.n_heads, sep.conv1d_kernel
+        for training in (False, True):
+            routes = ([FB.supports_step(c, i, k, training, sep.num_groups)
+                       for i in sep.ffn_hidden_dim] + [AB.supports_block(c, a, h, training)])
+            print(f"[gates] speech {name} (C {c}, I {sep.ffn_hidden_dim[0]}, k {k}), "
+                  f"{'training' if training else 'eval'}: FFN step "
+                  f"{FB.step_bytes(c, k, training)} B, attention step "
+                  f"{max(AB.launch_bytes(c, a, h, training).values())} B: fused steps {routes}")
+            if not all(routes):
+                raise AssertionError(f"gates: speech {name} should take the fused steps")
+        for path, rows, seq in (_speech_steps(cfg, SPEECH_BATCH, SPEECH_SEGMENT_S)
+                                + _speech_steps(cfg, 1, 8.0)):
+            if not (AB.core_resident(seq) and FB.hopper_route(c)):
+                raise AssertionError(f"gates: speech {name} {path} L {seq} should take the "
+                                     f"resident attention core and the Hopper FFN step")
+        print(f"[gates] speech {name}: Hopper FFN-step kernels, resident attention core at "
+              f"every shape (L <= {max(s for *_, s in _speech_steps(cfg, 1, 8.0))})")
+
+
+def _step_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0):
+    """#2 and #3 (``training``: forward with the stash, and #4 and #5 against
+    autograd through the plain versions in fp32 at dropout ``drop``) at one
+    shape of the blocks of ``cfg`` (a speech ``SeparatorConfig`` or a
+    ``ModelConfig``), timed beside the plain versions and the bounds."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    inner = _inner_dims(cfg)[0]
+    c, k = cfg.emb_dim, cfg.conv1d_kernel
+    x, gamma, ffn, attn = _step_inputs(gen, rows, seq, DEV, c, inner, k)
+    drops = (drop, 777, 0) if training else ()
+    fargs = (k, cfg.num_groups, cfg.eps) + drops
+    aargs = (cfg.n_heads, cfg.num_groups, cfg.eps, cfg.pos_enc == "rope", 10000.0) + drops
+    g = _rand(gen, (rows, seq, c)).to(DEV, torch.bfloat16) if training else None
+    for name, kfn, pfn, w, args, work in (
+            ("ffn_step", FB.fused_norm_ffn_residual, FB.reference_norm_ffn_residual, ffn,
+             fargs, ffn_work(rows, seq, c, inner, k)),
+            ("attention_step", AB.fused_attention_block, AB.reference_attention_block, attn,
+             aargs, attn_work(rows, seq, c, cfg.attention_dim, cfg.n_heads))):
+        label = f"{name} {tag} {path} [{rows}, {seq}, {c}]"
+        fflop, fbytes, bflop, bbytes, exps = (*work, 0.0)[:5]   # FFN: no exps
+        if not training:
+            got = kfn(x, gamma, *w, *args)
+            torch.cuda.synchronize()
+            err = _compare(label, got, pfn(x, gamma, *w, *args), STEP_TOL, null=x)
+            del got
+            r = results.setdefault(name, dict(err=0.0))
+            r["err"] = max(r["err"], err)
+            r[f"{tag} {path}"] = dict(
+                shape=(rows, seq, c), ms=_time_ms(lambda: kfn(x, gamma, *w, *args)),
+                plain_ms=_time_ms(lambda: pfn(x, gamma, *w, *args), iters=3),
+                bound=_bound(fflop, fbytes, exps))
+            continue
+        params = [gamma, *w]
+        out, got = _autograd(lambda *a: kfn(*a, *args), x, params, g)
+        torch.cuda.synchronize()
+        ref_out, ref = _autograd(lambda *a: pfn(*a, *args), x.float(), params, g.float())
+        ferr = _compare(f"{label} forward (training)", out, ref_out, STEP_TOL, null=x)
+        gerr, grel = _check_grads(f"{label} backward", got, ref, g)
+        del out, got, ref_out, ref
+        kf, kb = _timed_grad(lambda *a: kfn(*a, *args), x, params, g)
+        pf, pb = _timed_grad(lambda *a: pfn(*a, *args), x, params, g, iters=1)
+        r = results.setdefault(name, dict(err=0.0))
+        r["err"] = max(r["err"], ferr)
+        rb = results.setdefault(name + "_backward", dict(err=0.0, rel_l2=0.0))
+        rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+        rb[f"{tag} {path}"] = dict(
+            rows=rows, seq=seq, c=c, drop=drop, fwd_ms=kf, ms=kb, plain_fwd_ms=pf,
+            plain_ms=pb, bound=_bound(bflop, bbytes, exps),
+            fwd_bound=_bound(fflop, fbytes, exps))
+        torch.cuda.empty_cache()
+    del x, g, ffn, attn
+    torch.cuda.empty_cache()
+
+
+def phase_speech_kernels(results):
+    """#2 and #3 against their plain versions at speech serving shapes (one
+    8 kHz utterance of 8 s at n_fft 128: freq [1001, 65, 128], time [65,
+    1001, 128]; one 16 kHz DNS utterance of 8 s at n_fft 256: [1001, 129,
+    128] / [129, 1001, 128]); #3 with its stash, #4 and #5 against autograd
+    through the plain versions at the wsj0-2mix training shapes (batch 4 x
+    4 s: [2004, 65, 128] / [260, 501, 128]) and at WHAMR's (I 192, k 8), at
+    dropout 0 as the speech configs; and at BS-Locoformer's training shapes
+    (micro-batch 2 x 3 s: [518, 62, 128] / [124, 259, 128]) at its dropout
+    0.1."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 20)
+    for tag, name in (("speech wsj0-2mix serving", "wsj0_2mix"), ("speech dns serving", "dns")):
+        cfg = speech_config(name)
+        for path, rows, seq in _speech_steps(cfg, 1, 8.0):
+            _step_case(results, tag, path, rows, seq, cfg.separator, gen, False)
+    for tag, name in (("speech wsj0-2mix training", "wsj0_2mix"),
+                      ("speech whamr training", "whamr")):
+        cfg = speech_config(name)
+        for path, rows, seq in _speech_steps(cfg, SPEECH_BATCH, SPEECH_SEGMENT_S):
+            _step_case(results, tag, path, rows, seq, cfg.separator, gen, True)
+    bs = bs_model_config()
+    for path, rows, seq in _bs_train_steps(bs):
+        _step_case(results, "bs training", path, rows, seq, bs, gen, True, bs.dropout)
+
+
+def _speech_pair(cfg):
+    """The bf16 separator of ``cfg`` on the device twice, on the same seeded
+    weights: with its kernels, and with every kernel replaced by its plain
+    version."""
+    import dataclasses
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.precision import BF16
+    from mss_tf_locoformer_tpu_torch.models import TFLocoformerSeparator
+    fused = TFLocoformerSeparator(cfg.separator, BF16, torch.Generator().manual_seed(SEED))
+    plain = TFLocoformerSeparator(dataclasses.replace(cfg.separator, fused_ffn=False,
+                                                      flash_attention=False), BF16)
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    return fused.to(DEV).eval(), plain.to(DEV).eval()
+
+
+# launches of one separator forward at the speech configs' 6 layers: 2
+# paths x (2 FFN steps + 1 attention step) a layer
+SPEECH_FORWARD = {"ffn_step": 24, "attention_step": 12}
+
+
+def _times(need, n):
+    return {k: v * n for k, v in need.items()}
+
+
+def phase_speech_parity():
+    """The wsj0-2mix separator at full width and depth on 4 s (batch 1)
+    through STFT, separator and iSTFT: kernel path against plain path per
+    speaker (relative L2 within ``SLICE_REL_L2``), exact launches per
+    forward, and the plain model with its blocks skipped must miss."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.models.espnet_compat import separate_waveforms
+    cfg = speech_config("wsj0_2mix")
+    fused, plain = _speech_pair(cfg)
+    mix = _rand(torch.Generator().manual_seed(SEED + 21), (1, 4 * 8000), 0.1).to(DEV)
+    sep = lambda m: separate_waveforms(m, mix, cfg.stft.n_fft, cfg.stft.hop_length)
+    counters = _counters()
+    with torch.no_grad():
+        for fn in counters.values():
+            fn.launches = 0
+        a = sep(fused)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        b = sep(plain)
+        blocks, plain.blocks = plain.blocks, torch.nn.ModuleList()
+        skipped = sep(plain)
+        plain.blocks = blocks
+    _check_launches("speech parity", launches, SPEECH_FORWARD)
+    if a.shape != (1, 2, 4 * 8000) or not torch.isfinite(a).all():
+        raise AssertionError(f"speech parity: estimates {tuple(a.shape)} not finite")
+    rel = [_rel_l2(a[:, s], b[:, s]) for s in range(2)]
+    skip = [_rel_l2(skipped[:, s], b[:, s]) for s in range(2)]
+    print(f"[speech-parity] wsj0-2mix, 6 layers, 4 s: relative L2 per speaker "
+          f"{', '.join(f'{v:.3e}' for v in rel)} (bound {SLICE_REL_L2:g}); blocks skipped "
+          f"{', '.join(f'{v:.3e}' for v in skip)}")
+    if not max(rel) <= SLICE_REL_L2:
+        raise AssertionError(f"speech parity: relative L2 {max(rel):.3e} above {SLICE_REL_L2:g}")
+    if not min(skip) > SLICE_REL_L2:
+        raise AssertionError("speech parity: the check cannot tell the model from the model "
+                             "with its blocks skipped")
+    del fused, plain
+    torch.cuda.empty_cache()
+    return max(rel), min(skip)
+
+
+def _speech_wave(rng, n, sr):
+    """Two voices of tones under noise, a speech-like mixture for the CLIs."""
+    import numpy as np
+    t = np.arange(n) / sr
+    f0 = 100 + 200 * rng.random(2)
+    voices = [0.2 * np.sin(2 * np.pi * f * t * (1 + 0.05 * np.sin(2 * np.pi * 3 * t)))
+              for f in f0]
+    return voices, sum(voices) + 0.01 * rng.standard_normal(n)
+
+
+def _write_json(path, raw):
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _speech_checkpoint(workdir, name, seed=SEED):
+    """A seeded random separator of ``speech_config(name)`` saved as a
+    ``.pth``, and a JSON config of it."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.models import TFLocoformerSeparator
+    cfg = speech_config(name)
+    ckpt = os.path.join(workdir, f"speech_{name}.pth")
+    torch.save(TFLocoformerSeparator(cfg.separator, generator=torch.Generator().manual_seed(
+        seed)).state_dict(), ckpt)
+    return ckpt, _write_json(os.path.join(workdir, f"speech_{name}.json"), speech_raw(name))
+
+
+SPEECH_SERVE_S = (3.3, 5.0, 9.7)   # the serving phase's utterances
+
+
+def phase_speech_serving(workdir):
+    """The speech separation CLI on three 8 kHz WAVs of ``SPEECH_SERVE_S``
+    with a seeded random wsj0-2mix checkpoint: 2 WAVs per file, each of the
+    input's length; exact launches (one separator forward per file); then
+    the wall time of a second run.  Returns ``(launches, wall s, audio s)``."""
+    import numpy as np
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import separate_speech as cli
+    from mss_tf_locoformer_tpu_torch.utils.audio import load_audio, save_audio
+    sr = 8000
+    ckpt, cfg_path = _speech_checkpoint(workdir, "wsj0_2mix")
+    in_dir, out_dir = os.path.join(workdir, "speech_in"), os.path.join(workdir, "speech_out")
+    os.makedirs(in_dir)
+    rng = np.random.default_rng(SEED)
+    lengths = {}
+    for i, seconds in enumerate(SPEECH_SERVE_S):
+        n = int(seconds * sr)
+        save_audio(os.path.join(in_dir, f"utt{i}.wav"),
+                   _speech_wave(rng, n, sr)[1].astype(np.float32), sr, normalize=False)
+        lengths[f"utt{i}"] = n
+    argv = ["--config", cfg_path, "--checkpoint", ckpt, "--input", in_dir, "--output_dir",
+            out_dir, "--device", DEV]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    _check_launches("speech serving", launches, _times(SPEECH_FORWARD, len(lengths)))
+    for base, n in lengths.items():
+        for s in (1, 2):
+            path = os.path.join(out_dir, f"{base}_spk{s}.wav")
+            audio, rate = load_audio(path)
+            if audio.shape != (1, n) or rate != sr or not np.isfinite(audio).all():
+                raise AssertionError(f"{path}: {audio.shape} at {rate} Hz, want (1, {n})")
+        print(f"[speech-serving] {base}: {n / sr:g} s -> 2 speakers of {n} samples")
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    return launches, time.perf_counter() - t0, sum(lengths.values()) / sr
+
+
+def _write_speech_corpus(root, cfg, n_train=8, n_val=2, seconds=SPEECH_SEGMENT_S, seed=SEED):
+    """A synthetic corpus in the layout of ``cfg.dataset`` (``mix/ s1/ s2/``
+    or ``noisy/ clean/``) under ``root/tr`` and ``root/cv``: mono 16-bit
+    WAVs at its rate; training utterances of ``seconds``, validation ones of
+    ``seconds`` + 1, + 2, ... (each a shape of its own)."""
+    import numpy as np
+    from mss_tf_locoformer_tpu_torch.data.audio_io import write
+    d = cfg.dataset
+    spk_dirs = d.spk_dirs or [f"s{i + 1}" for i in range(d.num_spk)]
+    rng = np.random.default_rng(seed)
+    for sub, count in (("tr", n_train), ("cv", n_val)):
+        for dd in (d.mix_dir, *spk_dirs):
+            os.makedirs(os.path.join(root, sub, dd))
+        for u in range(count):
+            n = int((seconds if sub == "tr" else seconds + 1 + u) * d.sample_rate)
+            voices, mix = _speech_wave(rng, n, d.sample_rate)
+            if d.num_spk == 1:   # enhancement: the clean voice under the other as noise
+                voices = voices[:1]
+            for dd, x in zip((d.mix_dir, *spk_dirs), (mix, *voices)):
+                write(os.path.join(root, sub, dd, f"u{u:02d}.wav"),
+                      x.astype(np.float32)[:, None], d.sample_rate)
+
+
+def _speech_train_raw(name, root, epochs):
+    raw = speech_raw(name)
+    raw["dataset"].update(root_dir=os.path.join(root, "tr"), valid_dir=os.path.join(root, "cv"))
+    raw["training"].update(num_epochs=epochs, log_interval=1)
+    return raw
+
+
+def phase_speech_train(workdir):
+    """The speech training CLI: the wsj0-2mix sections (batch 4 x 4 s, bf16,
+    PIT SI-SNR) on 8 training and 2 validation utterances, one epoch of 2
+    steps with validation and a checkpoint, then ``--resume`` for one more;
+    then one epoch of the DNS sections (one source, 16 kHz, n_fft 256,
+    fixed-order ``mr_l1_tfd``).  Exact launches each run (forward and
+    backward per step, a forward per validation utterance), finite
+    gradients.  Returns ``{run: (launches, wall s)}``."""
+    import numpy as np
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import train_speech as cli
+    out = {}
+    steps, n_val = 2, 2
+    need = {**_times(SPEECH_FORWARD, steps + n_val),
+            "ffn_step_backward": SPEECH_FORWARD["ffn_step"] * steps,
+            "attention_step_backward": SPEECH_FORWARD["attention_step"] * steps}
+    counters = _counters()
+    for name, runs in (("wsj0_2mix", ((1, []), (2, ["--resume", "latest"]))),
+                       ("dns", ((1, []),))):
+        cfg = speech_config(name)
+        root = os.path.join(workdir, f"corpus_{name}")
+        _write_speech_corpus(root, cfg)
+        cfg_path = os.path.join(workdir, f"train_{name}.json")
+        exp = os.path.join(workdir, f"exp_{name}")
+        for epochs, extra in runs:
+            _write_json(cfg_path, _speech_train_raw(name, root, epochs))
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            trainer = cli.main(["--config", cfg_path, "--device", DEV, "--output_dir", exp]
+                               + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            tag = f"speech training {name} epoch {epochs - 1}"
+            _check_launches(tag, launches, need)
+            if trainer.step != steps * epochs or trainer.start_epoch != epochs - 1:
+                raise AssertionError(f"{tag}: step {trainer.step}, start epoch "
+                                     f"{trainer.start_epoch}")
+            meta = torch.load(trainer.ckpt.path(epochs - 1), map_location="cpu",
+                              weights_only=True)["metadata"]
+            for p_name, p in trainer.model.named_parameters():
+                if p.grad is None or not torch.isfinite(p.grad).all():
+                    raise AssertionError(f"{tag}: gradient of {p_name} missing or not finite")
+            if not (np.isfinite(meta["train_loss"]) and np.isfinite(meta["val_loss"])):
+                raise AssertionError(f"{tag}: losses {meta}")
+            print(f"[speech-train] {tag}: {steps} steps and {n_val} validation utterances in "
+                  f"{wall:.1f} s (build, data, checkpoint included); train "
+                  f"{meta['train_loss']:.4f}, val {meta['val_loss']:.4f}; gradients finite")
+            out[f"{name} {epochs - 1}"] = (launches, wall)
+            del trainer
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_speech_train_timing(reps: int = 2):
+    """One optimizer step of the wsj0-2mix and DNS configs at their batch (4
+    x 4 s, bf16, AdamW, clip 5), kernel path against plain path, in turns
+    (plain, kernel, kernel, plain) after a warm-up step of each (its peak
+    device memory kept).  Returns ``{name: {path: (s/step, peak bytes)}}``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.train.speech import speech_train_step
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    out = {}
+    for name in ("wsj0_2mix", "dns"):
+        cfg = speech_config(name)
+        models = dict(zip(("kernel", "plain"), _speech_pair(cfg)))
+        opts = {p: make_optimizer(m.parameters(), cfg.training) for p, m in models.items()}
+        gen = torch.Generator().manual_seed(SEED + 22)
+        n = int(SPEECH_SEGMENT_S * cfg.dataset.sample_rate)
+        src = _rand(gen, (SPEECH_BATCH, cfg.separator.num_spk, n), 0.1).to(DEV)
+        mix = src.sum(1)
+
+        def step(path):
+            speech_train_step(models[path], opts[path], mix, src, 1e-4,
+                              torch.Generator().manual_seed(1), cfg)
+
+        peak, times = {}, {"kernel": [], "plain": []}
+        for path in models:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(path)
+            torch.cuda.synchronize()
+            peak[path] = torch.cuda.max_memory_allocated()
+        for path in ("plain", "kernel", "kernel", "plain"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step(path)
+            torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t0) / reps)
+        out[name] = {p: (sum(t) / len(t), peak[p]) for p, t in times.items()}
+        del models, opts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_speech_evaluate(workdir):
+    """The speech evaluation CLI on 2 wsj0-2mix utterances (5 and 6 s, the
+    validation set of ``_write_speech_corpus``), kernel route against plain
+    route on one seeded random checkpoint: ``results.json`` complete and
+    finite, exact launches on the kernel route (a forward per utterance);
+    each kernel-route estimate held against the plain route's (SI-SNR at
+    least ``EVAL_STEM_SI_SDR_DB``, slice parity's bound) and each score
+    within ``EVAL_SI_SDR_DB``.  Returns ``(kernel-route wall s,
+    launches)``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import evaluate_speech as cli
+    from mss_tf_locoformer_tpu_torch.eval.metrics import compute_si_sdr
+    from mss_tf_locoformer_tpu_torch.models import espnet_compat as EC
+    cfg = speech_config("wsj0_2mix")
+    root = os.path.join(workdir, "corpus_eval")
+    _write_speech_corpus(root, cfg, n_train=0, n_val=2)
+    ckpt, _ = _speech_checkpoint(workdir, "wsj0_2mix")
+    counters = _counters()
+    estimates, results, out = {}, {}, None
+    real = EC.SpeechSeparator.__call__
+    for route in ("kernel", "plain"):
+        raw = speech_raw("wsj0_2mix")
+        raw["dataset"]["valid_dir"] = os.path.join(root, "cv")
+        if route == "plain":
+            raw["separator"].update(fused_ffn=False, flash_attention=False)
+        cfg_path = _write_json(os.path.join(workdir, f"eval_{route}.json"), raw)
+        estimates[route] = []
+        EC.SpeechSeparator.__call__ = (
+            lambda self, audio, _r=route: estimates[_r].append(real(self, audio))
+            or estimates[_r][-1])
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            t0 = time.perf_counter()
+            results[route] = cli.main(["--config", cfg_path, "--checkpoint", ckpt,
+                                       "--output_dir", os.path.join(workdir, f"eval_{route}"),
+                                       "--device", DEV])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            EC.SpeechSeparator.__call__ = real
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with open(os.path.join(workdir, f"eval_{route}", "results.json")) as f:
+            written = json.load(f)
+        utts = sorted(written["per_utterance"])
+        if utts != ["u00.wav", "u01.wav"] or not all(
+                set(v) == {"si_snr", "sdr", "stoi"} and all(map(math.isfinite, v.values()))
+                for v in [written["mean"], *written["per_utterance"].values()]):
+            raise AssertionError(f"evaluate speech {route}: results.json {written}")
+        if route == "kernel":
+            _check_launches("evaluate speech", launches, _times(SPEECH_FORWARD, 2))
+            out = (wall, launches)
+        print(f"[speech-evaluate] {route} route: 2 utterances in {wall:.1f} s; mean SI-SNR "
+              f"{written['mean']['si_snr']:.2f} dB, SDR {written['mean']['sdr']:.2f} dB, "
+              f"STOI {written['mean']['stoi']:.3f}")
+    least, worst = math.inf, 0.0
+    for u, (k, p) in enumerate(zip(estimates["kernel"], estimates["plain"])):
+        for s in range(k.shape[1]):
+            least = min(least, compute_si_sdr(k[0, s], p[0, s]))
+        name = f"u{u:02d}.wav"
+        for m in ("si_snr", "sdr"):
+            worst = max(worst, abs(results["kernel"]["per_utterance"][name][m]
+                                   - results["plain"]["per_utterance"][name][m]))
+    print(f"[speech-evaluate] kernel-route estimates against the plain route's: SI-SNR >= "
+          f"{least:.2f} dB (bound {EVAL_STEM_SI_SDR_DB:.2f}); scores within {worst:.3f} dB "
+          f"(bound {EVAL_SI_SDR_DB:g})")
+    if not least >= EVAL_STEM_SI_SDR_DB:
+        raise AssertionError(f"evaluate speech: an estimate at {least:.2f} dB against the "
+                             f"plain route's")
+    if not worst <= EVAL_SI_SDR_DB:
+        raise AssertionError(f"evaluate speech: scores {worst:.3f} dB apart")
+    return out
+
+
+def phase_bs_train_parity():
+    """One BS-Locoformer micro-batch (1 x 1 s stereo, dropout 0.1), the
+    kernel path (bf16) against the plain path in fp32 (``_grad_parity``;
+    groups: the band encoders, each block, the band decoders).  The plain
+    path in bf16 is printed beside and is no reference here: with random
+    weights and masking the combined loss's SI-SDR sits near -46 dB, where
+    the loss's gradient amplifies rounding, and the bf16 plain path's
+    gradients land several times farther from fp32's than the kernel
+    path's (its rounding falls at other places)."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    cfg = bs_model_config()
+    fused, plain16 = _train_models(cfg)
+    plain = build_model(_plain_config(cfg), FP32).to(DEV).train()
+    plain.load_state_dict(fused.state_dict(), strict=True)
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 23), 1, SR, DEV, cfg)
+
+    def group(name):
+        return ".".join(name.split(".")[:2])
+
+    out = _grad_parity("bs-parity", fused, plain, mix, tg, group,
+                       {"plain path in bf16": plain16})
+    del fused, plain, plain16
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bs_train_config(root, epochs):
+    """configs/musdb18_bslocoformer.yaml's dataset, model, loss and training
+    sections (batch 8 = 4 micro-batches of 2 x 3 s; one epoch = 2 steps on
+    16 tracks), as JSON-ready dicts."""
+    import dataclasses
+    raw = _train_config(root, epochs)
+    raw["model"] = dataclasses.asdict(bs_model_config())
+    raw["training"].update(num_workers=8, save_interval=5)
+    return raw
+
+
+def phase_bs_train(workdir):
+    """The training CLI with the BS-Locoformer sections on the synthetic
+    MUSDB tree (stereo): one epoch of 2 steps (8 micro-batches), validation
+    (4 chunks of 3 s in one group) and a checkpoint, then ``--resume`` for
+    one more epoch; exact launches each run.  Returns ``{epoch: (launches,
+    wall s)}``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import train as cli
+    from mss_tf_locoformer_tpu_torch.models.bslocoformer_mss import BSLocoformerMSS
+    root = os.path.join(workdir, "musdb")
+    _write_musdb(root)
+    cfg_path = os.path.join(workdir, "bs_train.json")
+    exp = os.path.join(workdir, "exp_bs")
+    micro, val_forwards = 2 * 4, 1
+    # 6 layers x 2 paths: one FFN step and one attention step each
+    need = {"ffn_step": 12 * (micro + val_forwards), "attention_step": 12 * (micro + val_forwards),
+            "ffn_step_backward": 12 * micro, "attention_step_backward": 12 * micro}
+    counters = _counters()
+    out = {}
+    for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
+        _write_json(cfg_path, _bs_train_config(root, epochs))
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", cfg_path, "--device", DEV, "--output_dir", exp] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        tag = f"bs training epoch {epochs - 1}"
+        _check_launches(tag, launches, need)
+        if not isinstance(trainer.model, BSLocoformerMSS) or trainer.step != 2 * epochs:
+            raise AssertionError(f"{tag}: {type(trainer.model).__name__}, step {trainer.step}")
+        for p_name, p in trainer.model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{tag}: gradient of {p_name} missing or not finite")
+        print(f"[bs-train] {tag}: 2 steps of 4 x 2 x 3 s stereo and validation in {wall:.1f} s "
+              f"(build, data, checkpoint included); gradients finite")
+        out[epochs - 1] = (launches, wall)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_main():
     """``python3 chip_smoke.py --profile-xlarge-train``: the device-time
     breakdown of one xlarge micro-batch train step, on its own."""
@@ -2378,6 +3025,23 @@ def main():
     profiles["bs"] = phase_profile(bs)
     with tempfile.TemporaryDirectory() as workdir:
         evaluation = phase_evaluate(workdir)
+
+    t_speech = time.perf_counter()
+    phase_speech_gates()
+    phase_speech_kernels(results)
+    phase_speech_parity()
+    with tempfile.TemporaryDirectory() as workdir:
+        speech_launches, speech_wall, speech_audio_s = phase_speech_serving(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        speech_train = phase_speech_train(workdir)
+    speech_time = phase_speech_train_timing()
+    with tempfile.TemporaryDirectory() as workdir:
+        speech_eval = phase_speech_evaluate(workdir)
+    phase_bs_train_parity()
+    with tempfile.TemporaryDirectory() as workdir:
+        bs_train = phase_bs_train(workdir)
+    bs_time = phase_train_timing(cfg=bs)
+    t_speech = time.perf_counter() - t_speech
 
     card = f"({smi})"
     # device time (queued behind a spin) / with the host's time (CUDA events)
@@ -2482,6 +3146,41 @@ def main():
         print(f"[timing] evaluation CLI, {tag} config: 2 tracks of {EVAL_TRACK_S:g} s in "
               f"{w:.1f} s, {2 * EVAL_TRACK_S / w:.2f}x realtime (model load, stems written "
               f"and results.json included; no BSS Eval) {card}")
+    for k in ("ffn_step", "attention_step"):
+        for tag, r in results[k].items():
+            if tag.startswith("speech"):   # the serving shapes
+                print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) "
+                      f"{card}")
+    for k in ("ffn_step_backward", "attention_step_backward"):
+        for tag, r in results[k].items():
+            if isinstance(r, dict) and tag.startswith(("speech", "bs")):
+                print(f"[timing] training {k[:-9]} {tag} [{r['rows']}, {r['seq']}, {r['c']}], "
+                      f"dropout {r['drop']:g}: forward (stash) {r['fwd_ms']:.3f} ms (plain "
+                      f"{r['plain_fwd_ms']:.3f}, bound {r['fwd_bound'][0]:.3f} ms, "
+                      f"{r['fwd_bound'][1]}); backward {r['ms']:.3f} ms (plain {r['plain_ms']:.3f},"
+                      f" bound {r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
+    print(f"[timing] speech separation CLI, wsj0-2mix, {len(SPEECH_SERVE_S)} utterances of "
+          f"{speech_audio_s:g} s in all: {speech_wall:.3f} s wall, "
+          f"{speech_audio_s / speech_wall:.2f}x realtime {card}")
+    for run, (_, w) in speech_train.items():
+        print(f"[timing] speech training CLI, {run}: 2 steps of {SPEECH_BATCH} x "
+              f"{SPEECH_SEGMENT_S:g} s and 2 validation utterances in {w:.1f} s (build, data, "
+              f"checkpoint included) {card}")
+    for cfg_name, paths in speech_time.items():
+        for path, (sec, peak) in paths.items():
+            print(f"[timing] speech train step, {cfg_name}, {path} path, batch {SPEECH_BATCH} x "
+                  f"{SPEECH_SEGMENT_S:g} s: {sec:.4f} s/step, peak {peak / 2**30:.2f} GiB {card}")
+    print(f"[timing] speech evaluation CLI, wsj0-2mix: 2 utterances (5 + 6 s) in "
+          f"{speech_eval[0]:.1f} s, STOI included {card}")
+    for epoch, (_, w) in bs_train.items():
+        print(f"[timing] BS-Locoformer training CLI, epoch {epoch}: 2 steps of 4 x 2 x 3 s and "
+              f"validation in {w:.1f} s (build, data, checkpoint included) {card}")
+    for path, (sec, peak, mb) in bs_time.items():
+        print(f"[timing] BS-Locoformer train step, {path} path, micro-batch {mb} x 3 s stereo, "
+              f"dropout 0.1: {sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, "
+              f"peak {peak / 2**30:.2f} GiB {card}")
+    print(f"[timing] the speech and BS-training phases took {t_speech:.1f} s")
 
     # per kernel: the shape its ms, plain_ms and bound_ms are taken at
     fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
@@ -2577,6 +3276,13 @@ def main():
         if main_path is launches:
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]
+        if k in ("ffn_step", "attention_step", "ffn_step_backward", "attention_step_backward"):
+            # this slice's paths, each counted from 0 around its run
+            entry["launches_speech_serving"] = speech_launches[k]
+            entry["launches_speech_training"] = speech_train["wsj0_2mix 0"][0][k]
+            entry["launches_speech_training_dns"] = speech_train["dns 0"][0][k]
+            entry["launches_speech_evaluation"] = speech_eval[1][k]
+            entry["launches_bs_training"] = bs_train[0][0][k]
         kernels.append(entry)
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ fields, defaults and validation of the JAX package, so one file configures
 both packages identically; unknown keys raise.  ``mesh`` is parsed, and the
 trainer refuses a mesh of more than one device (ROADMAP.md, Queue 1: parallel
 runs are not ported yet).  A model section whose ``name`` starts with ``bs``
-is a :class:`BSModelConfig` (the JAX ``build_model`` rule); the speech
-configs are a later item.
+is a :class:`BSModelConfig` (the JAX ``build_model`` rule).  The speech task
+(``configs/speech_*.yaml``) has its own sections and loader,
+:class:`SpeechConfig` and :func:`load_speech_config`.
 
 PyYAML is imported inside the loaders only, and a ``.json`` file of the same
 structure needs none: the GPU machine may have no PyYAML.
@@ -23,7 +24,9 @@ __all__ = ["ModelConfig", "BSModelConfig", "SOURCE_NAMES", "model_config_from_di
            "load_model_config", "LossConfig", "DatasetConfig",
            "OptimizerConfig", "SchedulerConfig", "EarlyStoppingConfig",
            "TrainingConfig", "EvaluationConfig", "PathsConfig", "MeshConfig",
-           "Config", "config_from_dict", "load_config"]
+           "Config", "config_from_dict", "load_config", "SpeechDatasetConfig",
+           "SeparatorConfig", "STFTConfig", "SpeechLossConfig", "SpeechConfig",
+           "speech_config_from_dict", "load_speech_config"]
 
 SOURCE_NAMES = ("vocals", "drums", "bass", "other")
 
@@ -339,3 +342,126 @@ def load_model_config(path: str) -> ModelConfig:
     """Read the ``model:`` section of a YAML config file (or of the same
     structure as JSON, which needs no PyYAML)."""
     return model_config_from_dict(_read(path).get("model"))
+
+
+# --------------------------------------------------------------------------
+# The speech-separation task (the JAX package's ``core/config.py`` speech
+# part): the same sections, fields, defaults and validation.
+
+
+@dataclass(frozen=True)
+class SpeechDatasetConfig:
+    """wsj0-2mix-style parallel-directory corpus (``data/speech.py``)."""
+
+    root_dir: str = ""
+    valid_dir: Optional[str] = None   # separate dev-set root (else no validation)
+    num_spk: int = 2
+    mix_dir: str = "mix"
+    spk_dirs: Optional[Tuple[str, ...]] = None
+    sample_rate: int = 8000
+    segment_length: Optional[int] = 32000  # 4 s at 8 kHz
+
+    def __post_init__(self):
+        if self.spk_dirs is not None:
+            object.__setattr__(self, "spk_dirs", tuple(self.spk_dirs))
+
+
+@dataclass(frozen=True)
+class SeparatorConfig:
+    """The ``TFLocoformerSeparator`` surface (``models/tflocoformer.py``)."""
+
+    num_spk: int = 2
+    n_layers: int = 6
+    emb_dim: int = 128
+    norm_type: str = "rmsgroupnorm"
+    num_groups: int = 4
+    tf_order: str = "ft"
+    n_heads: int = 4
+    flash_attention: bool = False
+    fused_ffn: bool = False
+    attention_dim: int = 128
+    pos_enc: str = "rope"
+    ffn_type: Union[str, Tuple[str, ...]] = "swiglu_conv1d"
+    ffn_hidden_dim: Union[int, Tuple[int, ...]] = 384
+    conv1d_kernel: int = 4
+    conv1d_shift: int = 1
+    dropout: float = 0.0
+    eps: float = 1.0e-5
+
+    def __post_init__(self):
+        object.__setattr__(self, "ffn_type", _as_tuple(self.ffn_type))
+        object.__setattr__(self, "ffn_hidden_dim", _as_tuple(self.ffn_hidden_dim))
+
+
+@dataclass(frozen=True)
+class STFTConfig:
+    """The separator's transform: n_fft 128, hop 64 at 8 kHz by default."""
+
+    n_fft: int = 128
+    hop_length: int = 64
+
+
+@dataclass(frozen=True)
+class SpeechLossConfig:
+    """PIT SI-SNR (wsj0-2mix, WHAMR) or fixed-order multi-resolution
+    time-frequency L1 (DNS)."""
+
+    criterion: str = "si_snr"     # {"si_snr", "mr_l1_tfd"}
+    wrapper: str = "pit"          # {"pit", "fixed_order"}
+
+    def __post_init__(self):
+        if self.criterion not in ("si_snr", "mr_l1_tfd"):
+            raise ValueError(f"criterion must be si_snr|mr_l1_tfd, got {self.criterion}")
+        if self.wrapper not in ("pit", "fixed_order"):
+            raise ValueError(f"wrapper must be pit|fixed_order, got {self.wrapper}")
+
+
+@dataclass(frozen=True)
+class SpeechConfig:
+    task: str = "speech_separation"
+    dataset: SpeechDatasetConfig = field(default_factory=SpeechDatasetConfig)
+    separator: SeparatorConfig = field(default_factory=SeparatorConfig)
+    stft: STFTConfig = field(default_factory=STFTConfig)
+    loss: SpeechLossConfig = field(default_factory=SpeechLossConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    paths: PathsConfig = field(default_factory=PathsConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    seed: int = 42
+
+
+_SPEECH_SECTIONS = {"dataset": SpeechDatasetConfig, "separator": SeparatorConfig,
+                    "stft": STFTConfig, "loss": SpeechLossConfig,
+                    "paths": PathsConfig, "mesh": MeshConfig}
+
+
+def speech_config_from_dict(raw: Mapping[str, Any]) -> SpeechConfig:
+    """The speech config from a mapping of sections; unknown keys raise with
+    the valid ones listed."""
+    kwargs: dict = {}
+    for key, val in raw.items():
+        if key == "seed":
+            kwargs["seed"] = int(val)
+        elif key == "task":
+            kwargs["task"] = str(val)
+        elif key == "training":
+            # as the JAX speech loader: early stopping keeps its own default
+            # of ``enabled`` (the MSS loader turns it on)
+            val = dict(val or {})
+            es = val.pop("early_stopping", None)
+            training = _training(val)
+            if es is not None:
+                training = dataclasses.replace(training, early_stopping=_build(
+                    EarlyStoppingConfig, es, "training.early_stopping"))
+            kwargs["training"] = training
+        elif key in _SPEECH_SECTIONS:
+            kwargs[key] = _build(_SPEECH_SECTIONS[key], val, key)
+        else:
+            raise ValueError(f"Unknown top-level key '{key}' in speech config. "
+                             f"Valid: {sorted(_SPEECH_SECTIONS) + ['training', 'seed', 'task']}")
+    return SpeechConfig(**kwargs)
+
+
+def load_speech_config(path: str) -> SpeechConfig:
+    """A speech-task YAML file (``configs/speech_*.yaml``) or JSON of the same
+    structure."""
+    return speech_config_from_dict(_read(path))

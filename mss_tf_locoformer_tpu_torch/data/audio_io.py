@@ -1,19 +1,20 @@
 """Segment reads of WAV files with numpy (the JAX package's
 ``data/audio_io.py`` numpy path): ``info``, ``read(path, start, frames)``
-with zero padding past the end, ``write``.  The RIFF parsing is the port's
+with zero padding past the end, ``write``, ``resample``.  The RIFF parsing is the port's
 ``utils/audio.py``.  FLAC (the JAX package's native decoder) is a later item
 (ROADMAP.md, Queue 1: serving leftovers)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import gcd
 from typing import Optional, Tuple
 
 import numpy as np
 
 from ..utils.audio import _decode, _header, _write_wav
 
-__all__ = ["AudioInfo", "info", "read", "write"]
+__all__ = ["AudioInfo", "info", "read", "write", "resample"]
 
 
 @dataclass(frozen=True)
@@ -68,3 +69,13 @@ def write(path: str, data: np.ndarray, sample_rate: int, bits: int = 16) -> None
     if data.ndim == 1:
         data = data[:, None]
     _write_wav(path, np.ascontiguousarray(data), sample_rate, bits)
+
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase windowed-sinc resample along axis 0 (scipy's
+    ``resample_poly``, as the JAX package); float32 out."""
+    if orig_sr == target_sr:
+        return audio
+    from scipy.signal import resample_poly
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(audio, target_sr // g, orig_sr // g, axis=0).astype(np.float32)

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from math import gcd
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -72,13 +71,6 @@ def _pad_or_trim(audio: np.ndarray, target: int) -> np.ndarray:
         return audio[..., :target]
     pad = [(0, 0)] * (audio.ndim - 1) + [(0, target - audio.shape[-1])]
     return np.pad(audio, pad)
-
-
-def _resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resample of ``[C, T]`` along time (scipy, as the JAX package)."""
-    from scipy.signal import resample_poly
-    g = gcd(orig_sr, target_sr)
-    return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
 
 
 class MUSDBDataset:
@@ -188,7 +180,7 @@ class MUSDBDataset:
         data, sr = audio_io.read(str(path), start=offset, frames=frames)
         audio = data.T  # [C, T]
         if sr != self.sample_rate:
-            audio = _resample(audio, sr, self.sample_rate)
+            audio = audio_io.resample(audio.T, sr, self.sample_rate).T
         if self.segment_length is not None and (frames is not None or sr != self.sample_rate):
             audio = _pad_or_trim(audio, self.segment_length)
         return np.ascontiguousarray(audio, dtype=np.float32)

@@ -5,8 +5,13 @@
 (trainer dict, raw state_dict, ESPnet ``separator.``-prefixed) into the
 model of an optional config file's ``model:`` section (else the
 ``ModelConfig`` defaults) with ``strict=True``: ``TFLocoformerMSS``, or
-``BSLocoformerMSS`` for a ``bs...`` model name.  Orbax checkpoint
-directories need JAX to read and are not accepted (ROADMAP.md).
+``BSLocoformerMSS`` for a ``bs...`` model name.  ``load_speech_separator``
+does the same for the speech family's ``TFLocoformerSeparator`` from a
+``SpeechConfig`` (the trainer's checkpoints, or an ESPnet ``.pth`` whose
+``separator.`` prefix is stripped).  Orbax checkpoint directories need JAX
+to read and are not accepted (ROADMAP.md).  Both load bf16 blocks with the
+fp32 islands by default: the fused step kernels take bf16 rows only, and an
+fp32 model raises on the card rather than rerouting.
 
 ``separate_audio`` loads a WAV at the model rate and separates it with the
 chunked overlap-add engine.  A mono model sees the channel mean and its
@@ -27,13 +32,27 @@ import numpy as np
 import torch
 
 from ..convert.torch_ckpt import load_torch_checkpoint
-from ..core.config import ModelConfig, load_model_config
+from ..core.config import ModelConfig, SpeechConfig, load_model_config
 from ..core.precision import BF16, Precision
 from ..models import build_model
+from ..models.tflocoformer import TFLocoformerSeparator
 from ..utils.audio import load_audio, save_audio
 from .overlap_add import SeparationEngine
 
-__all__ = ["load_model", "make_engine", "model_input", "separate_audio"]
+__all__ = ["load_model", "load_speech_separator", "make_engine", "model_input",
+           "separate_audio"]
+
+
+def _state_dict(checkpoint_path: str):
+    """A ``.pth`` file's state_dict in the port's keys; orbax directories
+    are refused."""
+    if os.path.isdir(checkpoint_path):
+        raise NotImplementedError(
+            f"{checkpoint_path}: orbax checkpoint directories need JAX; "
+            f"export a .pth from the JAX package (ROADMAP.md)")
+    if not checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
+        raise FileNotFoundError(f"Unsupported checkpoint: {checkpoint_path}")
+    return load_torch_checkpoint(checkpoint_path)
 
 
 def load_model(checkpoint_path: str, config_path: Optional[str] = None,
@@ -42,15 +61,22 @@ def load_model(checkpoint_path: str, config_path: Optional[str] = None,
     """``(model on device in eval mode, model config)``.  Inference defaults
     to bf16 blocks with the fp32 islands kept."""
     cfg = load_model_config(config_path) if config_path else ModelConfig()
-    if os.path.isdir(checkpoint_path):
-        raise NotImplementedError(
-            f"{checkpoint_path}: orbax checkpoint directories need JAX; "
-            f"export a .pth from the JAX package (ROADMAP.md)")
-    if not checkpoint_path.endswith((".pth", ".pt", ".ckpt")):
-        raise FileNotFoundError(f"Unsupported checkpoint: {checkpoint_path}")
+    state = _state_dict(checkpoint_path)
     model = build_model(cfg, precision=precision)
-    model.load_state_dict(load_torch_checkpoint(checkpoint_path), strict=True)
+    model.load_state_dict(state, strict=True)
     return model.to(device).eval(), cfg
+
+
+def load_speech_separator(checkpoint_path: str, cfg: SpeechConfig,
+                          precision: Precision = BF16,
+                          device="cuda") -> TFLocoformerSeparator:
+    """The ``TFLocoformerSeparator`` of ``cfg.separator`` with a ``.pth``'s
+    weights (the trainer's checkpoint, a raw state_dict, or ESPnet's
+    ``separator.``-prefixed dict), on ``device`` in eval mode."""
+    state = _state_dict(checkpoint_path)
+    module = TFLocoformerSeparator(cfg.separator, precision)
+    module.load_state_dict(state, strict=True)
+    return module.to(device).eval()
 
 
 def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,

@@ -1,5 +1,7 @@
 """Model families and the config -> module factory (the JAX package's
-``models/__init__.py::build_model``): TF-Locoformer MSS and BS-Locoformer."""
+``models/__init__.py::build_model``): TF-Locoformer MSS and BS-Locoformer,
+and the speech family's spectrogram-in, spectrogram-out
+:class:`TFLocoformerSeparator`."""
 
 from __future__ import annotations
 
@@ -9,8 +11,9 @@ import torch
 
 from ..core.config import BSModelConfig, ModelConfig
 from ..core.precision import FP32, Precision
+from .tflocoformer import TFLocoformerSeparator
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "TFLocoformerSeparator"]
 
 
 def build_model(model_cfg: ModelConfig, precision: Precision = FP32,

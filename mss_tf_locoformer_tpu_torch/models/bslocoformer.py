@@ -41,7 +41,7 @@ from ..core.config import BSModelConfig
 from ..core.precision import FP32, Precision
 from ..nn.blocks import TFLocoformerBlock
 from ..nn.norms import GroupNorm
-from .mss_tflocoformer import reset_parameters
+from .tflocoformer import reset_parameters
 
 __all__ = ["BAND_SPLIT", "compute_bands", "BandEncoder", "BandDecoder",
            "BandSplitModule", "BSLocoformerSeparator"]

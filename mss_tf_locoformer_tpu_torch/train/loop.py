@@ -1,12 +1,16 @@
 """End-to-end trainer on one device (the JAX package's ``train/loop.py``).
 
-Kept from the JAX trainer: stereo -> mono channel mean of mixture and
-targets; random training chunks through the threaded loader with device
-prefetch; AdamW with warmup x ReduceLROnPlateau on the validation loss;
-fixed-length chunked validation (every test track cut into segments, the
-last zero-padded and weighted by its valid fraction, scored in groups of
-``val_batch_size``); a checkpoint every ``save_interval`` epochs and on a
-new best; early stopping; ``--resume`` from the newest checkpoint.
+Kept from the JAX trainer: the channel layout of mixture and targets fixed
+once (``_prep``): the channel mean for a mono model, both channels
+``[B, 2, T]`` for a stereo BS-Locoformer (mono tracks duplicated); random
+training chunks through the threaded loader with device prefetch; AdamW
+with warmup x ReduceLROnPlateau on the validation loss; fixed-length chunked
+validation (every test track cut into segments, the last zero-padded and
+weighted by its valid fraction, scored in groups of ``val_batch_size``); a
+checkpoint every ``save_interval`` epochs and on a new best; early
+stopping; ``--resume`` from the newest checkpoint.  The speech trainer
+(``train/speech.py``) is a subclass with its own model, data, step and
+validation.
 
 The device is the caller's (``device`` is required; nothing moves to the
 CPU on its own).  Dropout seeds come from a ``torch.Generator`` seeded with
@@ -29,7 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.config import BSModelConfig, Config
+from ..core.config import Config
 from ..core.precision import precision_from_amp
 from ..data.loader import DataLoader
 from ..data.musdb import MUSDBDataset
@@ -57,6 +61,18 @@ def _mono(x: np.ndarray) -> np.ndarray:
     return x.mean(axis=1) if x.ndim == 3 else x
 
 
+def _stereo(x: np.ndarray) -> np.ndarray:
+    """[B, (C,) T] -> [B, 2, T], the stereo BS-Locoformer's input; mono tracks
+    are duplicated."""
+    if x.ndim == 2:
+        x = x[:, None]
+    if x.shape[1] == 1:
+        x = np.repeat(x, 2, axis=1)
+    if x.shape[1] != 2:
+        raise ValueError(f"stereo model expects <=2 channels, got {x.shape}")
+    return x
+
+
 class Trainer:
     def __init__(self, config: Config, device, output_dir: Optional[str] = None,
                  resume: Optional[str] = None, verbose: bool = True):
@@ -70,9 +86,6 @@ class Trainer:
                 f"mesh dp={config.mesh.dp} mp={config.mesh.mp} asks for more "
                 f"than one device: parallel runs are not ported yet "
                 f"(ROADMAP.md, Queue 1: parallel runs)")
-        if isinstance(config.model, BSModelConfig):
-            raise NotImplementedError("BS-Locoformer training is not ported yet "
-                                      "(ROADMAP.md, Queue 1: BS-Locoformer training)")
         if config.training.profile_steps:
             raise NotImplementedError("the step profiler is not ported yet "
                                       "(ROADMAP.md, Queue 1: training leftovers)")
@@ -84,8 +97,10 @@ class Trainer:
 
         tcfg = config.training
         self.precision = precision_from_amp(tcfg.use_amp, tcfg.amp_dtype)
-        self.model = build_model(training_model_config(config), self.precision,
-                                 torch.Generator().manual_seed(config.seed)).to(self.device)
+        self.model = self._build_model().to(self.device)
+        # a stereo BS-Locoformer keeps both channels; every other model
+        # takes the channel mean
+        self._prep = _stereo if getattr(self.model.config, "stereo", False) else _mono
         self.optimizer = make_optimizer(self.model.parameters(), tcfg)
         self.lr_ctl = LRController(tcfg)
         self.early_stop = EarlyStopping(tcfg.early_stopping)
@@ -104,6 +119,22 @@ class Trainer:
         if self.verbose:
             print(msg, flush=True)
 
+    def _build_model(self) -> torch.nn.Module:
+        return build_model(training_model_config(self.config), self.precision,
+                           torch.Generator().manual_seed(self.config.seed))
+
+    def _loaders(self):
+        """``(train loader, validation loader or None)`` from the config's
+        dataset."""
+        tcfg = self.config.training
+        train_ds, val_ds = self._datasets()
+        train = DataLoader(train_ds, batch_size=tcfg.batch_size, shuffle=True,
+                           num_workers=tcfg.num_workers,
+                           prefetch_factor=tcfg.prefetch_factor, seed=self.config.seed)
+        val = None if val_ds is None else DataLoader(
+            val_ds, batch_size=1, shuffle=False, num_workers=min(2, tcfg.num_workers))
+        return train, val
+
     def _datasets(self):
         d = self.config.dataset
         common = dict(sample_rate=d.sample_rate, sources=list(d.sources),
@@ -120,8 +151,8 @@ class Trainer:
     def _host_batches(self, loader):
         sources = self.config.dataset.sources
         for batch in loader:
-            yield {"mixture": _mono(np.asarray(batch["mixture"])),
-                   **{k: _mono(np.asarray(batch[k])) for k in sources if k in batch}}
+            yield {"mixture": self._prep(np.asarray(batch["mixture"])),
+                   **{k: self._prep(np.asarray(batch[k])) for k in sources if k in batch}}
 
     def _train_step(self, batch: Dict[str, torch.Tensor], lr: float):
         b = dict(batch)
@@ -156,8 +187,8 @@ class Trainer:
             return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, seg - x.shape[-1])])
 
         for batch in loader:
-            mixture = _mono(np.asarray(batch["mixture"]))
-            targets = {k: _mono(np.asarray(batch[k])) for k in d.sources if k in batch}
+            mixture = self._prep(np.asarray(batch["mixture"]))
+            targets = {k: self._prep(np.asarray(batch[k])) for k in d.sources if k in batch}
             n_chunks = max(1, -(-mixture.shape[-1] // seg))
             for b in range(mixture.shape[0]):
                 for c in range(n_chunks):
@@ -175,13 +206,7 @@ class Trainer:
         """Train to ``num_epochs`` (or an early stop); returns the step count."""
         tcfg = self.config.training
         if train_loader is None:
-            train_ds, val_ds = self._datasets()
-            train_loader = DataLoader(train_ds, batch_size=tcfg.batch_size, shuffle=True,
-                                      num_workers=tcfg.num_workers,
-                                      prefetch_factor=tcfg.prefetch_factor,
-                                      seed=self.config.seed)
-            val_loader = DataLoader(val_ds, batch_size=1, shuffle=False,
-                                    num_workers=min(2, tcfg.num_workers))
+            train_loader, val_loader = self._loaders()
         if self._resume:
             meta, epoch = self._restore()
             self.start_epoch = epoch + 1
@@ -201,7 +226,7 @@ class Trainer:
             self.scalars("train/loss_epoch", train_loss, epoch)
             msg = f"epoch {epoch}: train {train_loss:.4f} ({format_time(time.time() - t0)})"
             val_loss = None
-            if (epoch + 1) % tcfg.val_interval == 0:
+            if val_loader is not None and (epoch + 1) % tcfg.val_interval == 0:
                 val_loss = self.validate(val_loader)
                 self.scalars("val/loss", val_loss, epoch)
                 self.lr_ctl.on_validation(val_loss)

@@ -1,6 +1,8 @@
 """Train and eval steps (the JAX package's ``train/step.py``).
 
-``train_step`` runs ``accum`` micro-batches forward and backward in
+``update_step`` is the optimizer step every trainer shares (the JAX
+``make_update_step``; the speech trainer's step is ``train/speech.py``):
+it runs ``accum`` micro-batches forward and backward in
 training mode (dropout seeds from the caller's generator), each loss divided
 by ``accum`` so the gradients average as the JAX scan does, then clips by
 global norm and takes one AdamW step.  The loss dict is the mean over the
@@ -12,7 +14,7 @@ full chunks with zero-padded tails.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -20,15 +22,19 @@ from ..core.config import LossConfig
 from ..losses.mss_loss import mss_loss
 from .state import clip_by_global_norm, set_learning_rate
 
-__all__ = ["train_step", "eval_step"]
+__all__ = ["update_step", "train_step", "eval_step"]
+
+Targets = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 
 
-def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               mixture: torch.Tensor, targets: Mapping[str, torch.Tensor],
-               lr: float, generator: torch.Generator, loss_cfg: LossConfig,
-               accum: int = 1, gradient_clip: float = 5.0) -> Dict[str, torch.Tensor]:
-    """One optimizer step on ``mixture [B, T]`` and ``targets`` of ``[B, T]``;
-    B must divide by ``accum``."""
+def update_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                loss_of: Callable[[torch.Tensor, Targets], Dict[str, torch.Tensor]],
+                mixture: torch.Tensor, targets: Targets, lr: float, accum: int = 1,
+                gradient_clip: float = 5.0) -> Dict[str, torch.Tensor]:
+    """One optimizer step: ``loss_of(mixture, targets)`` (a loss dict whose
+    ``total_loss`` is minimised) on each micro-batch of the leading axis of
+    ``mixture`` and ``targets`` (a tensor or a dict of tensors); B must
+    divide by ``accum``."""
     accum = max(1, accum)
     if mixture.shape[0] % accum:
         raise ValueError(f"batch {mixture.shape[0]} does not divide into {accum} "
@@ -39,8 +45,9 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     totals: Dict[str, torch.Tensor] = {}
     for i in range(accum):
         sl = slice(i * micro, (i + 1) * micro)
-        preds = model(mixture[sl], generator=generator)
-        ld = mss_loss(preds, {k: v[sl] for k, v in targets.items()}, loss_cfg)
+        tgt = ({k: v[sl] for k, v in targets.items()} if isinstance(targets, Mapping)
+               else targets[sl])
+        ld = loss_of(mixture[sl], tgt)
         (ld["total_loss"] / accum).backward()
         for k, v in ld.items():
             v = v.detach() / accum
@@ -50,6 +57,18 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     set_learning_rate(optimizer, lr)
     optimizer.step()
     return totals
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               mixture: torch.Tensor, targets: Mapping[str, torch.Tensor],
+               lr: float, generator: torch.Generator, loss_cfg: LossConfig,
+               accum: int = 1, gradient_clip: float = 5.0) -> Dict[str, torch.Tensor]:
+    """One optimizer step of the MSS loss on ``mixture [B, (2,) T]`` and
+    ``targets`` of the same layout; B must divide by ``accum``."""
+    return update_step(model, optimizer,
+                       lambda mix, tgt: mss_loss(model(mix, generator=generator), tgt,
+                                                 loss_cfg),
+                       mixture, targets, lr, accum, gradient_clip)
 
 
 @torch.no_grad()

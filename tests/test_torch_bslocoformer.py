@@ -197,10 +197,3 @@ def test_bs_config_matches_yaml_and_jax(tmp_path):
     key = "band_split_module.bandwise_decoding_module.61.4.weight"
     assert torch.equal(loaded.state_dict()[key], model.state_dict()[key])
 
-
-def test_bs_training_is_refused(tmp_path):
-    from mss_tf_locoformer_tpu_torch.core.config import config_from_dict
-    from mss_tf_locoformer_tpu_torch.train.loop import Trainer
-    cfg = config_from_dict({"model": dict(_TINY), "training": {"use_amp": False}})
-    with pytest.raises(NotImplementedError, match="BS-Locoformer training"):
-        Trainer(cfg, device="cpu", output_dir=str(tmp_path))

@@ -198,6 +198,18 @@ def test_kernels_refuse_fp32_rows(dev):
         AB.fused_attention_block(x, x[0, 0], x, x, 2, 4, 1e-5)
 
 
+def test_fp32_speech_separator_raises_on_the_card(dev):
+    """An fp32 separator on the card raises in its first fused step; it is
+    not rerouted to the plain versions (the speech entry points load bf16
+    blocks)."""
+    from mss_tf_locoformer_tpu_torch.core.config import SeparatorConfig
+    from mss_tf_locoformer_tpu_torch.models import TFLocoformerSeparator
+    sep = TFLocoformerSeparator(SeparatorConfig(n_layers=1, flash_attention=True,
+                                                fused_ffn=True)).to(dev).eval()
+    with pytest.raises(TypeError, match="bf16"):
+        sep(torch.zeros(1, 20, 65, dtype=torch.complex64, device=dev))
+
+
 def test_launch_counters_count_launches(dev):
     before = SK.stft_fused.launches
     spec = SK.stft_fused(torch.randn(1, 4096, device=dev), 1024, 256)
@@ -322,6 +334,36 @@ def _attn_inputs(dev, r, seq, c, a, seed=4):
 def test_attention_step_backward_kernel(dev, r, seq, c, a, h, rope, drop):
     x, params, g = _attn_inputs(dev, r, seq, c, a)
     args = (h, 4, 1e-5, rope, 10000.0, drop, 4321, 5)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
+
+
+# The speech configs' step shapes: short frequency axes (L 65 at n_fft 128,
+# 129 at 256), C 128 with 4 heads of 32, I 384 at k 4 and I 192 at k 8
+# (WHAMR: a lead pad of 7); RoPE off at k 8, as WHAMR's NoPE variant
+SPEECH_SHAPES = [(3, 65, 384, 4, True), (2, 129, 384, 4, True), (3, 65, 192, 8, False),
+                 (2, 129, 192, 8, True)]
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,inner,k,rope", SPEECH_SHAPES)
+def test_steps_at_speech_shapes(dev, r, seq, inner, k, rope, drop):
+    """#2 and #5, #3 and #4 forward and backward against autograd through
+    their plain versions at the speech shapes."""
+    x, params, g = _ffn_inputs(dev, r, seq, 128, inner, k)
+    args = (k, 4, 1e-5, drop, 1234, 7)
+    out, got = _grads(lambda *a: FB.fused_norm_ffn_residual(*a, *args), x, params, g)
+    ref_out, ref = _grads(lambda *a: FB.reference_norm_ffn_residual(*a, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+    x, params, g = _attn_inputs(dev, r, seq, 128, 128)
+    args = (4, 4, 1e-5, rope, 10000.0, drop, 4321, 5)
     out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
     ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args),
                           x.float(), params, g.float())
