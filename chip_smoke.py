@@ -157,7 +157,19 @@ raises on failure (exit code != 0, no result line):
      group, rejecting the blocks-skipped model); the training CLI on the
      synthetic MUSDB tree (stereo, 4 micro-batches of 2 x 3 s a step, 2
      steps, validation, then ``--resume``) with exact launches; a micro-
-     batch step timed in turns with the plain path, with its peak.
+     batch step timed in turns with the plain path, with its peak;
+ 25. the partial-sum mode (``residual=False``) of #2-#5, the tensor-parallel
+     steps': each shard of the base config's steps at mp 2 and 4 at the base
+     training shapes, summed with the bias and the residual outside, against
+     the whole kernel and the plain version; one shard at dropout 0.1
+     against its plain version (mask replay, keep rates); shards timed
+     beside the whole step;
+ 26. parallel runs, two ranks sharing cuda:0 over gloo (each rank a
+     ``chip_smoke.py --rank`` process under a timeout): base training at
+     mesh dp 2 and mp 2 against one process (losses, grad_norm, exact
+     launches per rank, step time), the 2-rank evaluation CLI's
+     ``results.json`` against one rank's, and the training CLI under a
+     world-1 NCCL process group.
 
 ``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
 time breakdown of one xlarge micro-batch train step (minutes of trace
@@ -2937,6 +2949,350 @@ def phase_bs_train(workdir):
     return out
 
 
+# ------------------------------------------------------------ parallel runs
+
+TP_MPS = (2, 4)
+TP_FFN_KEYS = ("ffn.0.conv1d.weight", "ffn.0.conv1d.bias", "ffn.0.deconv1d.weight")
+TP_ATTN_KEYS = ("attn.qkv.weight", "attn.aggregate_heads.0.weight")
+RANK_TIMEOUT_S = 300   # each spawned rank; a rank that hangs fails the phase
+
+
+def _tp_cases(cfg, bias):
+    """Per fused step: (split keys, the whole kernel, its plain version, the
+    partial-sum kernel of one of mp shards, its plain version), all as
+    ``fn(x, gamma, *weights)``."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    k, gr, eps, h = cfg.conv1d_kernel, cfg.num_groups, cfg.eps, cfg.n_heads
+    return {
+        "ffn_step": (
+            TP_FFN_KEYS,
+            lambda x, gm, *w: FB.fused_norm_ffn_residual(x, gm, *w, bias, k, gr, eps),
+            lambda x, gm, *w: FB.reference_norm_ffn_residual(x, gm, *w, bias, k, gr, eps),
+            lambda mp, *d: lambda x, gm, *w: FB.fused_norm_ffn_residual(
+                x, gm, *w, None, k, gr, eps, *d, residual=False),
+            lambda mp, *d: lambda x, gm, *w: FB.reference_norm_ffn_residual(
+                x, gm, *w, None, k, gr, eps, *d, residual=False)),
+        "attention_step": (
+            TP_ATTN_KEYS,
+            lambda x, gm, *w: AB.fused_attention_block(x, gm, *w, h, gr, eps),
+            lambda x, gm, *w: AB.reference_attention_block(x, gm, *w, h, gr, eps),
+            lambda mp, *d: lambda x, gm, *w: AB.fused_attention_block(
+                x, gm, *w, h // mp, gr, eps, True, 10000.0, *d, residual=False),
+            lambda mp, *d: lambda x, gm, *w: AB.reference_attention_block(
+                x, gm, *w, h // mp, gr, eps, True, 10000.0, *d, residual=False))}
+
+
+def phase_partial_kernels(results):
+    """#2-#5's partial-sum mode (``residual=False``, the tensor-parallel
+    steps') at the base config's full width (C 96, 4 heads of 24, I 384) and
+    the base training shapes, with mp 2 and 4: each shard's forward and
+    backward on the card (``parallel/sharding.py``'s shards: at mp 4 one
+    head of 24), summed, the bias and the residual added outside, against
+    the whole step's kernel and its plain version at dropout 0 (outputs and
+    dx by STEP_TOL, gamma and the gathered weight gradients by relative L2);
+    at dropout 0.1 on a 16-row slice, one shard's kernels against its plain
+    version (the in-kernel masks replayed from forward to backward) and the
+    masks' keep rates; each shard's kernels timed beside the whole ones."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    from mss_tf_locoformer_tpu_torch.parallel.sharding import shard_tensor, unshard_tensor
+    cfg = base_model_config()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    for path, rows, seq in _train_steps(cfg):
+        x, gamma, ffn, attn = _step_inputs(gen, rows, seq, dev)
+        g = _rand(gen, (rows, seq, 96)).to(dev, torch.bfloat16)
+        for name, (keys, full, plain, part, plain_part) in _tp_cases(cfg, ffn[3]).items():
+            whole = ffn[:3] if name == "ffn_step" else attn
+            add = ffn[3].float() if name == "ffn_step" else 0.0
+            out_full, grads_full = _autograd(full, x, [gamma, *whole], g)
+            out_plain, grads_plain = _autograd(plain, x.float(), [gamma, *whole], g.float())
+            torch.cuda.synchronize()
+            full_ms = _timed_grad(full, x, [gamma, *whole], g)
+            for mp in TP_MPS:
+                label = f"{name} {path} [{rows}, {seq}, 96], mp {mp}"
+                out_sum, dx_sum, dgamma, dws = x.float() + add, g.float(), 0.0, []
+                for i in range(mp):
+                    shards = [shard_tensor(kk, w, i, mp) for kk, w in zip(keys, whole)]
+                    o, gr = _autograd(part(mp), x, [gamma, *shards], g)
+                    out_sum, dx_sum = out_sum + o.float(), dx_sum + gr[0].float()
+                    dgamma, dws = dgamma + gr[1], dws + [gr[2:]]
+                    del o, gr
+                summed = out_sum.to(torch.bfloat16)
+                err = max(_compare(f"{label}: summed shards vs the whole kernel", summed,
+                                   out_full, STEP_TOL, null=x),
+                          _compare(f"{label}: summed shards vs the plain version", summed,
+                                   out_plain, STEP_TOL, null=x))
+                got = [dx_sum.to(torch.bfloat16), dgamma,
+                       *[unshard_tensor(kk, [d[j] for d in dws]) for j, kk in enumerate(keys)]]
+                gerr, grel = _check_grads(f"{label}: summed shards' backward vs plain", got,
+                                          grads_plain, g)
+                for i, (a, b) in enumerate(zip(got, grads_full)):
+                    rel = _rel_l2(a, b)
+                    if not rel <= GRAD_REL_L2:
+                        raise AssertionError(f"{label}: gradient {i} against the whole kernel's "
+                                             f"relative L2 {rel:.3e}")
+                shards = [shard_tensor(kk, w, 0, mp) for kk, w in zip(keys, whole)]
+                fwd_ms, bwd_ms = _timed_grad(part(mp), x, [gamma, *shards], g)
+                pf, pb = _timed_grad(plain_part(mp), x, [gamma, *shards], g, iters=1)
+                r = results.setdefault(name + "_partial", dict(err=0.0, rel_l2=0.0))
+                r["err"], r["rel_l2"] = max(r["err"], err, gerr), max(r["rel_l2"], grel)
+                d_ff, d_at = 384 // mp, 96 // mp
+                work = (ffn_work(rows, seq, inner=d_ff) + (0.0,) if name == "ffn_step"
+                        else attn_work(rows, seq, a=d_at, h=4 // mp))
+                r[f"{path} mp{mp}"] = dict(
+                    rows=rows, seq=seq, fwd_ms=fwd_ms, ms=bwd_ms, plain_fwd_ms=pf, plain_ms=pb,
+                    full_fwd_ms=full_ms[0], full_ms=full_ms[1],
+                    fwd_bound=_bound(work[0], work[1], work[4]),
+                    bound=_bound(work[2], work[3], work[4]))
+                print(f"[tp-kernels] {label}: shard forward {fwd_ms:.3f} ms, backward "
+                      f"{bwd_ms:.3f} ms (whole step {full_ms[0]:.3f} / {full_ms[1]:.3f} ms; "
+                      f"plain shard {pf:.3f} / {pb:.3f} ms)")
+                del shards, dws, got, out_sum, dx_sum, summed
+            del out_full, grads_full, out_plain, grads_plain
+            torch.cuda.empty_cache()
+
+            # dropout 0.1 on 16 rows: the in-kernel masks of one shard, forward
+            # and backward, against its plain version (the same masks)
+            r0 = rows // 2
+            xs, gs = x[r0:r0 + 16].contiguous(), g[r0:r0 + 16].contiguous()
+            for mp in TP_MPS:
+                shards = [shard_tensor(kk, w, mp - 1, mp) for kk, w in zip(keys, whole)]
+                out, got = _autograd(part(mp, 0.1, 777, r0), xs, [gamma, *shards], gs)
+                ref_out, ref = _autograd(plain_part(mp, 0.1, 777, r0), xs.float(),
+                                         [gamma, *shards], gs.float())
+                torch.cuda.synchronize()
+                _compare(f"{name} {path} rows {r0}..{r0 + 16}, mp {mp}, dropout 0.1 forward",
+                         out, ref_out, STEP_TOL)
+                _check_grads(f"{name} {path} rows {r0}..{r0 + 16}, mp {mp}, dropout 0.1", got,
+                             ref, gs)
+                if name == "ffn_step":
+                    keep = FB.inner_mask(777, torch.empty(16, 384 // mp, seq + 3, device=dev),
+                                         r0, 0.1)
+                else:
+                    keep = AB.probability_mask(777, torch.arange(r0, r0 + 16, device=dev),
+                                               4 // mp, seq, 0.1, device=dev)
+                rate = keep.float().mean().item()
+                print(f"[tp-kernels] {name} {path} mp {mp}: in-kernel keep rate {rate:.4f} "
+                      f"(p 0.1)")
+                if not abs(rate - 0.9) < 0.01:
+                    raise AssertionError(f"{name} mp {mp}: keep rate {rate}")
+                del out, got, ref_out, ref, keep
+            torch.cuda.empty_cache()
+        del x, g, ffn, attn
+        torch.cuda.empty_cache()
+
+
+def _spawn_ranks(argvs, workdir, tag, env=None):
+    """Run one process per argv (from this checkout, PYTHONPATH set) and
+    wait for all, each under RANK_TIMEOUT_S; a failure or a hang kills them
+    all and raises.  Returns each one's output."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
+    logs = [open(os.path.join(workdir, f"{tag}_{i}.log"), "w+") for i in range(len(argvs))]
+    procs = [subprocess.Popen(a, cwd=HERE, env=env, stdout=f, stderr=subprocess.STDOUT)
+             for a, f in zip(argvs, logs)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = ["timeout"] * len(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"{tag}: ranks exited {rcs}:\n" + "\n".join(
+            f"--- rank {i}\n{o[-4000:]}" for i, o in enumerate(outs)))
+    return outs
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+TP_STEPS = 2       # optimizer steps of each parallel training run
+TP_BATCH = 4       # the global batch: 2 micro-batches of 2 x 3 s
+
+
+def _tp_train_runs(model_path, batch_path, mesh, counters, log=print):
+    """``TP_STEPS`` AdamW steps (dropout 0, clip 5, accumulation 2) of the
+    base model from ``model_path`` on the global batch of ``batch_path``
+    under ``mesh`` (None: one process); returns per step (loss, grad_norm,
+    seconds) and the launches of #2-#5."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
+    from mss_tf_locoformer_tpu_torch.core.precision import BF16
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    from mss_tf_locoformer_tpu_torch.parallel import mesh as M
+    from mss_tf_locoformer_tpu_torch.parallel import multihost as MH
+    from mss_tf_locoformer_tpu_torch.parallel.sharding import shard_module
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    import dataclasses
+    cfg = dataclasses.replace(base_model_config(), dropout=0.0)
+    model = build_model(cfg, BF16)
+    model.load_state_dict(torch.load(model_path, weights_only=True), strict=True)
+    model = model.to("cuda").train()
+    mix, tg = torch.load(batch_path, weights_only=True)
+    if mesh is not None:
+        shard_module(model, mesh)
+        if mesh.dp > 1:
+            mix, tg = M.shard_batch(mesh, mix), M.shard_batch(mesh, tg)
+    mix, tg = mix.cuda(), {k: v.cuda() for k, v in tg.items()}
+    opt = make_optimizer(model.parameters(), TrainingConfig())
+    for fn in counters.values():
+        fn.launches = 0
+    out = []
+    with M.activate_mesh(mesh):
+        for _ in range(TP_STEPS):
+            MH.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ld = train_step(model, opt, mix, tg, 5e-4, torch.Generator().manual_seed(11),
+                            LossConfig(), accum=2, gradient_clip=5.0)
+            loss, norm = float(ld["total_loss"]), float(ld["grad_norm"])
+            torch.cuda.synchronize()
+            out.append((loss, norm, time.perf_counter() - t0))
+    launches = {k: counters[k].launches for k in ("ffn_step", "attention_step",
+                                                  "ffn_step_backward", "attention_step_backward")}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def rank_main(argv):
+    """``chip_smoke.py --rank train RANK WORLD PORT WORKDIR``: one rank of
+    ``phase_parallel``'s training runs (2 ranks on one card over gloo):
+    mesh dp 2 then mp 2; writes ``WORKDIR/train_rank<RANK>.json``."""
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+    from mss_tf_locoformer_tpu_torch.parallel import mesh as M
+    from mss_tf_locoformer_tpu_torch.parallel import multihost as MH
+    mode, rank, world, port, workdir = argv
+    rank, world = int(rank), int(world)
+    dev = MH.initialize(f"127.0.0.1:{port}", world, rank, device="cuda:0", timeout=120.0)
+    print(f"[rank {rank}] device {dev}, backend {dist.get_backend()}", flush=True)
+    counters = _counters()
+    out = {"backend": dist.get_backend()}
+    for dp, mp in ((2, 1), (1, 2)):
+        steps, launches = _tp_train_runs(os.path.join(workdir, "base.pth"),
+                                         os.path.join(workdir, "batch.pt"), M.make_mesh(dp, mp),
+                                         counters)
+        out[f"dp{dp} mp{mp}"] = {"steps": steps, "launches": launches}
+        print(f"[rank {rank}] dp {dp} mp {mp}: {steps}; launches {launches}", flush=True)
+    with open(os.path.join(workdir, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    MH.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel(workdir):
+    """Parallel runs on the card: two ranks share cuda:0 over gloo (NCCL
+    refuses two ranks on one GPU).  (1) The base model trained TP_STEPS
+    steps at mesh dp 2 mp 1 and dp 1 mp 2 (dropout 0): losses and grad_norm
+    per step against the single-process run on the same global batch, the
+    launches of #2-#5 per rank exactly, the step timed.  (2) The evaluation
+    CLI on 2 ranks: its merged ``results.json`` equal to a one-rank run's.
+    (3) A world-1 NCCL process group, under which the training CLI runs one
+    step.  Returns the numbers for the report and the kernel line."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import evaluate as eval_cli
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    cfg = base_model_config()
+    torch.save(build_model(cfg, generator=torch.Generator().manual_seed(SEED)).state_dict(),
+               os.path.join(workdir, "base.pth"))
+    mix, tg = _batch(torch.Generator().manual_seed(SEED + 6), TP_BATCH, SEGMENT, "cpu")
+    torch.save((mix, tg), os.path.join(workdir, "batch.pt"))
+    port = _free_port()
+    argv = lambda r: [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", "train",
+                      str(r), "2", str(port), workdir]
+    t0 = time.perf_counter()
+    _spawn_ranks([argv(0), argv(1)], workdir, "train")
+    ranks_wall = time.perf_counter() - t0
+    single, single_launches = _tp_train_runs(os.path.join(workdir, "base.pth"),
+                                             os.path.join(workdir, "batch.pt"), None, _counters())
+    out = {"single": single, "ranks_wall": ranks_wall}
+    # per micro-batch 2 paths x 4 layers: 2 FFN steps and 1 attention step each
+    micro = {"dp2 mp1": 2, "dp1 mp2": 2}
+    for r in (0, 1):
+        with open(os.path.join(workdir, f"train_rank{r}.json")) as f:
+            res = json.load(f)
+        if res["backend"] != "gloo":
+            raise AssertionError(f"two ranks on one card took {res['backend']}, not gloo")
+        for run, n in micro.items():
+            steps, launches = res[run]["steps"], res[run]["launches"]
+            need = {"ffn_step": 16 * n * TP_STEPS, "attention_step": 8 * n * TP_STEPS}
+            need.update({k + "_backward": v for k, v in need.items()})
+            _check_launches(f"parallel {run} rank {r}", launches, need)
+            for i, ((loss, norm, sec), (l1, n1, _)) in enumerate(zip(steps, single)):
+                rl, rn = abs(loss - l1) / abs(l1), abs(norm - n1) / abs(n1)
+                print(f"[parallel] {run} rank {r} step {i}: loss {loss:.5f} (one process "
+                      f"{l1:.5f}, relative {rl:.2e}), grad_norm {norm:.4f} ({n1:.4f}, "
+                      f"relative {rn:.2e}), {sec:.3f} s")
+                if not (rl <= STEP_LOSS_REL and rn <= STEP_LOSS_REL):
+                    raise AssertionError(f"parallel {run} rank {r} step {i}: loss or grad_norm "
+                                         f"off the one-process run (bound {STEP_LOSS_REL:g})")
+            out[f"{run} rank {r}"] = res[run]
+    _check_launches("parallel one process", single_launches,
+                    {"ffn_step": 32 * TP_STEPS, "attention_step": 16 * TP_STEPS,
+                     "ffn_step_backward": 32 * TP_STEPS, "attention_step_backward": 16 * TP_STEPS})
+
+    # (2) the evaluation CLI: one rank here, then 2 ranks on the card
+    root = os.path.join(workdir, "musdb")
+    _write_musdb(root, n_train=8, n_test=2, seconds=EVAL_TRACK_S)
+    cfg_path = os.path.join(workdir, "eval.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_eval_config(root, cfg), f)
+    args = ["--config", cfg_path, "--checkpoint", os.path.join(workdir, "base.pth")]
+    one = eval_cli.main(args + ["--output_dir", os.path.join(workdir, "eval1"), "--device", "cuda"])
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn_ranks([[sys.executable, "-m", "mss_tf_locoformer_tpu_torch.cli.evaluate", *args,
+                   "--output_dir", os.path.join(workdir, "eval2"), "--device", "cuda:0",
+                   "--coordinator_address", f"127.0.0.1:{port}", "--num_processes", "2",
+                   "--process_id", str(r)] for r in (0, 1)], workdir, "evaluate")
+    out["eval_wall"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, "eval2", "results.json")) as f:
+        two = json.load(f)
+    if two != json.loads(json.dumps(one)):
+        raise AssertionError(f"2-rank results.json differs from the one-rank run's:\n{two}\n{one}")
+    print(f"[parallel] evaluation CLI on 2 ranks: results.json equal to the one-rank run's "
+          f"({sorted(two['per_track'])}), {out['eval_wall']:.1f} s with start-up")
+
+    # (3) world-1 NCCL under the training CLI: one step (8 tracks, batch 8)
+    train_path = os.path.join(workdir, "train.json")
+    raw = _train_config(root, 1)
+    raw["model"]["dropout"] = 0.0
+    with open(train_path, "w") as f:
+        json.dump(raw, f)
+    t0 = time.perf_counter()
+    log = _spawn_ranks([[sys.executable, "-m", "mss_tf_locoformer_tpu_torch.cli.train",
+                         "--config", train_path, "--device", "cuda", "--distributed",
+                         "--output_dir", os.path.join(workdir, "nccl")]], workdir, "nccl",
+                       env={"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())})[0]
+    out["nccl_wall"] = time.perf_counter() - t0
+    if "1 ranks over nccl" not in log or "epoch 0 step 1 " not in log:
+        raise AssertionError(f"world-1 NCCL training run: {log[-3000:]}")
+    if not os.path.exists(os.path.join(workdir, "nccl", "checkpoints",
+                                       "checkpoint_epoch0000.pth")):
+        raise AssertionError("world-1 NCCL training run wrote no checkpoint")
+    print(f"[parallel] training CLI under a world-1 NCCL process group: 1 step, validation "
+          f"and a checkpoint in {out['nccl_wall']:.1f} s with start-up")
+    return out
+
+
 def profile_main():
     """``python3 chip_smoke.py --profile-xlarge-train``: the device-time
     breakdown of one xlarge micro-batch train step, on its own."""
@@ -3042,6 +3398,12 @@ def main():
         bs_train = phase_bs_train(workdir)
     bs_time = phase_train_timing(cfg=bs)
     t_speech = time.perf_counter() - t_speech
+
+    t_parallel = time.perf_counter()
+    phase_partial_kernels(results)
+    with tempfile.TemporaryDirectory() as workdir:
+        parallel = phase_parallel(workdir)
+    t_parallel = time.perf_counter() - t_parallel
 
     card = f"({smi})"
     # device time (queued behind a spin) / with the host's time (CUDA events)
@@ -3181,6 +3543,24 @@ def main():
               f"dropout 0.1: {sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, "
               f"peak {peak / 2**30:.2f} GiB {card}")
     print(f"[timing] the speech and BS-training phases took {t_speech:.1f} s")
+    for step in ("ffn_step_partial", "attention_step_partial"):
+        for tag, r in results[step].items():
+            if isinstance(r, dict):
+                print(f"[timing] {step[:-8]} partial-sum mode, one shard, base training {tag} "
+                      f"[{r['rows']}, {r['seq']}, 96]: forward {r['fwd_ms']:.3f} ms (whole step "
+                      f"{r['full_fwd_ms']:.3f}, plain shard {r['plain_fwd_ms']:.3f}, bound "
+                      f"{r['fwd_bound'][0]:.3f} ms); backward {r['ms']:.3f} ms (whole step "
+                      f"{r['full_ms']:.3f}, plain shard {r['plain_ms']:.3f}, bound "
+                      f"{r['bound'][0]:.3f} ms) {card}")
+    for run in ("dp2 mp1", "dp1 mp2"):
+        for r in (0, 1):
+            steps = parallel[f"{run} rank {r}"]["steps"]
+            print(f"[timing] parallel base training, {run}, rank {r} of 2 sharing one card over "
+                  f"gloo, global batch {TP_BATCH} x 3 s (accumulation 2): step 2 {steps[-1][2]:.3f} "
+                  f"s (one process on the card: {parallel['single'][-1][2]:.3f} s) {card}")
+    print(f"[timing] the parallel phases took {t_parallel:.1f} s (2-rank evaluation CLI "
+          f"{parallel['eval_wall']:.1f} s, world-1 NCCL training CLI {parallel['nccl_wall']:.1f} s, "
+          f"start-up included)")
 
     # per kernel: the shape its ms, plain_ms and bound_ms are taken at
     fflop, fbytes, _, _ = ffn_work(BATCH * (1 + CHUNK // 512), 1025)
@@ -3206,10 +3586,20 @@ def main():
         "dropout_mask": ("csrc/dropout.cu", "ops/attention.py:52", None, None),
         "istft": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:230", None, None),
         # no Pallas kernel: istft_pallas leaves the overlap-add to XLA
-        "istft_overlap_add": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:279", None, None)}
+        "istft_overlap_add": ("csrc/stft.cu", "ops/pallas/stft_kernel.py:279", None, None),
+        # the partial-sum mode (residual=False) of the TP steps, at mp 2
+        "ffn_step_partial": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:224",
+                             None, None),
+        "ffn_step_backward_partial": ("csrc/swiglu_block.cu", "ops/pallas/swiglu_block.py:450",
+                                      None, None),
+        "attention_step_partial": ("csrc/attention_block.cu",
+                                   "ops/pallas/attention_block.py:304", None, None),
+        "attention_step_backward_partial": ("csrc/attention_block.cu",
+                                            "ops/pallas/attention_block.py:621", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
-        r = results[k]
+        # a step's partial-sum forward and backward share one results entry
+        r = results[k.replace("_backward_partial", "_partial")]
         main_path = launches
         if k == "stft":
             b = r["shapes"]["base"]
@@ -3241,6 +3631,15 @@ def main():
             b = r["bs"]
             ms, plain_ms, bound = b["ms"], b["plain_ms"], b["bound"]
             main_path = {k: r["launches"]}
+        elif k.endswith("_partial"):
+            # one shard at mp 2, base training freq; the launches of rank 0's
+            # TP training run (dp 1 mp 2)
+            base = k[:-8]
+            f = r["freq mp2"]
+            fwd = not base.endswith("_backward")
+            ms, plain_ms = (f["fwd_ms"], f["plain_fwd_ms"]) if fwd else (f["ms"], f["plain_ms"])
+            bound = f["fwd_bound"] if fwd else f["bound"]
+            main_path = {k: parallel["dp1 mp2 rank 0"]["launches"][base]}
         else:
             ms, plain_ms = r["freq"][1:]
         entry = {"name": k, "route": "cuda",
@@ -3293,5 +3692,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-xlarge-train"]:
         profile_main()
+    elif sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
     else:
         main()

@@ -12,8 +12,13 @@ its stereo stems against the stereo targets; a mono model on mono stems
 against the channel mean of the targets, as its mixture is.  Writes
 ``results.json`` with ``per_track`` (each track's stems and their
 ``average``) and ``summary`` (the mean over tracks) to ``--output_dir``.
-``--distributed`` and the rank flags are refused: multi-device runs are not
-ported yet (ROADMAP.md, Queue 1: parallel runs).
+
+``--distributed`` (torchrun) or the rank flags (``cli/train.py``) shard the
+tracks round-robin over the ranks (``range(rank, len(ds), world)``, tails
+included: each rank separates its tracks on its own card, so unequal
+shares desynchronise nothing); one gather brings every rank's scores to
+rank 0, which writes the one ``results.json`` a one-rank run writes, its
+tracks in the same order.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from .train import add_distributed_args, refuse_distributed
+from .train import add_distributed_args, maybe_init_distributed
 
 
 def parse_args(argv=None):
@@ -45,22 +50,26 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns ``{"per_track": ..., "summary": ...}`` as written."""
+    """Returns ``{"per_track": ..., "summary": ...}`` as written (None on
+    the ranks other than 0)."""
     args = parse_args(argv)
-    refuse_distributed(args, "evaluation")
+    device = maybe_init_distributed(args)
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from ..core.config import load_config
     from ..data.musdb import MUSDBDataset
     from ..eval.metrics import evaluate_source_separation, print_metrics
     from ..infer.separate import load_model, make_engine, model_input
+    from ..parallel import multihost as MH
     from ..utils.audio import save_audio
     from ..utils.common import save_json
 
-    device = torch.device(args.device)
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    rank, world = MH.process_index(), MH.process_count()
     config = load_config(args.config)
     model, _ = load_model(args.checkpoint, args.config, device=device)
     dcfg = config.dataset
@@ -71,8 +80,8 @@ def main(argv=None):
                          dcfg.sample_rate, args.batch_size, device)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    per_track = {}
-    for i in range(len(ds)):
+    scored = []   # (index, name, scores) of this rank's tracks
+    for i in range(rank, len(ds), world):
         sample = ds[i]
         name = sample["track_name"]
         targets = {k: model_input(model, sample[k]) for k in dcfg.sources if k in sample}
@@ -83,7 +92,7 @@ def main(argv=None):
             bss = bss_eval_stems(stems, targets, filter_len=args.bss_filter_len)
             for stem, vals in bss.items():
                 res.setdefault(stem, {}).update({f"bss_{m}": v for m, v in vals.items()})
-        per_track[name] = res
+        scored.append((i, name, res))
         print(f"[{i + 1}/{len(ds)}] {name}: SI-SDR {res['average']['si_sdr']:.2f} dB")
         if args.save_audio:
             tdir = os.path.join(args.output_dir, name)
@@ -92,6 +101,13 @@ def main(argv=None):
                 save_audio(os.path.join(tdir, f"{stem}.wav"),
                            est if est.ndim == 2 else np.stack([est, est]), dcfg.sample_rate)
 
+    if world > 1:
+        parts = [None] * world
+        dist.all_gather_object(parts, scored)
+        scored = sorted(t for part in parts for t in part)
+    per_track = {name: res for _, name, res in scored}
+    if rank != 0:
+        return None
     summary = {}
     for s in sorted({s for r in per_track.values() for s in r}):
         names = sorted({m for r in per_track.values() for m in r.get(s, {})})

@@ -7,15 +7,15 @@ asked for).
         [--resume latest]
 
 The config is YAML, or JSON of the same structure (no PyYAML needed).
-``--distributed`` and the rank flags are accepted and refused: multi-device
-runs are not ported yet (ROADMAP.md, Queue 1: parallel runs).
+``--distributed`` and the rank flags start a parallel run as in
+``cli/train.py``, laid out by ``config.mesh``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train import add_distributed_args, refuse_distributed
+from .train import add_distributed_args, maybe_init_distributed
 
 
 def parse_args(argv=None):
@@ -35,11 +35,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_distributed(args, "training")
+    device = maybe_init_distributed(args)
     from ..core.config import load_speech_config
     from ..train.speech import SpeechTrainer
 
-    trainer = SpeechTrainer(load_speech_config(args.config), device=args.device,
+    trainer = SpeechTrainer(load_speech_config(args.config), device=device,
                             output_dir=args.output_dir, resume=args.resume)
     trainer.fit()
     return trainer

@@ -2,10 +2,10 @@
 
 Every section of ``configs/musdb18*.yaml`` is a frozen dataclass with the
 fields, defaults and validation of the JAX package, so one file configures
-both packages identically; unknown keys raise.  ``mesh`` is parsed, and the
-trainer refuses a mesh of more than one device (ROADMAP.md, Queue 1: parallel
-runs are not ported yet).  A model section whose ``name`` starts with ``bs``
-is a :class:`BSModelConfig` (the JAX ``build_model`` rule).  The speech task
+both packages identically; unknown keys raise.  ``mesh`` lays the ranks of
+a parallel run out as ``dp x mp`` (``parallel/mesh.py``).  A model section
+whose ``name`` starts with ``bs`` is a :class:`BSModelConfig` (the JAX
+``build_model`` rule).  The speech task
 (``configs/speech_*.yaml``) has its own sections and loader,
 :class:`SpeechConfig` and :func:`load_speech_config`.
 

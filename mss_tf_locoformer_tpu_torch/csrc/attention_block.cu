@@ -109,8 +109,10 @@ constexpr int QKV_NT = 128;   // 4 warps, 16 positions each
 // The QKV launch's tiles: rows of C bf16 as C/8 16-byte chunks at a stride
 // of C/8 + 1 chunks (odd, so the 8 rows an ldmatrix reads hit 32 banks):
 // the block's 64 positions of x, normalised in place, then one part (q, k
-// or v: A rows) of Wqkv at a time.
-size_t qkv_bytes(int C, int A) { return (size_t)(TQ + A) * (C / 8 + 1) * 16; }
+// or v: A rows, padded with zero rows to a multiple of 16, the products'
+// width: A is a multiple of 8, 24 at a shard of one head of 24) of Wqkv at
+// a time.
+size_t qkv_bytes(int C, int A) { return (size_t)(TQ + (A + 15) / 16 * 16) * (C / 8 + 1) * 16; }
 
 // One block per (row, 64 positions): x and the part's weights staged by
 // cp.async, the fp32 RMSGroupNorm in place, y = xn W^T on mma.sync (A
@@ -138,6 +140,8 @@ __global__ void __launch_bounds__(QKV_NT) attn_qkv_kernel(
                wqkv + ((size_t)part * A + i / NCH) * C + 8 * (i % NCH), 16);
     cp_async_commit();
   };
+  for (int i = tid; i < ((A + 15) / 16 * 16 - A) * NCH; i += QKV_NT)   // weight rows >= A
+    *(uint4*)(xt + (TQ + A + i / NCH) * RB + (i % NCH) * 16) = make_uint4(0, 0, 0, 0);
   for (int i = tid; i < TQ * NCH; i += QKV_NT) {   // rows >= L: zero
     const int r = i / NCH, ch = i % NCH;
     if (p0 + r < L)
@@ -521,7 +525,7 @@ size_t out_bytes(int C) { return (size_t)TQ * OUT_RO + (size_t)OUT_KC * (C / 8 +
 template <int C>
 __global__ void __launch_bounds__(OUT_NT) attn_out_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ o, const bf16* __restrict__ wo,
-    bf16* __restrict__ out, int L, int Lpad, int H, int tiles, DropParams dp) {
+    bf16* __restrict__ out, int L, int Lpad, int H, int tiles, DropParams dp, bool res) {
   constexpr int NJ = C / 8, RW = (C / 8 + 1) * 16;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t os = smem_u32(smem), ws = os + TQ * OUT_RO;
@@ -591,7 +595,8 @@ __global__ void __launch_bounds__(OUT_NT) attn_out_kernel(
         z0 = two & 1u ? z0 * dp.scale : 0.f;
         z1 = two & 2u ? z1 * dp.scale : 0.f;
       }
-      const float2 xv = __bfloat1622float2(*(const __nv_bfloat162*)(xr + (size_t)pos * C + col));
+      const float2 xv = res ? __bfloat1622float2(*(const __nv_bfloat162*)(xr + (size_t)pos * C + col))
+                            : make_float2(0.f, 0.f);
       *(__nv_bfloat162*)(outr + (size_t)pos * C + col) = __floats2bfloat162_rn(xv.x + z0, xv.y + z1);
     }
   }
@@ -1046,7 +1051,7 @@ __global__ void __launch_bounds__(FIN_NT) attn_bwd_final_kernel(
     const float* __restrict__ gamma, const bf16* __restrict__ wqkv,
     const bf16* __restrict__ dqkv, bf16* __restrict__ dx,
     bf16* __restrict__ xn_out, float* __restrict__ part, int L, int Lpad,
-    int A, int dpg, float rdpg, float eps, int tiles) {
+    int A, int dpg, float rdpg, float eps, int tiles, bool res) {
   constexpr int NJ = C / 8, RW = (C / 8 + 1) * 16, LDZ = C + 4;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t qs = smem_u32(smem), ws = qs + TQ * OUT_RO;
@@ -1061,8 +1066,18 @@ __global__ void __launch_bounds__(FIN_NT) attn_bwd_final_kernel(
 #pragma unroll
   for (int n = 0; n < NJ; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   for (int k0 = 0; k0 < A3; k0 += FIN_KC) {
-    const int kw = min(FIN_KC, A3 - k0);   // a multiple of 16
+    const int kw = min(FIN_KC, A3 - k0);   // a multiple of 8
+    const int kp = (kw + 15) / 16 * 16;    // zero columns to the products' 16
     if (k0 > 0) __syncthreads();   // every warp done with the previous stage
+    // per 8 tail columns j: dqkv's chunk j of every row, Wqkv's rows 8 j ..
+    for (int i = tid; i < (kp - kw) / 8 * (TQ + 8 * NJ); i += FIN_NT) {
+      const int u = i % (TQ + 8 * NJ), j = kw / 8 + i / (TQ + 8 * NJ), v = u - TQ;
+      if (u < TQ)
+        *(uint4*)(smem + u * OUT_RO + j * 16) = make_uint4(0, 0, 0, 0);
+      else
+        *(uint4*)(smem + TQ * OUT_RO + (8 * j + v / NJ) * RW + (v % NJ) * 16) =
+            make_uint4(0, 0, 0, 0);
+    }
     // dqkv rows >= L are never written: they only reach rows not used
     for (int i = tid; i < TQ * (kw / 8); i += FIN_NT)
       cp_async(qs + (i / (kw / 8)) * OUT_RO + (i % (kw / 8)) * 16,
@@ -1074,7 +1089,7 @@ __global__ void __launch_bounds__(FIN_NT) attn_bwd_final_kernel(
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    for (int kk = 0; kk < kw / 16; ++kk) {
+    for (int kk = 0; kk < kp / 16; ++kk) {
       uint32_t a[4];
       ldsm_x4(a, qs + 16 * warp * OUT_RO + lo_q + 32 * kk);
 #pragma unroll
@@ -1120,7 +1135,9 @@ __global__ void __launch_bounds__(FIN_NT) attn_bwd_final_kernel(
     for (int c = 0; c < dpg; c += STEP) {
       float xv[4], gv[4], zv[4], gg[4], dxv[4], xnv[4];
       load4<STEP>(x + off + c, gm + c, zr + c, xv, gv, zv);
-      if (STEP == 4) {
+      if (!res) {   // partial-sum mode: no identity term
+        gg[0] = gg[1] = gg[2] = gg[3] = 0.f;
+      } else if (STEP == 4) {
         const float4 t = ld_bf16x4(g + off + c);
         gg[0] = t.x, gg[1] = t.y, gg[2] = t.z, gg[3] = t.w;
       } else {
@@ -1203,17 +1220,21 @@ static DropParams drop_params(unsigned seed, unsigned thr, unsigned row0,
 // with Lpad a multiple of 64 (kept for the backward in training: q' =
 // R(q) scale log2 e); o [R, Lpad, H*32] bf16, the normalised head outputs
 // (the backward's stash in training); lse [R, H, Lpad] fp32 (log2 units)
-// written when not null (training).  C % 16 == 0, A % 16 == 0, D even and
+// written when not null (training).  C % 16 == 0, A % 8 == 0, D even and
 // <= 32 (the wrapper checks).  Dropout: seed, keep threshold, absolute row
-// of x's first row, 1/(1-p), on (0 at p = 0).
+// of x's first row, 1/(1-p), on (0 at p = 0).  residual 0: the partial-sum
+// mode (o Wo alone: no out-projection mask, no residual; the probability
+// mask stays, it is per head).
 extern "C" int attention_step_forward(
     const void* x, const void* gamma, const void* wqkv, const void* wo,
     const void* cosv, const void* sinv, void* q, void* k, void* v, void* out,
     void* o, void* lse, int R, int L, int Lpad, int C, int H, int D,
     int groups, float eps, int rope, unsigned seed, unsigned thr,
-    unsigned row0, float scale, int on, void* stream) {
+    unsigned row0, float scale, int on, int residual, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const DropParams dp = drop_params(seed, thr, row0, scale, on);
+  // the out-projection site: not in partial-sum mode
+  const DropParams dpo = drop_params(seed, thr, row0, scale, on && residual);
   const int tiles = Lpad / TQ;
   const int dpg = C / groups;
   const size_t qb = qkv_bytes(C, H * D);
@@ -1247,7 +1268,8 @@ extern "C" int attention_step_forward(
                                     : attn_out_kernel<128>;
   if ((e = smem_attr(out_kernel, out_bytes(C))) != cudaSuccess) return (int)e;
   out_kernel<<<R * tiles, OUT_NT, out_bytes(C), st>>>(
-      (const bf16*)x, (const bf16*)o, (const bf16*)wo, (bf16*)out, L, Lpad, H, tiles, dp);
+      (const bf16*)x, (const bf16*)o, (const bf16*)wo, (bf16*)out, L, Lpad, H, tiles, dpo,
+      residual != 0);
   return (int)cudaGetLastError();
 }
 
@@ -1269,9 +1291,10 @@ extern "C" int attention_step_backward(
     void* part, void* pmid, void* wpart_q, void* wpart_o, void* out_qkv, void* out_o,
     void* out_g, int R, int L, int Lpad, int C, int H, int D, int groups,
     float eps, int S1, int S2, unsigned seed, unsigned thr, unsigned row0,
-    float scale, int on, void* stream) {
+    float scale, int on, int residual, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const DropParams dp = drop_params(seed, thr, row0, scale, on);
+  const DropParams dpo = drop_params(seed, thr, row0, scale, on && residual);
   const int tiles = Lpad / TQ;
   const int A = H * D, HD = H * DP;
   cudaError_t e;
@@ -1279,7 +1302,7 @@ extern "C" int attention_step_backward(
   if ((e = smem_attr(attn_bwd_pre_kernel, pre_smem)) != cudaSuccess) return (int)e;
   attn_bwd_pre_kernel<<<R * tiles, BW_NT, pre_smem, st>>>(
       (const bf16*)g, (const bf16*)wo, (const bf16*)o, (bf16*)dproj,
-      (bf16*)dout, (float*)delta, L, Lpad, C, H, tiles, dp);
+      (bf16*)dout, (float*)delta, L, Lpad, C, H, tiles, dpo);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   const dim3 grid((unsigned)(R * H), (unsigned)((L + SBQ - 1) / SBQ));
@@ -1317,7 +1340,7 @@ extern "C" int attention_step_backward(
   final_kernel<<<R * tiles, FIN_NT, fin_smem, st>>>(
       (const bf16*)x, (const bf16*)g, (const float*)gamma, (const bf16*)wqkv,
       (const bf16*)dqkv, (bf16*)dx, (bf16*)xn, (float*)part, L, Lpad, A, dpg,
-      1.f / sqrtf((float)dpg), eps, tiles);
+      1.f / sqrtf((float)dpg), eps, tiles, residual != 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // dWqkv [3A, C] = sum dqkv^T xn; dWo^T [H*32, C] = sum o^T dproj

@@ -69,6 +69,15 @@
 // serving): SwiGLU ~32%, the products' waits ~40%, the weight stream's
 // waits ~11%, the prologue ~10%: the chunk's phases run one after another.
 //
+// Partial-sum mode (``residual`` 0 at the C entry points; the tensor-
+// parallel step, ``parallel/tp_fused.py``, over a shard of the inner
+// channels): the forward writes Deconv1d(drop_inner(SwiGLU(...))) alone --
+// no outer mask, no residual; the caller passes a zero deconv bias -- and
+// the backward takes dz = g (no outer mask), leaves the identity out of dx
+// and the deconv bias's gradient at zero (the caller adds the bias after
+// the sum over shards, where autograd gives it its gradient).  The inner
+// mask stays: it is per inner channel.
+//
 // wmma route, C 32 and 64 (the first kernels, below): one block per (row,
 // tile of 64 conv outputs); the tile's normed rows in shared memory; the
 // inner dimension in chunks of 32 value + 32 gate channels whose conv and
@@ -121,7 +130,7 @@ __global__ void __launch_bounds__(NT) ffn_step_kernel(
     const bf16* __restrict__ wc, const float* __restrict__ bc,
     const bf16* __restrict__ wd, const float* __restrict__ bd,
     bf16* __restrict__ out, int L, int I, int K, int dpg, float rdpg,
-    float eps, int tiles, DropParams dp) {
+    float eps, int tiles, DropParams dp, bool res) {
   using S = Lay<C>;
   constexpr int NZ = C / 32;  // output fragments (16 x 16) per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -243,20 +252,23 @@ __global__ void __launch_bounds__(NT) ffn_step_kernel(
                             S::LDZ, wmma::mem_row_major);
   __syncthreads();
 
-  // residual + outer dropout (position, channel); 4 channels per draw
+  // residual + outer dropout (position, channel); 4 channels per draw.
+  // Partial-sum mode (!res): the deconv output alone (the caller passes a
+  // zero bias and applies the outer site and the residual to the sum)
   bf16* outr = out + (size_t)row * L * C;
   const int n_out = min(lt, L - l0) * (C / 4);
+  const bool outer = dp.on && res;
   for (int i = threadIdx.x; i < n_out; i += NT) {
     const int l = i / (C / 4), c0 = (i % (C / 4)) * 4;
     Philox4 w;
-    if (dp.on) w = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + row, l0 + l, c0 >> 2, 0);
+    if (outer) w = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + row, l0 + l, c0 >> 2, 0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c0 + e;
       const size_t off = (size_t)(l0 + l) * C + c;
       float z = zs[l * S::LDZ + c] + bd[c];
-      if (dp.on) z = w.w[e] < dp.thr ? z * dp.scale : 0.f;
-      outr[off] = __float2bfloat16(__bfloat162float(xr[off]) + z);
+      if (outer) z = w.w[e] < dp.thr ? z * dp.scale : 0.f;
+      outr[off] = __float2bfloat16((res ? __bfloat162float(xr[off]) : 0.f) + z);
     }
   }
 }
@@ -264,7 +276,7 @@ __global__ void __launch_bounds__(NT) ffn_step_kernel(
 template <int C>
 int launch(const bf16* x, const float* gamma, const bf16* wc, const float* bc,
            const bf16* wd, const float* bd, bf16* out, int R, int L, int I,
-           int K, int groups, float eps, DropParams dp, cudaStream_t stream) {
+           int K, int groups, float eps, DropParams dp, bool res, cudaStream_t stream) {
   const int dpg = C / groups;
   const int lt = M - (K - 1);
   const int tiles = (L + lt - 1) / lt;
@@ -274,7 +286,7 @@ int launch(const bf16* x, const float* gamma, const bf16* wc, const float* bc,
   if (e != cudaSuccess) return (int)e;
   ffn_step_kernel<C><<<R * tiles, NT, smem, stream>>>(
       x, gamma, wc, bc, wd, bd, out, L, I, K, dpg, 1.f / sqrtf((float)dpg), eps,
-      tiles, dp);
+      tiles, dp, res);
   return (int)cudaGetLastError();
 }
 
@@ -310,7 +322,7 @@ __global__ void __launch_bounds__(NT) ffn_bwd_dx_kernel(
     bf16* __restrict__ dx, bf16* __restrict__ xn_out, bf16* __restrict__ dz_out,
     bf16* __restrict__ dy_out, bf16* __restrict__ hd_out,
     float* __restrict__ part, int L, int I, int K, int dpg, float rdpg,
-    float eps, int tiles, DropParams dp) {
+    float eps, int tiles, DropParams dp, bool res) {
   using S = BLay<C>;
   constexpr int NZ = C / 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -340,13 +352,14 @@ __global__ void __launch_bounds__(NT) ffn_bwd_dx_kernel(
     const int pos = l0 - (K - 1) + p;
     Philox4 w;
     const bool live = pos >= 0 && pos < L;
-    if (live && dp.on) w = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + row, pos, c0 >> 2, 0);
+    const bool outer = live && dp.on && res;   // dz = g in partial-sum mode
+    if (outer) w = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + row, pos, c0 >> 2, 0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = 0.f;
       if (live) {
         v = __bfloat162float(gr[(size_t)pos * C + c0 + e]);
-        if (dp.on) v = w.w[e] < dp.thr ? v * dp.scale : 0.f;
+        if (outer) v = w.w[e] < dp.thr ? v * dp.scale : 0.f;
       }
       dzs[p * S::LDX + c0 + e] = __float2bfloat16(v);
     }
@@ -473,7 +486,8 @@ __global__ void __launch_bounds__(NT) ffn_bwd_dx_kernel(
                             wmma::mem_row_major);
   __syncthreads();
 
-  // norm backward per (position, group), residual added; xn and dz out
+  // norm backward per (position, group), residual added (not in partial-
+  // sum mode); xn and dz out
   const int n_valid = min(lt, L - l0);
   const int groups = C / dpg;
   for (int item = threadIdx.x; item < n_valid * groups; item += NT) {
@@ -492,7 +506,7 @@ __global__ void __launch_bounds__(NT) ffn_bwd_dx_kernel(
       const int cc = gidx * dpg + c;
       const float xv = __bfloat162float(xr[off + c]);
       const float dxn = zs[l * S::LDZ + cc];
-      const float v = gamma[cc] * dxn * inv - xv * k2 + __bfloat162float(gr[off + c]);
+      const float v = gamma[cc] * dxn * inv - xv * k2 + (res ? __bfloat162float(gr[off + c]) : 0.f);
       dx[rowoff + off + c] = __float2bfloat16(v);
       zs[l * S::LDZ + cc] = dxn * xv * inv;  // dgamma summand
       xn_out[rowoff + off + c] = xs[(l + K - 1) * S::LDX + cc];
@@ -500,12 +514,13 @@ __global__ void __launch_bounds__(NT) ffn_bwd_dx_kernel(
     }
   }
   __syncthreads();
-  // per-block partials: dgamma [C], then the deconv bias (sum of dz) [C]
+  // per-block partials: dgamma [C], then the deconv bias (sum of dz) [C],
+  // zero in partial-sum mode (the caller's bias after the sum takes it)
   for (int c = threadIdx.x; c < 2 * C; c += NT) {
     float acc = 0.f;
     if (c < C) {
       for (int l = 0; l < n_valid; ++l) acc += zs[l * S::LDZ + c];
-    } else {
+    } else if (res) {
       for (int l = 0; l < n_valid; ++l) acc += __bfloat162float(dzs[(l + K - 1) * S::LDX + c - C]);
     }
     part[(size_t)blockIdx.x * 2 * C + c] = acc;
@@ -518,7 +533,7 @@ int launch_bwd(const bf16* x, const bf16* g, const float* gamma, const bf16* wc,
                bf16* dy, bf16* hd, float* part, float* wpart_c, float* colsum_c,
                float* wpart_d, float* out_c, float* out_cb, float* out_d,
                float* out_gb, int R, int L, int I, int K, int groups, float eps,
-               int S1, int S2, DropParams dp, cudaStream_t st) {
+               int S1, int S2, DropParams dp, bool res, cudaStream_t st) {
   const int dpg = C / groups;
   const int lt = M - (K - 1);
   const int tiles = (L + lt - 1) / lt;
@@ -529,7 +544,7 @@ int launch_bwd(const bf16* x, const bf16* g, const float* gamma, const bf16* wc,
   if (e != cudaSuccess) return (int)e;
   ffn_bwd_dx_kernel<C><<<R * tiles, NT, smem, st>>>(
       x, g, gamma, wc, bc, wd, dx, xn, dz, dy, hd, part, L, I, K, dpg,
-      1.f / sqrtf((float)dpg), eps, tiles, dp);
+      1.f / sqrtf((float)dpg), eps, tiles, dp, res);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // dconv_w[t][o, c] = sum dy[j, o] xn[j + t - (K-1), c]; dconv_b = sum dy
   if ((e = wg::launch_wgrad(dy, Lt, Lt, 2 * I, xn, L, L, C, -(K - 1), K, R, S1,
@@ -703,7 +718,7 @@ template <int C>
 __global__ void __launch_bounds__(NTH, 1) ffn_step_wg_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma, const bf16* __restrict__ panels,
     const float* __restrict__ bc, const float* __restrict__ bd, bf16* __restrict__ out, Flat f,
-    int nch, int dpg, float rdpg, float eps, DropParams dp) {
+    int nch, int dpg, float rdpg, float eps, DropParams dp, bool res) {
   using Y = FLay<C>;
   extern __shared__ __align__(1024) unsigned char smraw[];
   unsigned char* sm = aligned_smem(smraw);
@@ -809,16 +824,21 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_wg_kernel(
   ring.drain(pending, lane);
   fence_regs<C / 2>(z);
   // deconv bias, outer mask (position, channel) and residual, one rounding;
-  // the residual rows' loads issued first
+  // the residual rows' loads issued first.  Partial-sum mode (!res): the
+  // deconv output alone (the caller passes a zero bias and applies the
+  // outer site and the residual to the sum over shards)
   int so[2];
   __nv_bfloat162 xv[2][C / 8];
+  const bool outer = dp.on && res;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int l = rbase + g + 8 * hr;
     so[hr] = l < lt ? f.src(Q0 + l + K - 1) : -1;
 #pragma unroll
     for (int j = 0; j < C / 8; ++j)
-      if (so[hr] >= 0) xv[hr][j] = *(const __nv_bfloat162*)(x + (size_t)so[hr] * C + 8 * j + 2 * c);
+      xv[hr][j] = res && so[hr] >= 0
+                      ? *(const __nv_bfloat162*)(x + (size_t)so[hr] * C + 8 * j + 2 * c)
+                      : __floats2bfloat162_rn(0.f, 0.f);
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -830,7 +850,7 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_wg_kernel(
       const int col = 8 * j + 2 * c;
       float v0 = z[4 * j + 2 * hr] + __ldg(bd + col);
       float v1 = z[4 * j + 2 * hr + 1] + __ldg(bd + col + 1);
-      if (dp.on) {
+      if (outer) {
         const Philox4 wd = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + r, o, col >> 2, 0);
         v0 = wd.w[col & 3] < dp.thr ? v0 * dp.scale : 0.f;
         v1 = wd.w[(col + 1) & 3] < dp.thr ? v1 * dp.scale : 0.f;
@@ -852,7 +872,8 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_dx_wg_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ gin, const float* __restrict__ gamma,
     const bf16* __restrict__ panels, const float* __restrict__ bc, bf16* __restrict__ dx,
     bf16* __restrict__ sxn, bf16* __restrict__ sdz, bf16* __restrict__ sy, bf16* __restrict__ sh,
-    float* __restrict__ part, Flat f, int nch, int dpg, float rdpg, float eps, DropParams dp) {
+    float* __restrict__ part, Flat f, int nch, int dpg, float rdpg, float eps, DropParams dp,
+    bool res) {
   using Y = DLay<C>;
   constexpr int NJ = C / 8;
   constexpr int LDZ = C + 4;
@@ -884,7 +905,8 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_dx_wg_kernel(
   if (tid == 0) ring.start();
   // the inverse RMS and gamma live in the dyvg tile's rows until the first chunk
   norm_tile<C>(xs, (float*)ys, (float*)(ys + 12288), x, f, Q0, gamma, dpg, rdpg, eps);
-  // dz = g x outer mask x 1/(1-p), rounded to bf16, zero for padding
+  // dz = g x outer mask x 1/(1-p), rounded to bf16, zero for padding (dz =
+  // g in partial-sum mode)
   {
     constexpr int IT = tile_steps<C>();
     uint4 v[IT];
@@ -902,7 +924,7 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_dx_wg_kernel(
       const int i = tid + u * NTH;
       if (i >= XR * NJ) continue;
       const int p = i / NJ, j = i % NJ;
-      if (dp.on && f.src(Q0 + p) >= 0) {
+      if (dp.on && res && f.src(Q0 + p) >= 0) {
         const int r = f.row(Q0 + p), pos = f.pos(Q0 + p);
         const Philox4 w0 = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + r, pos, 2 * j, 0);
         const Philox4 w1 = dropout_words(dp.seed, SITE_FFN_OUTER, dp.row0 + r, pos, 2 * j + 1, 0);
@@ -1034,8 +1056,9 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_dx_wg_kernel(
       *(float2*)(zsm + m * LDZ + 8 * j + 2 * c) = make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
   }
   __syncthreads();
-  // the norm's backward per (output, group), the residual added; output
-  // row l is flat position Q0 + l + k - 1 (padding: no output)
+  // the norm's backward per (output, group), the residual added (not in
+  // partial-sum mode); output row l is flat position Q0 + l + k - 1
+  // (padding: no output)
   const int groups = C / dpg;
   for (int item = tid; item < lt * groups; item += NTH) {
     const int l = item / groups, gi = item % groups;
@@ -1059,18 +1082,20 @@ __global__ void __launch_bounds__(NTH, 1) ffn_step_dx_wg_kernel(
       const float xv = __bfloat162float(x[off + cc]);
       const float dxn = zsm[l * LDZ + col];
       dx[off + cc] =
-          __float2bfloat16(__ldg(gamma + col) * dxn * inv - xv * k2 + __bfloat162float(gin[off + cc]));
+          __float2bfloat16(__ldg(gamma + col) * dxn * inv - xv * k2 +
+                           (res ? __bfloat162float(gin[off + cc]) : 0.f));
       zsm[l * LDZ + col] = dxn * xv * inv;   // dgamma summand
     }
   }
   __syncthreads();
   // per-block partials over the outputs: dgamma [C] (padding rows hold 0),
-  // then the deconv bias (sum of dz: its padding rows are zero) [C]
+  // then the deconv bias (sum of dz: its padding rows are zero) [C], zero
+  // in partial-sum mode (the caller's bias after the sum takes it)
   for (int col = tid; col < 2 * C; col += NTH) {
     float a = 0.f;
     if (col < C) {
       for (int l = 0; l < lt; ++l) a += zsm[l * LDZ + col];
-    } else {
+    } else if (res) {
       const int cc = col - C;
       for (int l = 0; l < lt; ++l)
         a += __bfloat162float(*(const bf16*)(zs + sw_off(l + K - 1, cc / 8) + (cc % 8) * 2));
@@ -1088,7 +1113,7 @@ inline int flat_tiles(const Flat& f) {
 template <int C>
 int launch_fwd(const bf16* x, const float* gamma, const bf16* panels, const float* bc,
                const float* bd, bf16* out, int R, int L, int Ip, int K, int groups, float eps,
-               DropParams dp, cudaStream_t st) {
+               DropParams dp, bool res, cudaStream_t st) {
   const int dpg = C / groups;
   const Flat f{R, L, L + 2 * (K - 1), K};
   const int smem = FLay<C>::BYTES;
@@ -1096,7 +1121,7 @@ int launch_fwd(const bf16* x, const float* gamma, const bf16* panels, const floa
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   ffn_step_wg_kernel<C><<<flat_tiles(f), NTH, smem, st>>>(
-      x, gamma, panels, bc, bd, out, f, Ip / SICH, dpg, 1.f / sqrtf((float)dpg), eps, dp);
+      x, gamma, panels, bc, bd, out, f, Ip / SICH, dpg, 1.f / sqrtf((float)dpg), eps, dp, res);
   return (int)cudaGetLastError();
 }
 
@@ -1110,7 +1135,7 @@ int launch_bwd(const bf16* x, const bf16* g, const float* gamma, const bf16* pan
                const float* bc, bf16* dx, bf16* sxn, bf16* sdz, bf16* sy, bf16* sh, float* part,
                float* pmid, float* wpart, float* bpart, float* out_w, float* out_b,
                float* out_gb, int R, int L, int Ip, int K, int groups, float eps, int Rg, int S,
-               DropParams dp, cudaStream_t st) {
+               DropParams dp, bool res, cudaStream_t st) {
   const int dpg = C / groups;
   const int Lin = L + 2 * (K - 1);
   const int smem = DLay<C>::BYTES;
@@ -1127,7 +1152,8 @@ int launch_bwd(const bf16* x, const bf16* g, const float* gamma, const bf16* pan
     const Flat f{rows, L, Lin, K};
     ffn_step_dx_wg_kernel<C><<<flat_tiles(f), NTH, smem, st>>>(
         x + off, g + off, gamma, panels, bc, dx + off, sxn, sdz, sy, sh,
-        part + (size_t)blocks * 2 * C, f, Ip / SICH, dpg, 1.f / sqrtf((float)dpg), eps, dpr);
+        part + (size_t)blocks * 2 * C, f, Ip / SICH, dpg, 1.f / sqrtf((float)dpg), eps, dpr,
+        res);
     blocks += flat_tiles(f);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     // maps over this group's rows only: boxes past them read zeros
@@ -1210,19 +1236,19 @@ static DropParams drop_params(unsigned seed, unsigned thr, unsigned row0,
 // value then 32 gate channels); bc [I/32][64] fp32; wd [I/32][K][32][C]
 // bf16; bd [C] fp32.  I % 32 == 0, 2 <= K <= 8 (the wrapper checks).
 // Dropout: seed, the keep threshold, the absolute row of x's first row,
-// 1/(1-p), on (0 at p = 0).
+// 1/(1-p), on (0 at p = 0).  residual 0: the partial-sum mode (below).
 extern "C" int ffn_step_forward(const void* x, const void* gamma, const void* wc,
                                 const void* bc, const void* wd, const void* bd,
                                 void* out, int R, int L, int C, int I, int K,
                                 int groups, float eps, unsigned seed,
                                 unsigned thr, unsigned row0, float scale,
-                                int on, void* stream) {
+                                int on, int residual, void* stream) {
   const DropParams dp = drop_params(seed, thr, row0, scale, on);
 #define FFN_CASE(CC)                                                          \
   case CC:                                                                    \
     return launch<CC>((const bf16*)x, (const float*)gamma, (const bf16*)wc,   \
                       (const float*)bc, (const bf16*)wd, (const float*)bd,    \
-                      (bf16*)out, R, L, I, K, groups, eps, dp,                \
+                      (bf16*)out, R, L, I, K, groups, eps, dp, residual != 0, \
                       (cudaStream_t)stream);
   FFN_SWITCH(C, FFN_CASE)
 #undef FFN_CASE
@@ -1241,7 +1267,7 @@ extern "C" int ffn_step_backward(
     void* hd, void* part, void* wpart_c, void* colsum_c, void* wpart_d,
     void* out_c, void* out_cb, void* out_d, void* out_gb, int R, int L, int C,
     int I, int K, int groups, float eps, int S1, int S2, unsigned seed,
-    unsigned thr, unsigned row0, float scale, int on, void* stream) {
+    unsigned thr, unsigned row0, float scale, int on, int residual, void* stream) {
   const DropParams dp = drop_params(seed, thr, row0, scale, on);
 #define FFN_BWD_CASE(CC)                                                           \
   case CC:                                                                         \
@@ -1250,7 +1276,8 @@ extern "C" int ffn_step_backward(
         (const float*)bc, (const bf16*)wd, (bf16*)dx, (bf16*)xn, (bf16*)dz,        \
         (bf16*)dy, (bf16*)hd, (float*)part, (float*)wpart_c, (float*)colsum_c,     \
         (float*)wpart_d, (float*)out_c, (float*)out_cb, (float*)out_d,             \
-        (float*)out_gb, R, L, I, K, groups, eps, S1, S2, dp, (cudaStream_t)stream);
+        (float*)out_gb, R, L, I, K, groups, eps, S1, S2, dp, residual != 0,            \
+        (cudaStream_t)stream);
   FFN_SWITCH(C, FFN_BWD_CASE)
 #undef FFN_BWD_CASE
 }
@@ -1266,7 +1293,7 @@ extern "C" int ffn_step_wg_forward(const void* x, const void* gamma, const void*
                                    const void* bc, const void* bd, void* out, int R, int L,
                                    int C, int Ip, int K, int groups, float eps, unsigned seed,
                                    unsigned thr, unsigned row0, float scale, int on,
-                                   void* stream) {
+                                   int residual, void* stream) {
   if (Ip % 64 || Ip < 64 || K < 2 || K > 8 || R < 1 || L < 1 || groups < 1 || groups > 16 ||
       C % groups || (C / groups) % 8 || (long long)R * (L + 2 * (K - 1)) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -1275,7 +1302,7 @@ extern "C" int ffn_step_wg_forward(const void* x, const void* gamma, const void*
 #define WG_FWD(CC)                                                                           \
   return stp::launch_fwd<CC>((const bf16*)x, (const float*)gamma, (const bf16*)panels,       \
                              (const float*)bc, (const float*)bd, (bf16*)out, R, L, Ip, K,    \
-                             groups, eps, dp, st);
+                             groups, eps, dp, residual != 0, st);
   if (C == 96) WG_FWD(96)
   if (C == 128) WG_FWD(128)
 #undef WG_FWD
@@ -1299,7 +1326,7 @@ extern "C" int ffn_step_wg_backward(const void* x, const void* g, const void* ga
                                     void* out_gb, int R,
                                     int L, int C, int Ip, int K, int groups, float eps, int Rg,
                                     int S, unsigned seed, unsigned thr, unsigned row0,
-                                    float scale, int on, void* stream) {
+                                    float scale, int on, int residual, void* stream) {
   if (Ip % 64 || Ip < 64 || K < 2 || K > 8 || R < 1 || L < 1 || Rg < 1 || S < 1 ||
       groups < 1 || groups > 16 || C % groups || (C / groups) % 8 ||
       (long long)Rg * (L + 2 * (K - 1)) >= (1LL << 31))
@@ -1311,7 +1338,8 @@ extern "C" int ffn_step_wg_backward(const void* x, const void* g, const void* ga
                              (const bf16*)panels, (const float*)bc, (bf16*)dx, (bf16*)sxn,   \
                              (bf16*)sdz, (bf16*)sy, (bf16*)sh, (float*)part, (float*)pmid,   \
                              (float*)wpart, (float*)bpart, (float*)out_w, (float*)out_b,     \
-                             (float*)out_gb, R, L, Ip, K, groups, eps, Rg, S, dp, st);
+                             (float*)out_gb, R, L, Ip, K, groups, eps, Rg, S, dp,           \
+                             residual != 0, st);
   if (C == 96) WG_BWD(96)
   if (C == 128) WG_BWD(128)
 #undef WG_BWD

@@ -4,6 +4,10 @@
 of batches in flight -- and ``prefetch_to_device``, which keeps batches
 copied ahead on the card from pinned host buffers (``non_blocking`` copies
 on a side stream, so the copy of batch i+1 overlaps the step on batch i).
+``shard=(rank, world)`` takes an equal-count round-robin share of the
+indices after a shuffle that every rank draws alike, so the shards are
+disjoint and every rank runs the same number of batches (the JAX loader's
+``shard``).
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import collections
 import contextlib
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 0, collate: Callable = collate_fn,
                  prefetch_factor: int = 2, drop_last: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -40,9 +44,16 @@ class DataLoader:
         self.drop_last = drop_last
         self._epoch = 0
         self._seed = seed
+        self.shard = tuple(shard) if shard else None
+        if self.shard and not 0 <= self.shard[0] < self.shard[1]:
+            raise ValueError(f"bad shard {shard}")
+
+    def _local_count(self) -> int:
+        n = len(self.dataset)
+        return n // self.shard[1] if self.shard else n
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._local_count()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _index_batches(self):
@@ -50,6 +61,10 @@ class DataLoader:
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self._seed + self._epoch).shuffle(order)
+        if self.shard:
+            rank, world = self.shard
+            order = order[rank::world][:n // world]
+            n = order.shape[0]
         batches = [order[i:i + self.batch_size] for i in range(0, n, self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()

@@ -10,6 +10,13 @@ The loop is synchronous: each batch is copied to the device (from pinned
 memory, without blocking, when the device is CUDA), separated under
 ``torch.inference_mode``, and copied back before the next batch starts.  A
 bounded queue of batches in flight is a later item (ROADMAP.md).
+
+Chunk-parallel separation (the JAX engine's ``sharding``,
+``infer/overlap_add.py:47-48``): with a ``mesh`` (``parallel/mesh.py``)
+every rank of a dp group separates the same audio, each the batches of its
+dp index (every dp-th), overlap-adds them into a zero buffer, and one
+all-reduce over the dp group sums the buffers; an ``mp > 1`` model serves
+through its tensor-parallel steps, its mp peers on the same batches.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as M
+from ..parallel.multihost import comm_device
 
 __all__ = ["SeparationEngine", "triangular_window"]
 
@@ -43,11 +53,14 @@ class SeparationEngine:
         batch_size: chunks per forward.
         device: where ``apply_fn`` runs: the card unless the caller asks
             for the CPU; never guessed from what is available.
+        mesh: optional ``parallel.mesh.Mesh`` to split the chunk batches
+            over its dp ranks (every rank of its dp group calls the engine
+            on the same audio).
     """
 
     def __init__(self, apply_fn: Callable, chunk_samples: int,
                  overlap: Optional[int] = None, batch_size: int = 4,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.chunk = int(chunk_samples)
         self.overlap = int(overlap) if overlap is not None else self.chunk // 4
         if not 0 <= self.overlap < self.chunk:
@@ -57,6 +70,7 @@ class SeparationEngine:
         self.device = torch.device(device)
         self._apply = apply_fn
         self._window = triangular_window(self.chunk, self.overlap)
+        self.mesh = mesh
 
     def __call__(self, audio: np.ndarray) -> Dict[str, np.ndarray]:
         """``audio [T]`` (mono) or ``[C, T]`` (stereo models) -> dict of stems
@@ -85,24 +99,31 @@ class SeparationEngine:
             chunks = np.concatenate(
                 [chunks, np.zeros((pad_chunks, *lead, self.chunk), np.float32)])
 
-        stem_chunks: Dict[str, list] = {}
-        for b in range(n_batches):
+        dp = self.mesh.dp if self.mesh is not None else 1
+        mine = range(self.mesh.dp_index if dp > 1 else 0, n_batches, dp)
+        window = self._window
+        acc: Dict[str, np.ndarray] = {}
+        for b in mine:
             out = self._forward(chunks[b * self.batch_size:(b + 1) * self.batch_size])
             for k, v in out.items():
-                stem_chunks.setdefault(k, []).append(v)
+                a = acc.setdefault(k, np.zeros((*lead, total), dtype=np.float64))
+                for j in range(min(self.batch_size, n_chunks - b * self.batch_size)):
+                    s = starts[b * self.batch_size + j]
+                    a[..., s:s + self.chunk] += v[j] * window
+        if dp > 1:
+            if not acc:   # no batch of this rank's: the stems' names from batch 0
+                acc = {k: np.zeros((*lead, total), dtype=np.float64)
+                       for k in self._forward(chunks[:self.batch_size])}
+            keys = sorted(acc)
+            buf = torch.from_numpy(np.stack([acc[k] for k in keys])).to(comm_device(self.device))
+            M.all_reduce(buf, self.mesh.dp_group)
+            acc = dict(zip(keys, buf.cpu().numpy()))
 
-        window = self._window
         envelope = np.zeros(total, dtype=np.float64)
         for s in starts:
             envelope[s:s + self.chunk] += window
-        results: Dict[str, np.ndarray] = {}
-        for k, blocks in stem_chunks.items():
-            flat = np.concatenate(blocks)[:n_chunks]                     # [N, (C,) W]
-            acc = np.zeros((*flat.shape[1:-1], total), dtype=np.float64)
-            for i, s in enumerate(starts):
-                acc[..., s:s + self.chunk] += flat[i] * window
-            results[k] = (acc / np.maximum(envelope, 1e-8)).astype(np.float32)[..., :t]
-        return results
+        return {k: (a / np.maximum(envelope, 1e-8)).astype(np.float32)[..., :t]
+                for k, a in acc.items()}
 
     def _forward(self, block: np.ndarray) -> Dict[str, np.ndarray]:
         x = torch.from_numpy(np.ascontiguousarray(block, dtype=np.float32))
@@ -110,6 +131,6 @@ class SeparationEngine:
             x = x.pin_memory().to(self.device, non_blocking=True)
         else:
             x = x.to(self.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), M.activate_mesh(self.mesh):
             out = self._apply(x)
             return {k: v.to(torch.float32).cpu().numpy() for k, v in out.items()}

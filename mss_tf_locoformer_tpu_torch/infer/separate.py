@@ -81,11 +81,13 @@ def load_speech_separator(checkpoint_path: str, cfg: SpeechConfig,
 
 def make_engine(model: torch.nn.Module, chunk_seconds: float = 8.0,
                 overlap_seconds: float = 1.0, sample_rate: int = 44100,
-                batch_size: int = 2, device="cuda") -> SeparationEngine:
+                batch_size: int = 2, device="cuda", mesh=None) -> SeparationEngine:
+    """The chunked overlap-add engine around ``model``; with a ``mesh``
+    (``parallel/mesh.py``) the chunk batches split over its dp ranks."""
     return SeparationEngine(
         model, chunk_samples=int(chunk_seconds * sample_rate),
         overlap=int(overlap_seconds * sample_rate), batch_size=batch_size,
-        device=device)
+        device=device, mesh=mesh)
 
 
 def model_input(model: torch.nn.Module, audio: np.ndarray) -> np.ndarray:

@@ -19,6 +19,14 @@ the fused attention-step kernel (``ops/cuda/attention_block.py``).  Both
 take a dropout rate and an int32 seed (drawn per call by the block) for the
 reference's two sites, the attention probabilities and the out-projection,
 with the kernel's masks.
+
+Under a mesh (``parallel/mesh.py::activate_mesh``) the seed of a data-
+parallel rank folds in its dp index (``parallel/tp_fused.py::dp_seed``),
+and with ``mp > 1`` ``fused_step`` runs the tensor-parallel step (the JAX
+``nn/attention.py:85-112``): the module holds its shard of the heads
+(``parallel/sharding.py::shard_module``), ``tp_attention_step`` sums the
+shards' partial out-projections, and the post-projection dropout and the
+residual act here on the sum.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from ..ops.attention import dot_product_attention
 from ..ops.cuda import flash_attention as FA
 from ..ops.cuda.attention_block import fused_attention_block
 from ..ops.rope import apply_rope
+from ..parallel.mesh import active_mesh, tp_mesh
+from ..parallel.tp_fused import dp_seed, tp_attention_step
 
 __all__ = ["MultiHeadSelfAttention"]
 
@@ -40,6 +50,7 @@ class MultiHeadSelfAttention(nn.Module):
                  use_rope: bool = True, flash: bool = False):
         super().__init__()
         self.n_heads, self.use_rope = n_heads, use_rope
+        self.mp = 1   # the heads' split (parallel/sharding.py::shard_module)
         self.flash = flash and FA.supports_shape(attention_dim // n_heads)
         self.qkv = nn.Linear(emb_dim, attention_dim * 3, bias=False)
         self.aggregate_heads = nn.Sequential(
@@ -50,6 +61,7 @@ class MultiHeadSelfAttention(nn.Module):
         """``x [B, L, C]`` -> ``[B, L, C]``, attention over L, in ``x.dtype``."""
         b, l, _ = x.shape
         dt = x.dtype
+        seed = dp_seed(seed, active_mesh())
         qkv = (x @ self.qkv.weight.to(dt).T).reshape(b, l, 3, self.n_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                  # [B, H, L, D]
         if self.flash and drop_rate == 0.0:
@@ -69,7 +81,20 @@ class MultiHeadSelfAttention(nn.Module):
                    eps: float, drop_rate: float = 0.0, seed: int = 0) -> torch.Tensor:
         """``x + MHSA(RMSGroupNorm(x))`` for rows ``x [B, L, C]`` in one
         kernel step; ``gamma`` is the pre-norm's scale."""
-        return fused_attention_block(
-            x.contiguous(), gamma, self.qkv.weight,
-            self.aggregate_heads[0].weight, self.n_heads, num_groups, eps,
-            self.use_rope, 10000.0, drop_rate, seed)
+        x = x.contiguous()
+        mesh = tp_mesh()
+        if mesh is None:
+            return fused_attention_block(
+                x, gamma, self.qkv.weight, self.aggregate_heads[0].weight, self.n_heads,
+                num_groups, eps, self.use_rope, 10000.0, drop_rate,
+                dp_seed(seed, active_mesh()))
+        if self.mp != mesh.mp:
+            raise ValueError(f"the active mesh splits over mp={mesh.mp}, the module's "
+                             f"heads over {self.mp} (parallel/sharding.py::shard_module)")
+        out = tp_attention_step(x, gamma, self.qkv.weight, self.aggregate_heads[0].weight,
+                                self.n_heads, num_groups, eps, self.use_rope, 10000.0,
+                                drop_rate, seed, mesh)
+        if drop_rate > 0.0:
+            out = D.apply_mask(out, D.row_mask(dp_seed(seed, mesh), D.SITE_ATTN_PROJ, out, 0,
+                                               drop_rate), drop_rate)
+        return x + out

@@ -29,6 +29,14 @@ model's ``remat_blocks``) replays the same masks and leaves the generator
 where the first run left it.  The rows of a step are numbered from 0 within
 the call.
 
+Tensor parallelism (``parallel/``): :meth:`LocoformerBlock.shard` sets a
+block whose parameters hold one of ``mp`` shards to the per-shard widths
+(heads ``H/mp``, attention width ``A/mp``, inner ``I/mp``), and the gates
+decide its routes at those widths, as the JAX gates do under an mp mesh
+(``nn/attention.py:35-50``, ``nn/ffn.py:50-60``).  Only the fused steps
+have a TP form (``parallel/tp_fused.py``): a step of a sharded block that
+the gates refuse raises; it never routes to another path.
+
 ``remat_ffn`` (the JAX block's flag) recomputes each torch-convolution FFN
 in the backward instead of keeping its ``2*inner``-wide intermediates; the
 FFN-core kernels keep none to begin with, so it changes nothing there.
@@ -83,18 +91,45 @@ class LocoformerBlock(nn.Module):
         self.attn = MultiHeadSelfAttention(emb_dim, attention_dim, n_heads,
                                            use_rope=use_rope, flash=flash_attention)
         rms = norm_type == "rmsgroupnorm"
-        # (training?) -> route of each FFN step and of the attention step
-        self._step_routes = {
-            training: ([fused_ffn and rms and conv1d_shift == 1
-                        and supports_step(emb_dim, d, conv1d_kernel, training, num_groups)
-                        for d in dims],
-                       flash_attention and rms
-                       and supports_block(emb_dim, attention_dim, n_heads, training))
-            for training in (False, True)}
+        self._widths = (emb_dim, attention_dim, n_heads, dims, conv1d_kernel)
+        self._fusable = (fused_ffn and rms and conv1d_shift == 1, flash_attention and rms)
+        self.mp = 1
+        self._step_routes = self._routes(1)
+
+    def _routes(self, mp: int):
+        """(training?) -> route of each FFN step and of the attention step, at
+        the widths of one of ``mp`` shards."""
+        c, a, h, dims, k = self._widths
+        ffn_ok, attn_ok = self._fusable
+        return {training: ([ffn_ok and d % mp == 0
+                            and supports_step(c, d // mp, k, training, self.num_groups)
+                            for d in dims],
+                           attn_ok and h % mp == 0
+                           and supports_block(c, a // mp, h // mp, training))
+                for training in (False, True)}
+
+    def shard(self, mp: int) -> None:
+        """Set this block to hold one of ``mp`` shards of its heads and inner
+        channels (its parameters are swapped by ``parallel/sharding.py::
+        shard_module``) and take its routes from the gates at those widths."""
+        self.mp = self.attn.mp = mp
+        self.attn.n_heads //= mp
+        for f in self.ffn:
+            f.mp = mp
+            f.dim_inner //= mp
+        self._step_routes = self._routes(mp)
 
     def fused_steps(self):
         """``([fused FFN step i], fused attention step)`` in the current mode."""
-        return self._step_routes[self.training]
+        routes = self._step_routes[self.training]
+        if self.mp > 1 and not (all(routes[0]) and routes[1]):
+            c, a, h, dims, k = self._widths
+            raise ValueError(
+                f"tensor parallelism over mp={self.mp} runs the fused steps only, and their "
+                f"gates refuse a shard's widths in "
+                f"{'training' if self.training else 'eval'} mode (C {c}, heads {h // self.mp} "
+                f"of {a // h}, inner {[d // self.mp for d in dims]}, k {k}; routes {routes})")
+        return routes
 
     def draw_seeds(self, generator: Optional[torch.Generator]) -> Optional[List[int]]:
         """One fresh seed per step in training mode with dropout (FFN before

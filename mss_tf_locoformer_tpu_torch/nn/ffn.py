@@ -18,6 +18,14 @@ take a dropout rate and an int32 seed (drawn per call by the block): the
 unfused path applies the kernels' masks (``ops/dropout.py``) at the same two
 sites, the SwiGLU output and the cropped output.  The ``conv1d`` FFN type (the reference's
 ``ConvDeconv1d``) is not ported yet.
+
+Under a mesh (``parallel/mesh.py::activate_mesh``) the seed of a data-
+parallel rank folds in its dp index (``parallel/tp_fused.py::dp_seed``),
+and with ``mp > 1`` ``fused_step`` runs the tensor-parallel step (the JAX
+``nn/ffn.py:125-150``): the module holds its shard of the inner channels
+(``parallel/sharding.py::shard_module``), ``tp_ffn_step`` sums the shards'
+partial deconv outputs, and the deconv bias, the outer dropout and the
+residual act here on the sum.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from torch import nn
 from ..ops import dropout as D
 from ..ops.cuda import swiglu_ffn
 from ..ops.cuda.swiglu_block import fused_norm_ffn_residual, inner_mask
+from ..parallel.mesh import active_mesh, tp_mesh
+from ..parallel.tp_fused import dp_seed, tp_ffn_step
 
 __all__ = ["SwiGLUConvDeconv1d"]
 
@@ -45,6 +55,7 @@ class SwiGLUConvDeconv1d(nn.Module):
                  conv1d_shift: int, fused: bool = False):
         super().__init__()
         self.dim_inner = dim_inner
+        self.mp = 1   # the inner channels' split (parallel/sharding.py::shard_module)
         self.kernel, self.shift = conv1d_kernel, conv1d_shift
         # (training?) -> whether the rows go through the FFN-core kernels
         self._fused = {training: (fused and conv1d_shift == 1 and swiglu_ffn.supports_shape(
@@ -67,6 +78,7 @@ class SwiGLUConvDeconv1d(nn.Module):
         b, s1, s2, c = x.shape
         diff_ks = self.kernel - self.shift
         dt = x.dtype
+        seed = dp_seed(seed, active_mesh())
         rows = x.reshape(b * s1, s2, c)
         if self.fused:
             xp = F.pad(rows, (0, 0, diff_ks, diff_ks))        # [R, L + 2(k-1), C]
@@ -93,8 +105,23 @@ class SwiGLUConvDeconv1d(nn.Module):
         """``x + FFN(RMSGroupNorm(x))`` for ``x [B, S1, S2, C]`` in one
         kernel step (stride 1); ``gamma`` is the pre-norm's scale."""
         b, s1, s2, c = x.shape
-        y = fused_norm_ffn_residual(
-            x.reshape(b * s1, s2, c).contiguous(), gamma, self.conv1d.weight,
-            self.conv1d.bias, self.deconv1d.weight, self.deconv1d.bias,
-            self.kernel, num_groups, eps, drop_rate, seed)
-        return y.reshape(b, s1, s2, c)
+        rows = x.reshape(b * s1, s2, c).contiguous()
+        mesh = tp_mesh()
+        if mesh is None:
+            y = fused_norm_ffn_residual(
+                rows, gamma, self.conv1d.weight, self.conv1d.bias, self.deconv1d.weight,
+                self.deconv1d.bias, self.kernel, num_groups, eps, drop_rate,
+                dp_seed(seed, active_mesh()))
+            return y.reshape(b, s1, s2, c)
+        if self.mp != mesh.mp:
+            raise ValueError(f"the active mesh splits over mp={mesh.mp}, the module's "
+                             f"inner channels over {self.mp} "
+                             f"(parallel/sharding.py::shard_module)")
+        y = tp_ffn_step(rows, gamma, self.conv1d.weight, self.conv1d.bias,
+                        self.deconv1d.weight, self.kernel, num_groups, eps, drop_rate, seed,
+                        mesh)
+        y = y + self.deconv1d.bias.to(y.dtype)
+        if drop_rate > 0.0:
+            y = D.apply_mask(y, D.row_mask(dp_seed(seed, mesh), D.SITE_FFN_OUTER, y, 0,
+                                           drop_rate), drop_rate)
+        return (rows + y).reshape(b, s1, s2, c)

@@ -6,6 +6,8 @@ build takes seconds rather than the minutes a ``torch.utils.cpp_extension``
 build takes.  Libraries go to ``build/torch_kernels/`` at the repository
 root (git-ignored).  A library is built at its first use, and again when its
 source is newer than it; ``build_all`` builds every one of them at once.
+Processes that build at once (the ranks of a parallel run) take a file lock
+per library, so one compiles and the others load its result.
 
 Pointers and the CUDA stream cross ``ctypes`` as ``c_void_p``.  Every C entry
 point returns ``cudaGetLastError()`` after its launches, and :func:`check`
@@ -19,6 +21,7 @@ falls back: a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -58,15 +61,28 @@ def _nvcc() -> str:
 
 
 def _build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library is newer than it."""
+    """Compile ``csrc/<name>.cu`` unless the library is newer than it (under
+    a file lock, so that concurrent processes build it once)."""
     src = os.path.join(CSRC, f"{name}.cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
     deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
                     if f.endswith(".cuh")]
-    if (os.path.exists(lib)
-            and os.path.getmtime(lib) >= max(map(os.path.getmtime, deps))):
+
+    def fresh():
+        return (os.path.exists(lib)
+                and os.path.getmtime(lib) >= max(map(os.path.getmtime, deps)))
+
+    if fresh():
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f".lib{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not fresh():
+            _compile(name, src, lib)
+    return lib
+
+
+def _compile(name: str, src: str, lib: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
@@ -75,11 +91,10 @@ def _build(name: str) -> str:
         BUILD_LOG[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{BUILD_LOG[name]}")
-        os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+        os.replace(tmp, lib)   # atomic: a reader never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,6 +14,13 @@ the JAX kernel); masks come from ``ops/dropout.py`` at (row, head, key,
 query) and (row, position, channel); ``row0`` is the absolute row of
 ``x[0]``.
 
+``residual=False`` is the partial-sum mode of the tensor-parallel step
+(``parallel/tp_fused.py``, over a shard of the heads): ``OutProj(MHSA(
+RMSGroupNorm(x)))`` alone, a partial sum over heads, with no out-projection
+mask and no residual (the caller applies both to the sum over shards); the
+probability mask stays, it is per head.  The JAX package's
+``residual=False`` (``ops/pallas/attention_block.py:304, :484-487``).
+
 Dispatch: a CPU tensor takes :func:`reference_attention_block` (autograd
 through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedAttentionStep` or raises.  The forward keeps what the backward
@@ -66,11 +73,12 @@ def launch_bytes(c: int, a: int, h: int, training: bool = False) -> dict:
     each ``c / 8 + 1`` chunks of 16 bytes), the streaming core (k and v
     tiles, two stages) and the out-projection (64 rows of o and 128 rows of
     Wo, 128 head dims at a time: rows of 17 and ``c / 8 + 1`` chunks); in
-    training also the backward's pre, dq, dk/dv and final launches.  The
+    training also the backward's pre, dq, dk/dv and final launches.  The QKV
+    launch stages ``a`` rounded up to 16 rows.  The
     resident core's bytes depend on L (:func:`core_resident_bytes`) and it
     runs only where they fit, so the gate leaves it out."""
     tile = 64 * _DP * 2   # one 64-row tile of [*, 32] bf16
-    out = {"qkv": (_TQ + a) * (c // 8 + 1) * 16,
+    out = {"qkv": (_TQ + -(-a // 16) * 16) * (c // 8 + 1) * 16,
            "core": 2 * 2 * tile, "out": _TQ * 17 * 16 + 128 * (c // 8 + 1) * 16}
     if training:
         out.update(
@@ -116,10 +124,11 @@ def compiled_core_resident_bytes(seq: int) -> int:
 
 def supports_block(c: int, a: int, h: int, training: bool) -> bool:
     """Whether the attention-step kernels serve a step: an instantiated
-    width, even head_dim <= 32 over whole 16-wide attention tiles, and
-    layouts within :data:`SMEM_OPTIN`."""
+    width, even head_dim <= 32, an attention width of whole 16-byte chunks
+    (a multiple of 8: 24 is a shard of one head of 24), and layouts within
+    :data:`SMEM_OPTIN`."""
     d = a // h if a % h == 0 else 0
-    return (c in _CHANNELS and a % 16 == 0 and d % 2 == 0 and 0 < d <= _DP
+    return (c in _CHANNELS and a % 8 == 0 and d % 2 == 0 and 0 < d <= _DP
             and max(launch_bytes(c, a, h, training).values()) <= SMEM_OPTIN)
 
 
@@ -136,10 +145,11 @@ def probability_mask(seed: int, rows, n_heads: int, seq: int, p: float,
 def reference_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
                               num_groups: int, eps: float, rope: bool = True,
                               theta: float = 10000.0, drop_rate: float = 0.0,
-                              seed: int = 0, row0: int = 0):
+                              seed: int = 0, row0: int = 0, residual: bool = True):
     """Plain version: norm, QKV, RoPE, explicit fp32 ``softmax(QK^T/sqrt(D))V``
     with the kernels' probability mask, out-projection with its mask,
-    residual.  Holds ``[R, H, L, L]`` fp32 scores."""
+    residual (with ``residual=False`` the out-projection alone).  Holds
+    ``[R, H, L, L]`` fp32 scores."""
     dt = x.dtype
     r, seq, _ = x.shape
     a = w_qkv.shape[0] // 3
@@ -153,6 +163,8 @@ def reference_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
                               torch.arange(row0, row0 + r, device=x.device))
     o = o.transpose(1, 2).reshape(r, seq, a)
     z = o @ w_out.to(dt).T
+    if not residual:
+        return z
     if drop_rate > 0.0:
         z = D.apply_mask(z, D.row_mask(seed, D.SITE_ATTN_PROJ, x, row0, drop_rate), drop_rate)
     return x + z
@@ -173,7 +185,7 @@ def _fwd_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_uint32] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -183,7 +195,7 @@ def _bwd_fn():
     fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_uint32] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -196,7 +208,7 @@ def _check(x, gamma, w_qkv, w_out, n_heads, num_groups):
                         f"rows, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_attention_block: x must be contiguous")
-    if (c not in _CHANNELS or a % 16 or d % 2 or d > _DP or a != n_heads * d
+    if (c not in _CHANNELS or a % 8 or d % 2 or d > _DP or a != n_heads * d
             or c % num_groups or w_qkv.shape != (3 * a, c)
             or w_out.shape != (c, a)):
         raise ValueError(f"fused_attention_block: unsupported shape C={c} "
@@ -218,7 +230,7 @@ def _panels(w_qkv, w_out, n_heads):
 
 def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
                            rope=True, theta=10000.0, drop_rate=0.0, seed=0,
-                           row0=0, stash=False):
+                           row0=0, residual=True, stash=False):
     """The forward kernels (no autograd).  Returns ``out`` or, with
     ``stash``, ``(out, (q, k, v, o, lse))`` for the backward."""
     r, seq, c = x.shape
@@ -240,7 +252,7 @@ def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
                     ptr(q), ptr(k), ptr(v), ptr(out), ptr(o),
                     ptr(lse) if stash else ctypes.c_void_p(None),
                     r, seq, lpad, c, n_heads, d, num_groups, float(eps), int(rope),
-                    *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),
+                    *D.kernel_args(drop_rate, seed, row0), int(residual), stream_handle(dev)),
           "attention_step")
     fused_attention_block.launches += 1
     return (out, (q, k, v, o, lse)) if stash else out
@@ -248,7 +260,7 @@ def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
 
 def attention_step_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
                             num_groups, eps, rope=True, theta=10000.0,
-                            drop_rate=0.0, seed=0, row0=0):
+                            drop_rate=0.0, seed=0, row0=0, residual=True):
     """The backward kernels (one counted launch) from the forward's stash:
     returns ``(dx, dgamma, dw_qkv, dw_out)`` in torch layouts (fp32 for the
     weights, ``x.dtype`` for dx)."""
@@ -292,7 +304,7 @@ def attention_step_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
                     ptr(part), ptr(pmid), ptr(wpart_q), ptr(wpart_o), ptr(out_qkv),
                     ptr(out_o), ptr(out_g), r, seq, lpad, c, n_heads, d,
                     num_groups, float(eps), s1, s2,
-                    *D.kernel_args(drop_rate, seed, row0), stream_handle(dev)),
+                    *D.kernel_args(drop_rate, seed, row0), int(residual), stream_handle(dev)),
           "attention_step_backward")
     attention_step_backward.launches += 1
     dw_out = out_o[:hd].reshape(n_heads, _DP, c)[:, :d].reshape(a, c).T.contiguous()
@@ -305,8 +317,8 @@ class FusedAttentionStep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, w_qkv, w_out, n_heads, num_groups, eps, rope,
-                theta, drop_rate, seed, row0):
-        args = (n_heads, num_groups, eps, rope, theta, drop_rate, seed, row0)
+                theta, drop_rate, seed, row0, residual):
+        args = (n_heads, num_groups, eps, rope, theta, drop_rate, seed, row0, residual)
         if not any(ctx.needs_input_grad[:4]):
             return attention_step_forward(x, gamma, w_qkv, w_out, *args)
         out, stash = attention_step_forward(x, gamma, w_qkv, w_out, *args, stash=True)
@@ -320,26 +332,27 @@ class FusedAttentionStep(torch.autograd.Function):
         dx, dgamma, dw_qkv, dw_out = attention_step_backward(
             g, x, gamma, w_qkv, w_out, stash, *ctx.args)
         return (dx, dgamma.to(gamma.dtype), dw_qkv.to(w_qkv.dtype),
-                dw_out.to(w_out.dtype)) + (None,) * 8
+                dw_out.to(w_out.dtype)) + (None,) * 9
 
 
 def fused_attention_block(x, gamma, w_qkv, w_out, n_heads: int,
                           num_groups: int, eps: float, rope: bool = True,
                           theta: float = 10000.0, drop_rate: float = 0.0,
-                          seed: int = 0, row0: int = 0):
+                          seed: int = 0, row0: int = 0, residual: bool = True):
     """``x [R, L, C]`` -> ``x + drop(MHSA_drop(RMSGroupNorm(x)))``; ``w_qkv
     [3A, C]`` and ``w_out [C, A]`` in torch ``Linear`` layouts; ``seed`` an
-    int32 drawn per call, ``row0`` the absolute row of ``x[0]``."""
+    int32 drawn per call, ``row0`` the absolute row of ``x[0]``.
+    ``residual=False``: the partial-sum mode (module docstring)."""
     if x.device.type == "cpu":
         return reference_attention_block(x, gamma, w_qkv, w_out, n_heads,
                                          num_groups, eps, rope, theta,
-                                         drop_rate, seed, row0)
+                                         drop_rate, seed, row0, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {x.device}")
     _check(x, gamma, w_qkv, w_out, n_heads, num_groups)
     return FusedAttentionStep.apply(x, gamma, w_qkv, w_out, n_heads, num_groups,
                                     eps, bool(rope), float(theta), float(drop_rate),
-                                    int(seed), int(row0))
+                                    int(seed), int(row0), bool(residual))
 
 
 fused_attention_block.launches = 0

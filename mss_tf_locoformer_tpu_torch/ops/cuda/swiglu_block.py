@@ -12,6 +12,14 @@ masks come from ``ops/dropout.py`` (the kernels' Philox in plain torch):
 the inner site at (row, conv position, inner channel), the outer one at
 (row, position, channel); ``row0`` is the absolute row of ``x[0]``.
 
+``residual=False`` is the partial-sum mode of the tensor-parallel step
+(``parallel/tp_fused.py``, over a shard of the inner channels):
+``Deconv1d(drop_inner(SwiGLU(Conv1d(RMSGroupNorm(x)))))`` alone, with no
+outer mask and no residual, and no deconv bias (``deconv_b`` is None: the
+caller adds the bias, the outer site and the residual to the sum over
+shards, where autograd gives the bias its gradient).  The JAX package's
+``residual=False`` (``ops/pallas/swiglu_block.py:224-230``) with a zero bias.
+
 Dispatch: a CPU tensor takes :func:`reference_norm_ffn_residual` (autograd
 through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedFFNStep` (forward kernel, and the backward kernels when a
@@ -137,10 +145,10 @@ def supports_step(c: int, inner: int, k: int, training: bool, num_groups: int = 
 def reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
                                 kernel: int, num_groups: int, eps: float,
                                 drop_rate: float = 0.0, seed: int = 0,
-                                row0: int = 0):
+                                row0: int = 0, residual: bool = True):
     """Plain version (the JAX ``reference_norm_ffn_residual`` in torch, with
     the kernels' dropout masks): normed rows rounded to ``x.dtype``, convs in
-    ``x.dtype``."""
+    ``x.dtype``; ``deconv_b`` None adds no bias."""
     dt = x.dtype
     diff = kernel - 1
     inner = deconv_w.shape[0]
@@ -150,8 +158,11 @@ def reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
     h = y[:, :inner] * F.silu(y[:, inner:])
     if drop_rate > 0.0:
         h = D.apply_mask(h, inner_mask(seed, h, row0, drop_rate), drop_rate)
-    z = F.conv_transpose1d(h, deconv_w.to(dt), deconv_b.to(dt))  # [R, C, L+2(k-1)]
+    z = F.conv_transpose1d(h, deconv_w.to(dt),
+                           None if deconv_b is None else deconv_b.to(dt))  # [R, C, L+2(k-1)]
     z = z[:, :, diff:diff + x.shape[1]].transpose(1, 2)
+    if not residual:
+        return z
     if drop_rate > 0.0:
         z = D.apply_mask(z, D.row_mask(seed, D.SITE_FFN_OUTER, x, row0, drop_rate), drop_rate)
     return x + z
@@ -271,7 +282,7 @@ def _fwd_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_uint32] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -281,7 +292,7 @@ def _bwd_fn():
     fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_uint32] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -289,7 +300,8 @@ def _wg_fwd_fn():
     fn = load("swiglu_block").ffn_step_wg_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_uint32] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_uint32] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -298,7 +310,7 @@ def _wg_bwd_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_uint32] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -317,19 +329,21 @@ def _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups):
     if conv_w.shape != (2 * inner, c, kernel) or deconv_w.shape != (inner, c, kernel):
         raise ValueError("fused_norm_ffn_residual: weight shapes do not match")
     for t in (gamma, conv_w, conv_b, deconv_w, deconv_b):
-        if t.device != x.device:
+        if t is not None and t.device != x.device:
             raise ValueError("fused_norm_ffn_residual: tensors on different devices")
 
 
 def ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
-                     num_groups, eps, drop_rate=0.0, seed=0, row0=0):
-    """One launch of the forward kernel (no autograd)."""
+                     num_groups, eps, drop_rate=0.0, seed=0, row0=0, residual=True):
+    """One launch of the forward kernel (no autograd); ``residual=False``
+    takes ``deconv_b`` None."""
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     g32 = gamma.to(torch.float32).contiguous()
-    bd32 = deconv_b.to(torch.float32).contiguous()
+    bd32 = (torch.zeros(c, dtype=torch.float32, device=x.device) if deconv_b is None
+            else deconv_b.to(torch.float32).contiguous())
     out = torch.empty_like(x)
-    args = (*D.kernel_args(drop_rate, seed, row0), stream_handle(x.device))
+    args = (*D.kernel_args(drop_rate, seed, row0), int(residual), stream_handle(x.device))
     if hopper_route(c):
         panels, bc = _step_panels(conv_w, conv_b, deconv_w)
         check(_wg_fwd_fn()(ptr(x), ptr(g32), ptr(panels), ptr(bc), ptr(bd32), ptr(out), r,
@@ -345,7 +359,7 @@ def ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
 
 
 def _wg_backward(g, x, g32, conv_w, conv_b, deconv_w, k, num_groups, eps, drop_rate, seed,
-                 row0, scratch_cap):
+                 row0, residual, scratch_cap):
     """The Hopper backward: per row group the dx kernel (dx; xn, dz, dyvg
     and h into the scratch; dgamma and deconv-bias partials per block) and
     the weight-gradient GEMM (fp32 partials per position split, accumulated
@@ -375,18 +389,18 @@ def _wg_backward(g, x, g32, conv_w, conv_b, deconv_w, k, num_groups, eps, drop_r
                        ptr(bpart),
                        ptr(out_w), ptr(out_b), ptr(out_gb), r, seq, c, ip, k, num_groups,
                        float(eps), group, splits, *D.kernel_args(drop_rate, seed, row0),
-                       stream_handle(dev)), "ffn_step_backward")
+                       int(residual), stream_handle(dev)), "ffn_step_backward")
     dcw, dcb, ddw = wg_unpack_grads(out_w[:, :c], out_b, inner, SICH)
     return dx, out_gb[:c].clone(), dcw, dcb, ddw, out_gb[c:].clone()
 
 
 def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
                       num_groups, eps, drop_rate=0.0, seed=0, row0=0,
-                      scratch_cap=SCRATCH_CAP):
+                      residual=True, scratch_cap=SCRATCH_CAP):
     """The backward kernels (one counted launch): returns ``(dx, dgamma,
     dconv_w, dconv_b, ddeconv_w, ddeconv_b)`` in torch layouts (fp32 for the
-    weights, ``x.dtype`` for dx).  ``scratch_cap`` bounds the Hopper
-    route's scratch (its row groups)."""
+    weights, ``x.dtype`` for dx; ``ddeconv_b`` zero with ``residual=False``).
+    ``scratch_cap`` bounds the Hopper route's scratch (its row groups)."""
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     k = kernel
@@ -395,7 +409,7 @@ def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
     g32 = gamma.to(torch.float32).contiguous()
     if hopper_route(c):
         grads = _wg_backward(g, x, g32, conv_w, conv_b, deconv_w, k, num_groups, eps,
-                             drop_rate, seed, row0, scratch_cap)
+                             drop_rate, seed, row0, residual, scratch_cap)
         ffn_step_backward.launches += 1
         return grads
     wc, bc, wd = ffn_panels(conv_w, conv_b, deconv_w)
@@ -420,7 +434,7 @@ def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
                     ptr(colsum_c), ptr(wpart_d), ptr(out_c), ptr(out_cb),
                     ptr(out_d), ptr(out_gb), r, seq, c, inner, k, num_groups,
                     float(eps), s1, s2, *D.kernel_args(drop_rate, seed, row0),
-                    stream_handle(dev)), "ffn_step_backward")
+                    int(residual), stream_handle(dev)), "ffn_step_backward")
     ffn_step_backward.launches += 1
     return (dx, out_gb[:c].clone(), out_c[:, :2 * inner].permute(1, 2, 0).contiguous(),
             out_cb[:2 * inner].clone(), out_d[:, :inner].permute(1, 2, 0).contiguous(),
@@ -433,12 +447,12 @@ class FusedFFNStep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
-                num_groups, eps, drop_rate, seed, row0):
-        ctx.args = (kernel, num_groups, eps, drop_rate, seed, row0)
-        ctx.bias_dtype = deconv_b.dtype
+                num_groups, eps, drop_rate, seed, row0, residual):
+        ctx.args = (kernel, num_groups, eps, drop_rate, seed, row0, residual)
+        ctx.bias_dtype = None if deconv_b is None else deconv_b.dtype
         ctx.save_for_backward(x, gamma, conv_w, conv_b, deconv_w)
         return ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
-                                kernel, num_groups, eps, drop_rate, seed, row0)
+                                kernel, num_groups, eps, drop_rate, seed, row0, residual)
 
     @staticmethod
     def backward(ctx, g):
@@ -446,27 +460,33 @@ class FusedFFNStep(torch.autograd.Function):
         dx, dgamma, dcw, dcb, ddw, ddb = ffn_step_backward(
             g, x, gamma, conv_w, conv_b, deconv_w, *ctx.args)
         return (dx, dgamma.to(gamma.dtype), dcw.to(conv_w.dtype),
-                dcb.to(conv_b.dtype), ddw.to(deconv_w.dtype), ddb.to(ctx.bias_dtype),
-                None, None, None, None, None, None)
+                dcb.to(conv_b.dtype), ddw.to(deconv_w.dtype),
+                None if ctx.bias_dtype is None else ddb.to(ctx.bias_dtype),
+                None, None, None, None, None, None, None)
 
 
 def fused_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
                             kernel: int, num_groups: int, eps: float,
                             drop_rate: float = 0.0, seed: int = 0,
-                            row0: int = 0):
+                            row0: int = 0, residual: bool = True):
     """``x [R, L, C]`` -> ``x + drop(FFN(drop(RMSGroupNorm(x))))`` ``[R, L, C]``;
     weights in torch layouts (``conv_w [2I, C, k]``, ``deconv_w [I, C, k]``);
-    ``seed`` an int32 drawn per call, ``row0`` the absolute row of ``x[0]``."""
+    ``seed`` an int32 drawn per call, ``row0`` the absolute row of ``x[0]``.
+    ``residual=False``: the partial-sum mode (module docstring), with
+    ``deconv_b`` None."""
+    if (deconv_b is None) == residual:
+        raise ValueError("fused_norm_ffn_residual: the deconv bias is given with "
+                         "residual=True and None with residual=False")
     if x.device.type == "cpu":
         return reference_norm_ffn_residual(x, gamma, conv_w, conv_b, deconv_w,
                                            deconv_b, kernel, num_groups, eps,
-                                           drop_rate, seed, row0)
+                                           drop_rate, seed, row0, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_norm_ffn_residual: unsupported device {x.device}")
     _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups)
     return FusedFFNStep.apply(x, gamma, conv_w, conv_b, deconv_w, deconv_b,
                               kernel, num_groups, eps, float(drop_rate),
-                              int(seed), int(row0))
+                              int(seed), int(row0), bool(residual))
 
 
 fused_norm_ffn_residual.launches = 0

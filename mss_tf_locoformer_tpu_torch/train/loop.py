@@ -1,4 +1,4 @@
-"""End-to-end trainer on one device (the JAX package's ``train/loop.py``).
+"""End-to-end trainer (the JAX package's ``train/loop.py``).
 
 Kept from the JAX trainer: the channel layout of mixture and targets fixed
 once (``_prep``): the channel mean for a mono model, both channels
@@ -18,9 +18,20 @@ CPU on its own).  Dropout seeds come from a ``torch.Generator`` seeded with
 one seeded with ``seed``.  Importing ``core.precision`` turns TF32 off, so
 the fp32 encoder and decoder convolutions run in full fp32 on the card.
 ``gradient_checkpointing`` turns on the model's per-block remat
-(``remat_blocks``), as the JAX trainer maps it.  Not ported yet
-(ROADMAP.md): mesh layouts of more than one device, the step profiler,
-orbax checkpoints.
+(``remat_blocks``), as the JAX trainer maps it.
+
+Parallel runs (one process per GPU under ``torch.distributed``,
+``parallel/``): ``config.mesh`` lays the ranks out as ``dp x mp``
+(``dp`` -1: the ranks over ``mp``; a grid that does not cover them, or a
+batch that does not divide over dp, raises).  Rank 0's initial weights are
+broadcast to every rank, then each rank keeps its mp shard.  The training
+loader takes this rank's dp share of the indices (mp peers load the same
+rows; chunk and augmentation draws seeded ``seed + 7919 * dp_index``, as
+the JAX trainer seeds by process index), each step averages the gradients
+over dp (``train/step.py``), validation scores every dp-th track and sums
+its meters over dp, only rank 0 logs, and checkpoints keep the reference
+schema (``train/checkpoint.py``).  Not ported yet (ROADMAP.md): the step
+profiler, orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -32,12 +43,16 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import Config
 from ..core.precision import precision_from_amp
 from ..data.loader import DataLoader
 from ..data.musdb import MUSDBDataset
 from ..models import build_model
+from ..parallel import mesh as M
+from ..parallel import multihost as MH
+from ..parallel.sharding import shard_module, validate_tp
 from ..utils.common import AverageMeter, count_parameters, format_time, set_seed
 from .checkpoint import CheckpointManager
 from .engine import Scalars, make_writer, run_train_epoch
@@ -80,16 +95,14 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device}: CUDA is not available")
-        dp, mp = config.mesh.axis_sizes(1)
-        if config.mesh.dp > 1 or dp * mp > 1:
-            raise NotImplementedError(
-                f"mesh dp={config.mesh.dp} mp={config.mesh.mp} asks for more "
-                f"than one device: parallel runs are not ported yet "
-                f"(ROADMAP.md, Queue 1: parallel runs)")
+        self.mesh = M.make_mesh(*config.mesh.axis_sizes(MH.process_count()))
+        if config.training.batch_size % self.mesh.dp:
+            raise ValueError(f"batch_size {config.training.batch_size} does not divide "
+                             f"over dp={self.mesh.dp}")
         if config.training.profile_steps:
             raise NotImplementedError("the step profiler is not ported yet "
                                       "(ROADMAP.md, Queue 1: training leftovers)")
-        self.verbose = verbose
+        self.verbose = verbose and MH.is_coordinator()
         set_seed(config.seed)
         self.output_dir = output_dir or config.paths.output_dir
         self.log_dir = os.path.join(self.output_dir, "logs")
@@ -97,23 +110,28 @@ class Trainer:
 
         tcfg = config.training
         self.precision = precision_from_amp(tcfg.use_amp, tcfg.amp_dtype)
-        self.model = self._build_model().to(self.device)
+        self.model = MH.replicate(self._build_model().to(self.device))
         # a stereo BS-Locoformer keeps both channels; every other model
         # takes the channel mean
         self._prep = _stereo if getattr(self.model.config, "stereo", False) else _mono
+        n_params = count_parameters(self.model)
+        validate_tp(self.model.config, self.mesh.mp)
+        shard_module(self.model, self.mesh)
         self.optimizer = make_optimizer(self.model.parameters(), tcfg)
         self.lr_ctl = LRController(tcfg)
         self.early_stop = EarlyStopping(tcfg.early_stopping)
         self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"),
                                       keep_last=tcfg.keep_last, save_best=tcfg.save_best)
-        self.scalars = Scalars(make_writer(self.log_dir))
+        self.scalars = Scalars(make_writer(self.log_dir) if MH.is_coordinator() else None)
         self.generator = torch.Generator().manual_seed(config.seed + 1)
         self.step = 0
         self.start_epoch = 0
         self.best_val_loss = float("inf")
         self._resume = resume
-        self._log(f"Device: {self.device}  precision={self.precision.compute_dtype}  "
-                  f"parameters {count_parameters(self.model) / 1e6:.2f} M")
+        backend = dist.get_backend() if dist.is_initialized() else "no process group"
+        self._log(f"Device: {self.device}  {MH.process_count()} ranks over {backend}, "
+                  f"mesh dp={self.mesh.dp} mp={self.mesh.mp}  "
+                  f"precision={self.precision.compute_dtype}  parameters {n_params / 1e6:.2f} M")
 
     def _log(self, msg: str):
         if self.verbose:
@@ -128,9 +146,12 @@ class Trainer:
         dataset."""
         tcfg = self.config.training
         train_ds, val_ds = self._datasets()
-        train = DataLoader(train_ds, batch_size=tcfg.batch_size, shuffle=True,
-                           num_workers=tcfg.num_workers,
-                           prefetch_factor=tcfg.prefetch_factor, seed=self.config.seed)
+        dp = self.mesh.dp
+        train = DataLoader(train_ds, batch_size=MH.local_batch_size(tcfg.batch_size, dp),
+                           shuffle=True, num_workers=tcfg.num_workers,
+                           prefetch_factor=tcfg.prefetch_factor, seed=self.config.seed,
+                           drop_last=dp > 1,
+                           shard=(self.mesh.dp_index, dp) if dp > 1 else None)
         val = None if val_ds is None else DataLoader(
             val_ds, batch_size=1, shuffle=False, num_workers=min(2, tcfg.num_workers))
         return train, val
@@ -144,9 +165,29 @@ class Trainer:
                              augmentation=d.augmentation, random_chunks=d.random_chunks,
                              max_chunk_attempts=d.max_chunk_attempts,
                              precompute_chunks=d.precompute_chunks,
-                             seed=self.config.seed, **common)
+                             seed=self._data_seed(), **common)
         val = MUSDBDataset(d.root_dir, "test", segment_length=None, **common)
         return train, val
+
+    def _data_seed(self) -> int:
+        """The training data's seed: draws decorrelated across dp ranks."""
+        return self.config.seed + 7919 * self.mesh.dp_index
+
+    def _val_shard(self, loader):
+        """The validation batches of this rank's dp index (every dp-th one;
+        mp peers score the same ones)."""
+        for i, batch in enumerate(loader):
+            if i % self.mesh.dp == self.mesh.dp_index:
+                yield batch
+
+    def _merge(self, meter: AverageMeter) -> float:
+        """The meter's weighted mean over the dp ranks' shards."""
+        if self.mesh.dp == 1:
+            return meter.avg
+        t = torch.tensor([meter.sum, meter.count], dtype=torch.float64,
+                         device=MH.comm_device(self.device))
+        M.all_reduce(t, self.mesh.dp_group)
+        return float(t[0] / max(float(t[1]), 1e-12))
 
     def _host_batches(self, loader):
         sources = self.config.dataset.sources
@@ -163,6 +204,10 @@ class Trainer:
                           tcfg.gradient_clip)
 
     def validate(self, loader) -> float:
+        with M.activate_mesh(self.mesh):
+            return self._validate(loader)
+
+    def _validate(self, loader) -> float:
         """Weighted mean validation loss over fixed-length chunks."""
         tcfg, d = self.config.training, self.config.dataset
         seg = tcfg.val_segment_length or d.segment_length or 10 * d.sample_rate
@@ -186,7 +231,7 @@ class Trainer:
         def pad(x):
             return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, seg - x.shape[-1])])
 
-        for batch in loader:
+        for batch in self._val_shard(loader):
             mixture = self._prep(np.asarray(batch["mixture"]))
             targets = {k: self._prep(np.asarray(batch[k])) for k in d.sources if k in batch}
             n_chunks = max(1, -(-mixture.shape[-1] // seg))
@@ -200,10 +245,14 @@ class Trainer:
                     if len(mix) == group:
                         flush()
         flush()
-        return meter.avg
+        return self._merge(meter)
 
     def fit(self, train_loader=None, val_loader=None) -> int:
         """Train to ``num_epochs`` (or an early stop); returns the step count."""
+        with M.activate_mesh(self.mesh):
+            return self._fit(train_loader, val_loader)
+
+    def _fit(self, train_loader=None, val_loader=None) -> int:
         tcfg = self.config.training
         if train_loader is None:
             train_loader, val_loader = self._loaders()
@@ -243,7 +292,7 @@ class Trainer:
                                    "best_val_loss": self.best_val_loss,
                                    "lr_controller": self.lr_ctl.state_dict(),
                                    "early_stop": self.early_stop.state_dict()},
-                               is_best=is_best)
+                               is_best=is_best, mesh=self.mesh, device=self.device)
             if val_loss is not None and self.early_stop.step(val_loss):
                 self._log(f"Early stopping at epoch {epoch}")
                 break
@@ -256,4 +305,4 @@ class Trainer:
         mgr = self.ckpt
         if os.path.isdir(str(self._resume)):
             mgr = CheckpointManager(self._resume, self.ckpt.keep_last, self.ckpt.save_best)
-        return mgr.restore(self.model, self.optimizer)
+        return mgr.restore(self.model, self.optimizer, mesh=self.mesh)

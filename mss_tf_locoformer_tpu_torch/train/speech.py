@@ -12,8 +12,9 @@ micro-batch loss divided by ``accum``, one clip by global norm, one AdamW
 step.  ``SpeechTrainer`` is the MSS trainer (``train/loop.py``) with the
 speech model, data and validation: ``LRController`` (warmup x
 ReduceLROnPlateau), ``EarlyStopping``, ``CheckpointManager`` and
-``run_train_epoch`` are shared, and so are its refusals (a mesh of more
-than one device, ``profile_steps``).  Batches are the channel mean:
+``run_train_epoch`` are shared, and so are its parallel runs (``config.mesh``
+over the ranks of ``torch.distributed``) and its refusal of
+``profile_steps``.  Batches are the channel mean:
 ``[B, C, T]`` -> ``[B, T]`` and ``[B, S, C, T]`` -> ``[B, S, T]``.
 Validation runs every utterance whole at batch 1.
 """
@@ -103,7 +104,7 @@ class SpeechTrainer(Trainer):
         d = self.config.dataset
         common = dict(num_spk=d.num_spk, mix_dir=d.mix_dir, spk_dirs=d.spk_dirs,
                       segment_length=d.segment_length, sample_rate=d.sample_rate)
-        train = SpeechMixtureDataset(d.root_dir, random_crop=True, seed=self.config.seed,
+        train = SpeechMixtureDataset(d.root_dir, random_crop=True, seed=self._data_seed(),
                                      **common)
         val = None
         if d.valid_dir:
@@ -126,11 +127,12 @@ class SpeechTrainer(Trainer):
         return speech_train_step(self.model, self.optimizer, batch["mixture"],
                                  batch["sources"], lr, self.generator, self.config)
 
-    def validate(self, loader) -> float:
-        """Mean eval-mode loss over the validation batches."""
+    def _validate(self, loader) -> float:
+        """Mean eval-mode loss over the validation batches (this rank's dp
+        share, the meters summed over dp)."""
         meter = AverageMeter()
-        for batch in loader:
+        for batch in self._val_shard(loader):
             mix, src = (torch.from_numpy(a).to(self.device) for a in self._mono(batch))
             meter.update(float(speech_eval_step(self.model, mix, src, self.config)),
                          mix.shape[0])
-        return meter.avg
+        return self._merge(meter)

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Iterable
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import TrainingConfig
 from .schedule import ReduceLROnPlateau
@@ -31,14 +32,28 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float, mp_group=None) -> torch.Tensor:
     """Scale every gradient by ``max_norm / norm`` when the global norm
     exceeds ``max_norm`` (``optax.clip_by_global_norm``: no epsilon added to
     the norm, unlike ``torch.nn.utils.clip_grad_norm_``).  Returns the
-    pre-clip norm as a 0-d fp32 tensor, without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]))
+    pre-clip norm as a 0-d fp32 tensor, without a host sync.
+
+    With ``mp_group`` (a tensor-parallel run), the parameters that hold a
+    shard (``tp_axis``, ``parallel/sharding.py``) add their squared norms
+    over the group, and the whole ones count once, so that the norm and
+    the clip are the single-process ones."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = torch.stack([torch.linalg.vector_norm(g.to(torch.float32)) for g in grads])
+    if mp_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        split = torch.tensor([getattr(p, "tp_axis", None) is not None for p in params],
+                             device=norms.device)
+        sq = torch.stack([(norms * norms * split).sum(), (norms * norms * ~split).sum()])
+        sharded = sq[0].clone()
+        dist.all_reduce(sharded, group=mp_group)
+        norm = torch.sqrt(sharded + sq[1])
     scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
     for g in grads:
         g.mul_(scale)

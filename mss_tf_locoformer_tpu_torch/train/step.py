@@ -10,6 +10,14 @@ micro-batches plus the pre-clip ``grad_norm``; its values stay on the
 device (no host sync).  ``eval_step`` with ``weights`` returns the weighted
 mean of PER-SAMPLE losses, what chunked validation needs when a group mixes
 full chunks with zero-padded tails.
+
+Under a mesh (``parallel/mesh.py::activate_mesh``) ``update_step`` takes
+this rank's rows of the global batch: after the backward, one all-reduce
+over the dp group (a plain all-reduce of the gradients flattened into one
+buffer, not DDP) averages the gradients, and a second one the loss dict,
+so that the step, the clip and the reported losses are those of the
+global batch; under ``mp > 1`` the clip sums the shards' squared norms
+over the mp group (``train/state.py::clip_by_global_norm``).
 """
 
 from __future__ import annotations
@@ -17,9 +25,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import LossConfig
 from ..losses.mss_loss import mss_loss
+from ..parallel.mesh import active_mesh
 from .state import clip_by_global_norm, set_learning_rate
 
 __all__ = ["update_step", "train_step", "eval_step"]
@@ -53,10 +63,32 @@ def update_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             v = v.detach() / accum
             totals[k] = totals[k] + v if k in totals else v
     params = [p for p in model.parameters() if p.requires_grad]
-    totals["grad_norm"] = clip_by_global_norm(params, gradient_clip)
+    mesh = active_mesh()
+    if mesh is not None and mesh.dp > 1:
+        _dp_mean([p.grad for p in params if p.grad is not None], mesh)
+        keys = sorted(totals)
+        mean = _dp_mean([torch.stack([totals[k].to(torch.float32) for k in keys])], mesh)[0]
+        totals = dict(zip(keys, mean.unbind()))
+    totals["grad_norm"] = clip_by_global_norm(
+        params, gradient_clip, mesh.mp_group if mesh is not None and mesh.mp > 1 else None)
     set_learning_rate(optimizer, lr)
     optimizer.step()
     return totals
+
+
+def _dp_mean(tensors, mesh):
+    """Average ``tensors`` in place over the dp group: one all-reduce of
+    them flattened into one buffer per dtype."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat, group=mesh.dp_group)
+        flat /= mesh.dp
+        for t, v in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(v.view_as(t))
+    return tensors
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

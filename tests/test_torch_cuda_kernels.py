@@ -650,3 +650,86 @@ def test_gate_bytes_match_the_compiled_layouts(dev):
         for d in (12, 16, 24, 32, 48, 64):
             assert FA.compiled_resident_bytes(seq, d) == (
                 FA.forward_resident_bytes(seq, d), FA.backward_resident_bytes(seq, d))
+
+
+# --------------------------------------------- partial-sum mode (#2-#5, TP)
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(3, 37, 32, 32, 4), (2, 130, 64, 64, 3),
+                                             (2, 130, 96, 192, 4), (2, 130, 96, 96, 4),
+                                             (3, 62, 128, 192, 4), (2, 100, 128, 96, 8)])
+def test_ffn_step_partial_sum_mode(dev, r, seq, c, inner, k, drop):
+    """#2 and #5 with ``residual=False`` (the deconv output alone: no outer
+    mask, no residual, no bias) against the plain version's partial-sum
+    mode, forward and gradients (the inner mask replayed)."""
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    params = params[:4]   # no deconv bias
+    args = (None, k, 4, 1e-5, drop, 1234, 7, False)
+    out, got = _grads(lambda *a: FB.fused_norm_ffn_residual(*a, *args), x, params, g)
+    ref_out, ref = _grads(lambda *a: FB.reference_norm_ffn_residual(*a, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w"))
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,a,h,rope", [(2, 37, 32, 16, 1, True), (2, 130, 96, 48, 2, True),
+                                              (2, 130, 96, 24, 1, True), (3, 70, 128, 64, 2, False)])
+def test_attention_step_partial_sum_mode(dev, r, seq, c, a, h, rope, drop):
+    """#3 and #4 with ``residual=False`` (the out-projection alone: no
+    post-projection mask, no residual; the probability mask stays) against
+    the plain version's partial-sum mode, at the shards' widths (one head
+    of 24 at C 96: an attention width of 24, not a multiple of 16)."""
+    x, params, g = _attn_inputs(dev, r, seq, c, a)
+    args = (h, 4, 1e-5, rope, 10000.0, drop, 4321, 5, False)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args),
+                          x.float(), params, g.float())
+    torch.cuda.synchronize()
+    _close(out, ref_out, STEP_TOL)
+    _check_grads(got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_tp_steps_summed_over_shards(dev, mp):
+    """Each shard's partial-sum kernels (``parallel/sharding.py``'s head-
+    and inner-major shards), summed in one process with the bias and the
+    residual added outside, against the whole step's kernels at dropout 0:
+    outputs, dx and the gathered weight gradients."""
+    from mss_tf_locoformer_tpu_torch.parallel.sharding import shard_tensor, unshard_tensor
+    r, seq, c, a, h, inner, k = 2, 130, 96, 96, 4, 384, 4
+    fkeys = ("ffn.0.conv1d.weight", "ffn.0.conv1d.bias", "ffn.0.deconv1d.weight")
+    akeys = ("attn.qkv.weight", "attn.aggregate_heads.0.weight")
+    for name in ("ffn", "attention"):
+        if name == "ffn":
+            x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+            gamma, whole, bias = params[0], params[1:4], params[4]
+            keys = fkeys
+            full = lambda x, gm, *w: FB.fused_norm_ffn_residual(x, gm, *w, bias, k, 4, 1e-5)
+            part = lambda x, gm, *w: FB.fused_norm_ffn_residual(x, gm, *w, None, k, 4, 1e-5,
+                                                                residual=False)
+        else:
+            x, params, g = _attn_inputs(dev, r, seq, c, a)
+            gamma, whole, bias = params[0], params[1:], torch.zeros(c, device=dev)
+            keys = akeys
+            full = lambda x, gm, *w: AB.fused_attention_block(x, gm, *w, h, 4, 1e-5)
+            part = lambda x, gm, *w: AB.fused_attention_block(x, gm, *w, h // mp, 4, 1e-5,
+                                                              residual=False)
+        out, ref = _grads(full, x, [gamma, *whole], g)
+        outs, dxs, dgs, dws = [], [], [], []
+        for i in range(mp):
+            shards = [shard_tensor(key, w, i, mp) for key, w in zip(keys, whole)]
+            o, grads = _grads(part, x, [gamma, *shards], g)
+            outs.append(o.float())
+            dxs.append(grads[0].float())
+            dgs.append(grads[1])
+            dws.append(grads[2:])
+        torch.cuda.synchronize()
+        summed = (x.float() + sum(outs) + bias).to(torch.bfloat16)
+        _close(summed, out, STEP_TOL)
+        _close((g.float() + sum(dxs)).to(torch.bfloat16), ref[0], STEP_TOL)
+        assert _rel_l2(sum(dgs), ref[1]) <= GRAD_REL_L2
+        for j, key in enumerate(keys):
+            got = unshard_tensor(key, [d[j] for d in dws])
+            assert _rel_l2(got, ref[2 + j]) <= GRAD_REL_L2, key

@@ -132,10 +132,14 @@ def test_evaluate_cli(tmp_path, rng, family):
     assert (out / "song0" / "vocals.wav").exists()
 
 
-def test_evaluate_cli_refuses_distributed_runs():
+def test_evaluate_cli_refuses_distributed_runs(monkeypatch):
+    """Distributed evaluation runs (tests/test_torch_parallel_runs.py); what
+    it refuses is a run it cannot start: rank flags without --distributed or
+    a coordinator, and --distributed without torchrun's environment."""
     args = ["--config", "c.json", "--checkpoint", "m.pth"]
     assert cli.parse_args(args).device == "cuda"   # the default
-    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun environment"):
         cli.main(args + ["--distributed"])
-    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
+    with pytest.raises(SystemExit):
         cli.main(args + ["--num_processes", "2"])

@@ -53,15 +53,18 @@ def test_load_config_matches_jax(path):
     assert dataclasses.asdict(C.load_config(path)) == dataclasses.asdict(JC.load_config(path))
 
 
-def test_config_rejects_unknown_keys_and_wide_meshes(tmp_path):
+def test_config_rejects_unknown_keys_and_wide_meshes(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="lrr"):
         C.config_from_dict({"training": {"optimizer": {"lrr": 1.0}}})
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"mesh": {"dp": 2}, "training": {"use_amp": False}}))
-    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
+    # a grid wider than the ranks raises (one process here; nothing clamped)
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 processes"):
         train_cli.main(["--config", str(path), "--device", "cpu",
                         "--output_dir", str(tmp_path / "o")])
-    with pytest.raises(NotImplementedError, match="Queue 1: parallel runs"):
+    # --distributed needs torchrun's environment or a coordinator
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun environment"):
         train_cli.main(["--config", str(path), "--device", "cpu", "--distributed"])
     assert train_cli.parse_args(["--config", str(path)]).device == "cuda"  # the default
 
