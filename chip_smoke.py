@@ -70,7 +70,10 @@ raises on failure (exit code != 0, no result line):
      micro-batches of 2 x 3 s, bf16, dropout 0.1, AdamW, clip 5): one epoch
      of 2 optimizer steps, validation and a checkpoint, then ``--resume``
      for one more epoch; launch counters, gradients and the checkpoint
-     (through the separation CLI) checked;
+     (through the separation CLI) checked; the first run's
+     ``profile_steps: 1`` must leave a ``torch.profiler`` trace with device
+     kernels; then the MFU of the base forward and train step at the
+     H100's dense bf16 peak (``utils/flops.py::device_peak_flops``);
   9. train-step parity: the kernel path against the plain path, same
      weights, batch and dropout seeds (1 x 1 s, dropout 0.1);
  10. train-step timing in turns (plain, kernel, kernel, plain), with peak
@@ -140,18 +143,23 @@ raises on failure (exit code != 0, no result line):
      and iSTFT on 4 s, kernel path against plain path per speaker,
      rejecting the blocks-skipped model, 24 FFN and 12 attention steps per
      forward exactly;
- 21. speech serving: the speech separation CLI on three 8 kHz WAVs (3.3, 5
-     and 9.7 s), 2 WAVs of the input's length each, exact launches, the
-     realtime factor of a second run;
+ 21. speech serving: the speech separation CLI (fp32 blocks, its default)
+     on three 8 kHz WAVs (3.3, 5 and 9.7 s) and a FLAC written by
+     ``tests/flac_writer.py`` (read back exactly through the port's native
+     decoder), 2 WAVs of the input's length each, exact launches of the
+     fp32 step kernels, every stem against the plain route's CLI run; the
+     realtime factor of a second run of the WAVs;
  22. speech training: the speech training CLI with the wsj0-2mix sections
      (batch 4 x 4 s, bf16, PIT SI-SNR; 2 steps, validation, checkpoint,
      then ``--resume``) and with the DNS sections (one source, 16 kHz,
      n_fft 256, fixed-order ``mr_l1_tfd``), exact forward and backward
-     launches, finite gradients; a train step of each timed in turns with
-     the plain path, with its peak device memory;
- 23. speech evaluation: the speech evaluation CLI on 2 utterances, kernel
-     route against plain route (estimates by SI-SNR, scores within 1 dB),
-     ``results.json`` checked, exact launches;
+     launches, finite gradients, the first run's ``profile_steps: 2``
+     trace; a train step of each timed in turns with the plain path, with
+     its peak device memory;
+ 23. speech evaluation: the speech evaluation CLI (fp32) on 2 utterances,
+     kernel route against plain route (estimates within 1e-4 of the peak
+     and by SI-SNR, scores within 1 dB), ``results.json`` checked, exact
+     launches;
  24. BS-Locoformer training: train-step parity (1 x 1 s stereo, dropout
      0.1, the kernel path against the plain path in fp32, per parameter
      group, rejecting the blocks-skipped model); the training CLI on the
@@ -169,7 +177,19 @@ raises on failure (exit code != 0, no result line):
      mesh dp 2 and mp 2 against one process (losses, grad_norm, exact
      launches per rank, step time), the 2-rank evaluation CLI's
      ``results.json`` against one rank's, and the training CLI under a
-     world-1 NCCL process group.
+     world-1 NCCL process group;
+ 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``, run with the speech
+     phases): the fp32 gates at the base, BS and speech widths (the
+     layouts' bytes against the compiled kernels' count); #2 and #3 against
+     their fp32 plain versions at the speech serving shapes (wsj0-2mix and
+     DNS), with the stash and #5 and #4 at the wsj0-2mix training shapes
+     (dropout 0), the base training shapes (dropout 0.1, keep rates
+     printed) and shard 0 of mp 2 in the partial-sum mode; exact fp32
+     launches, two backward runs bit-equal, timed beside the bf16 kernels
+     and the fp32 bound; the wsj0-2mix separator at fp32 against its plain
+     path (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
+     configs, kernel path against plain path (loss and grad_norm within
+     1e-4), and timed at the full batch.
 
 ``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
 time breakdown of one xlarge micro-batch train step (minutes of trace
@@ -550,16 +570,18 @@ def _mix_shape(cfg, batch, samples):
     return (batch, 2, samples) if getattr(cfg, "stereo", False) else (batch, samples)
 
 
-def _model_pair(cfg=None):
-    """The bf16 model (the base config by default) on the card twice, on the
-    same seeded weights: with its kernels, and with every kernel replaced by
-    its plain version."""
+def _model_pair(cfg=None, precision=None):
+    """The model (the base config by default; bf16 blocks unless
+    ``precision`` says otherwise) on the card twice, on the same seeded
+    weights: with its kernels, and with every kernel replaced by its plain
+    version."""
     import torch
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import build_model
     cfg = cfg or base_model_config()
-    fused = build_model(cfg, BF16, torch.Generator().manual_seed(SEED)).to(DEV).eval()
-    plain = build_model(_plain_config(cfg), BF16).to(DEV).eval()
+    precision = precision or BF16
+    fused = build_model(cfg, precision, torch.Generator().manual_seed(SEED)).to(DEV).eval()
+    plain = build_model(_plain_config(cfg), precision).to(DEV).eval()
     plain.load_state_dict(fused.state_dict(), strict=True)
     return fused, plain
 
@@ -663,12 +685,23 @@ def phase_slice(workdir, cfg=None):
     return launches, wall, seconds
 
 
-def _check_launches(tag, launches, need):
+_T0 = time.perf_counter()
+
+
+def _mark(tag):
+    """How far into the run a phase ended (the smoke test is meant to end
+    well within 1200 s)."""
+    print(f"[progress] {tag} done at {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
+def _check_launches(tag, launches, need, quiet=False):
     """Launch counts of a run against the exact counts ``need`` (every
-    counter not named must be 0)."""
+    counter not named must be 0); ``quiet`` prints the counters that should
+    or did launch only."""
     for name, got in launches.items():
         want = need.get(name, 0)
-        print(f"[{tag}] {name}: {got} launches (need {want})")
+        if not quiet or got or want:
+            print(f"[{tag}] {name}: {got} launches (need {want})")
         if got != want:
             raise AssertionError(f"{tag}: {name} launched {got} times, not {want}")
 
@@ -894,29 +927,31 @@ def _bound(flop: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF1
     return 1e3 * terms[by], by
 
 
-def ffn_work(r, l, c=96, inner=384, k=4):
+def ffn_work(r, l, c=96, inner=384, k=4, row_bytes=2):
     """(forward FLOP, forward bytes, backward FLOP, backward bytes) of one
-    FFN step: the conv has L+k-1 outputs, the cropped deconv L; the
-    backward recomputes the conv and takes both products' two adjoints."""
+    FFN step on rows of ``row_bytes`` an element: the conv has L+k-1
+    outputs, the cropped deconv L; the backward recomputes the conv and
+    takes both products' two adjoints."""
     conv = 2.0 * r * (l + k - 1) * k * c * 2 * inner
     deconv = 2.0 * r * l * k * inner * c
     w = (3 * inner * c * k + 2 * inner + c) * 4.0
-    rows = r * l * c * 2.0
+    rows = r * l * c * float(row_bytes)
     return conv + deconv, 2 * rows + w, 3 * conv + 2 * deconv, 3 * rows + 2 * w
 
 
-def attn_work(r, l, c=96, a=96, h=4):
+def attn_work(r, l, c=96, a=96, h=4, row_bytes=2):
     """(forward FLOP, forward bytes, backward FLOP, backward bytes,
-    exponentials) of one attention step at the true head_dim: QK^T and PV
-    forward; dP, dS K, dS^T Q and P^T dO backward; the projections'
-    products; the backward reads the stashed q, k, v, o and log-sum-exp;
-    one exponential per score each way (the backward recomputes P)."""
+    exponentials) of one attention step at the true head_dim on rows of
+    ``row_bytes`` an element: QK^T and PV forward; dP, dS K, dS^T Q and P^T
+    dO backward; the projections' products; the backward reads the stashed
+    q, k, v, o (rows' width) and log-sum-exp; one exponential per score each
+    way (the backward recomputes P)."""
     d = a // h
     core = 2.0 * 2 * r * h * l * l * d
     proj = 2.0 * r * l * c * 3 * a + 2.0 * r * l * a * c
     w = 4.0 * a * c * 4
-    rows = r * l * c * 2.0
-    stash = r * l * (4 * a * 2.0 + 4 * h)
+    rows = r * l * c * float(row_bytes)
+    stash = r * l * (4 * a * float(row_bytes) + 4 * h)
     return (core + proj, 2 * rows + w, 2 * core + 2 * proj, 3 * rows + stash + 2 * w,
             float(r * h * l * l))
 
@@ -950,22 +985,23 @@ def _rel_l2(got, ref) -> float:
     return ((got.float() - ref).norm() / ref.norm()).item()
 
 
-def _check_grads(name, got, ref, g):
-    """dx against ``STEP_TOL x max|ref|`` (the cotangent alone, what a
-    kernel that only passed the residual through would give, must fail);
-    the other gradients by relative L2 (an all-zero gradient gives 1.0)."""
-    dx_err = _compare(f"{name} dx", got[0], ref[0], STEP_TOL, null=g)
+def _check_grads(name, got, ref, g, tol=STEP_TOL, rel_bound=GRAD_REL_L2):
+    """dx against ``tol x max|ref|`` (the cotangent alone, what a kernel
+    that only passed the residual through would give, must fail; ``g`` None
+    in the partial-sum mode, which has no residual); the other gradients by
+    relative L2 within ``rel_bound`` (an all-zero gradient gives 1.0)."""
+    dx_err = _compare(f"{name} dx", got[0], ref[0], tol, null=g)
     worst = 0.0
     for i, (a, b) in enumerate(zip(got[1:], ref[1:]), 1):
         if not torch_isfinite(a):
             raise AssertionError(f"{name}: gradient {i} is not finite")
         rel = _rel_l2(a, b)
         worst = max(worst, rel)
-        if not rel <= GRAD_REL_L2:
+        if not rel <= rel_bound:
             raise AssertionError(f"{name}: gradient {i} relative L2 {rel:.3e} "
-                                 f"above {GRAD_REL_L2:g}")
+                                 f"above {rel_bound:g}")
     print(f"[train-kernels] {name}: weight/gamma gradients relative L2 <= "
-          f"{worst:.3e} (bound {GRAD_REL_L2:g})")
+          f"{worst:.3e} (bound {rel_bound:g})")
     return dx_err, worst
 
 
@@ -1201,8 +1237,11 @@ def phase_train(workdir):
     counters = _counters()
     launches, wall = {}, {}
     for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
+        raw = _train_config(root, epochs)
+        if epochs == 1:   # a torch.profiler trace of the second optimizer step
+            raw["training"].update(profile_steps=1, profile_start_step=1)
         with open(cfg_path, "w") as f:
-            json.dump(_train_config(root, epochs), f)
+            json.dump(raw, f)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1224,6 +1263,8 @@ def phase_train(workdir):
                 raise AssertionError(f"training launched {k} {got} times, fewer than {n}")
         if launches[epochs]["flash_attention"] or launches[epochs]["swiglu_ffn"]:
             raise AssertionError(f"base training left the fused steps: {launches[epochs]}")
+        if epochs == 1:
+            _trace_file(os.path.join(out_dir, "logs"), "base training CLI, profile_steps 1")
     if trainer.step != 4 or trainer.start_epoch != 1:
         raise AssertionError(f"resume: step {trainer.step}, start epoch {trainer.start_epoch}")
     blob = torch.load(trainer.ckpt.path(1), map_location="cpu", weights_only=True)
@@ -1264,6 +1305,7 @@ def _counters():
     from mss_tf_locoformer_tpu_torch.ops import dropout as D
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
     from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
@@ -1274,13 +1316,17 @@ def _counters():
             "flash_attention": FA.flash_attention, "swiglu_ffn": SF.swiglu_conv_deconv,
             "flash_attention_backward": FA.flash_attention_backward,
             "swiglu_ffn_backward": SF.swiglu_ffn_backward, "dropout_mask": D.keep_mask,
-            "istft": SK.istft_fused, "istft_overlap_add": SK.frames_to_audio}
+            "istft": SK.istft_fused, "istft_overlap_add": SK.frames_to_audio,
+            # fp32 rows of #2-#5 (csrc/step_fp32.cu), counted apart
+            "ffn_step_fp32": S32.ffn_forward, "ffn_step_fp32_backward": S32.ffn_backward,
+            "attention_step_fp32": S32.attention_forward,
+            "attention_step_fp32_backward": S32.attention_backward}
 
 
-def _train_models(cfg=None):
-    """The bf16 model (the base config by default) twice on the same
-    weights, kernel and plain, in training mode."""
-    fused, plain = _model_pair(cfg)
+def _train_models(cfg=None, precision=None):
+    """The model (the base config by default, bf16 by default) twice on the
+    same weights, kernel and plain, in training mode."""
+    fused, plain = _model_pair(cfg, precision)
     return fused.train(), plain.train()
 
 
@@ -2530,17 +2576,18 @@ def phase_speech_kernels(results):
         _step_case(results, "bs training", path, rows, seq, bs, gen, True, bs.dropout)
 
 
-def _speech_pair(cfg):
-    """The bf16 separator of ``cfg`` on the device twice, on the same seeded
-    weights: with its kernels, and with every kernel replaced by its plain
-    version."""
+def _speech_pair(cfg, precision=None):
+    """The separator of ``cfg`` (bf16 blocks unless ``precision`` says
+    otherwise) on the device twice, on the same seeded weights: with its
+    kernels, and with every kernel replaced by its plain version."""
     import dataclasses
     import torch
     from mss_tf_locoformer_tpu_torch.core.precision import BF16
     from mss_tf_locoformer_tpu_torch.models import TFLocoformerSeparator
-    fused = TFLocoformerSeparator(cfg.separator, BF16, torch.Generator().manual_seed(SEED))
+    precision = precision or BF16
+    fused = TFLocoformerSeparator(cfg.separator, precision, torch.Generator().manual_seed(SEED))
     plain = TFLocoformerSeparator(dataclasses.replace(cfg.separator, fused_ffn=False,
-                                                      flash_attention=False), BF16)
+                                                      flash_attention=False), precision)
     plain.load_state_dict(fused.state_dict(), strict=True)
     return fused.to(DEV).eval(), plain.to(DEV).eval()
 
@@ -2625,15 +2672,27 @@ def _speech_checkpoint(workdir, name, seed=SEED):
 SPEECH_SERVE_S = (3.3, 5.0, 9.7)   # the serving phase's utterances
 
 
+SPEECH_FLAC_S = 2.5   # a FLAC utterance beside the WAVs (tests/flac_writer.py)
+
+
 def phase_speech_serving(workdir):
     """The speech separation CLI on three 8 kHz WAVs of ``SPEECH_SERVE_S``
-    with a seeded random wsj0-2mix checkpoint: 2 WAVs per file, each of the
-    input's length; exact launches (one separator forward per file); then
-    the wall time of a second run.  Returns ``(launches, wall s, audio s)``."""
+    and a 16-bit FLAC of ``SPEECH_FLAC_S`` (written by the repository's
+    ``tests/flac_writer.py``, read through the port's native decoder against
+    its samples) with a seeded random wsj0-2mix checkpoint, fp32 blocks (the
+    CLI's default, as the JAX CLI's): 2 WAVs per file, each of the input's
+    length; exact launches of the fp32 step kernels (one separator forward
+    per file) and none of the bf16 ones; every stem against the plain
+    route's (the CLI on the same checkpoint with the kernels' flags off)
+    within ``FP32_TOL`` of its peak and one 16-bit step; then the wall time
+    of a second run of the WAVs.  Returns ``(launches, wall s, audio s)``."""
     import numpy as np
     import torch
     from mss_tf_locoformer_tpu_torch.cli import separate_speech as cli
+    from mss_tf_locoformer_tpu_torch.data import audio_io
     from mss_tf_locoformer_tpu_torch.utils.audio import load_audio, save_audio
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from flac_writer import write_flac
     sr = 8000
     ckpt, cfg_path = _speech_checkpoint(workdir, "wsj0_2mix")
     in_dir, out_dir = os.path.join(workdir, "speech_in"), os.path.join(workdir, "speech_out")
@@ -2645,6 +2704,17 @@ def phase_speech_serving(workdir):
         save_audio(os.path.join(in_dir, f"utt{i}.wav"),
                    _speech_wave(rng, n, sr)[1].astype(np.float32), sr, normalize=False)
         lengths[f"utt{i}"] = n
+    n = int(SPEECH_FLAC_S * sr)
+    pcm = np.round(np.clip(_speech_wave(rng, n, sr)[1], -1, 1) * 32767).astype(np.int64)
+    flac = os.path.join(in_dir, "utt_flac.flac")
+    t0 = time.perf_counter()
+    write_flac(flac, pcm, sr, bits=16, block_size=4096, modes="fixed2")
+    read, rate = audio_io.read(flac)
+    if rate != sr or not np.array_equal(read[:, 0], (pcm / 32768.0).astype(np.float32)):
+        raise AssertionError(f"{flac}: the native decoder's samples differ from the file's")
+    print(f"[speech-serving] {flac}: {n} samples at {rate} Hz written and read back exactly "
+          f"through the port's FLAC decoder ({time.perf_counter() - t0:.1f} s)")
+    lengths["utt_flac"] = n
     argv = ["--config", cfg_path, "--checkpoint", ckpt, "--input", in_dir, "--output_dir",
             out_dir, "--device", DEV]
     counters = _counters()
@@ -2653,18 +2723,33 @@ def phase_speech_serving(workdir):
     cli.main(argv)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    _check_launches("speech serving", launches, _times(SPEECH_FORWARD, len(lengths)))
+    _check_launches("speech serving", launches, _times(SPEECH_FORWARD_FP32, len(lengths)))
+    raw = speech_raw("wsj0_2mix")
+    raw["separator"].update(fused_ffn=False, flash_attention=False)
+    plain_dir = os.path.join(workdir, "speech_out_plain")
+    cli.main(["--config", _write_json(os.path.join(workdir, "speech_plain.json"), raw),
+              "--checkpoint", ckpt, "--input", in_dir, "--output_dir", plain_dir,
+              "--device", DEV])
+    worst = 0.0
     for base, n in lengths.items():
         for s in (1, 2):
             path = os.path.join(out_dir, f"{base}_spk{s}.wav")
             audio, rate = load_audio(path)
             if audio.shape != (1, n) or rate != sr or not np.isfinite(audio).all():
                 raise AssertionError(f"{path}: {audio.shape} at {rate} Hz, want (1, {n})")
+            ref, _ = load_audio(os.path.join(plain_dir, f"{base}_spk{s}.wav"))
+            err = float(np.abs(audio - ref).max())
+            worst = max(worst, err / float(np.abs(ref).max()))
+            if not err <= FP32_TOL * float(np.abs(ref).max()) + 1.0 / 32768:
+                raise AssertionError(f"{path}: {err:.3e} from the plain route's stem")
         print(f"[speech-serving] {base}: {n / sr:g} s -> 2 speakers of {n} samples")
+    print(f"[speech-serving] fp32 stems against the plain route's: max error {worst:.3e} of "
+          f"the peak (bound {FP32_TOL:g} and one 16-bit step)")
+    os.remove(flac)
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
-    return launches, time.perf_counter() - t0, sum(lengths.values()) / sr
+    return launches, time.perf_counter() - t0, sum(SPEECH_SERVE_S)
 
 
 def _write_speech_corpus(root, cfg, n_train=8, n_val=2, seconds=SPEECH_SEGMENT_S, seed=SEED):
@@ -2722,7 +2807,11 @@ def phase_speech_train(workdir):
         cfg_path = os.path.join(workdir, f"train_{name}.json")
         exp = os.path.join(workdir, f"exp_{name}")
         for epochs, extra in runs:
-            _write_json(cfg_path, _speech_train_raw(name, root, epochs))
+            raw = _speech_train_raw(name, root, epochs)
+            profile = name == "wsj0_2mix" and epochs == 1
+            if profile:   # a torch.profiler trace of both steps
+                raw["training"].update(profile_steps=2, profile_start_step=0)
+            _write_json(cfg_path, raw)
             for fn in counters.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -2746,6 +2835,8 @@ def phase_speech_train(workdir):
             print(f"[speech-train] {tag}: {steps} steps and {n_val} validation utterances in "
                   f"{wall:.1f} s (build, data, checkpoint included); train "
                   f"{meta['train_loss']:.4f}, val {meta['val_loss']:.4f}; gradients finite")
+            if profile:
+                _trace_file(os.path.join(exp, "logs"), f"{tag}, profile_steps 2")
             out[f"{name} {epochs - 1}"] = (launches, wall)
             del trainer
             torch.cuda.empty_cache()
@@ -2843,22 +2934,26 @@ def phase_speech_evaluate(workdir):
                 for v in [written["mean"], *written["per_utterance"].values()]):
             raise AssertionError(f"evaluate speech {route}: results.json {written}")
         if route == "kernel":
-            _check_launches("evaluate speech", launches, _times(SPEECH_FORWARD, 2))
+            _check_launches("evaluate speech", launches, _times(SPEECH_FORWARD_FP32, 2))
             out = (wall, launches)
         print(f"[speech-evaluate] {route} route: 2 utterances in {wall:.1f} s; mean SI-SNR "
               f"{written['mean']['si_snr']:.2f} dB, SDR {written['mean']['sdr']:.2f} dB, "
               f"STOI {written['mean']['stoi']:.3f}")
-    least, worst = math.inf, 0.0
+    least, worst, est_err = math.inf, 0.0, 0.0
     for u, (k, p) in enumerate(zip(estimates["kernel"], estimates["plain"])):
         for s in range(k.shape[1]):
             least = min(least, compute_si_sdr(k[0, s], p[0, s]))
+            est_err = max(est_err, float(abs(k[0, s] - p[0, s]).max() / abs(p[0, s]).max()))
         name = f"u{u:02d}.wav"
         for m in ("si_snr", "sdr"):
             worst = max(worst, abs(results["kernel"]["per_utterance"][name][m]
                                    - results["plain"]["per_utterance"][name][m]))
-    print(f"[speech-evaluate] kernel-route estimates against the plain route's: SI-SNR >= "
+    print(f"[speech-evaluate] kernel-route estimates (fp32, the CLI's default) against the "
+          f"plain route's: max error {est_err:.3e} of the peak (bound {FP32_TOL:g}), SI-SNR >= "
           f"{least:.2f} dB (bound {EVAL_STEM_SI_SDR_DB:.2f}); scores within {worst:.3f} dB "
           f"(bound {EVAL_SI_SDR_DB:g})")
+    if not est_err <= FP32_TOL:
+        raise AssertionError(f"evaluate speech: estimates {est_err:.3e} from the plain route's")
     if not least >= EVAL_STEM_SI_SDR_DB:
         raise AssertionError(f"evaluate speech: an estimate at {least:.2f} dB against the "
                              f"plain route's")
@@ -2947,6 +3042,349 @@ def phase_bs_train(workdir):
         del trainer
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------- fp32 rows of the fused steps (#2-#5)
+
+# fp32 kernels (csrc/step_fp32.cu) against the fp32 plain versions: both
+# sides sum fp32 products in fp32, in other orders (~1e-6 relative), so
+# outputs within FP32_TOL of max|ref|, gradients within FP32_GRAD_REL_L2
+# (relative L2), the train step's loss within FP32_LOSS_REL and the speech
+# stems within FP32_TOL of max|ref| -- against the 1.1-1.2e-2 the bf16
+# blocks give (PERF.md section 6)
+FP32_TOL, FP32_GRAD_REL_L2, FP32_LOSS_REL = 1e-4, 1e-4, 1e-4
+SPEECH_FORWARD_FP32 = {"ffn_step_fp32": 24, "attention_step_fp32": 12}
+
+
+def phase_fp32_gates():
+    """The fp32 gates (``step_fp32.supports_ffn`` / ``supports_attention``)
+    at the base, BS-Locoformer and speech configs' widths, in eval and in
+    training, from the layouts' bytes, which the compiled kernels count the
+    same."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
+    cfgs = [("base", base_model_config()), ("bs", bs_model_config())] + [
+        (f"speech {n}", speech_config(n).separator) for n in ("wsj0_2mix", "whamr", "dns")]
+    for training in (False, True):
+        for c in (96, 128):
+            want, got = S32.launch_bytes(c, training), S32.compiled_launch_bytes(c, training)
+            if want != got:
+                raise AssertionError(f"fp32 gates: layouts {want} != compiled {got}")
+    for tag, cfg in cfgs:
+        c, k = cfg.emb_dim, cfg.conv1d_kernel
+        for training in (False, True):
+            routes = ([S32.supports_ffn(c, i, k, training, cfg.num_groups)
+                       for i in _inner_dims(cfg)]
+                      + [S32.supports_attention(c, cfg.attention_dim, cfg.n_heads, training)])
+            print(f"[fp32-gates] {tag} (C {c}, I {_inner_dims(cfg)[0]}, k {k}), "
+                  f"{'training' if training else 'eval'}: launches "
+                  f"{S32.launch_bytes(c, training)} B: fused steps {routes}")
+            if not all(routes):
+                raise AssertionError(f"fp32 gates: {tag} should take the fused steps")
+
+
+def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1):
+    """#2 and #3 on fp32 rows at one shape of ``cfg``'s blocks (with
+    ``training``: their stash, and #5 and #4, against autograd through the
+    plain versions in fp32 at dropout ``drop``; with ``mp`` > 1, shard 0 in
+    the partial-sum mode) against the fp32 plain versions: one counted fp32
+    launch each way and none of the bf16 kernels; two backward runs
+    bit-equal; the kernels timed beside the plain versions, the bf16 kernels
+    on the same values and the fp32 bound."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    inner = _inner_dims(cfg)[0]
+    c, k, h, a = cfg.emb_dim, cfg.conv1d_kernel, cfg.n_heads, cfg.attention_dim
+    x16, gamma, ffn, attn = _step_inputs(gen, rows, seq, DEV, c, inner, k)
+    if mp > 1:   # shard 0 by the TP rules (parallel/sharding.py); no deconv bias
+        from mss_tf_locoformer_tpu_torch.parallel.sharding import shard_tensor
+        ffn = [shard_tensor(kk, w, 0, mp) for kk, w in zip(TP_FFN_KEYS, ffn)] + [None]
+        attn = [shard_tensor(kk, w, 0, mp) for kk, w in zip(TP_ATTN_KEYS, attn)]
+        inner, h, a = inner // mp, h // mp, a // mp
+    x = x16.float()
+    residual = mp == 1
+    drops = (drop, 777, 0, residual)
+    fargs = (k, cfg.num_groups, cfg.eps) + drops
+    aargs = (h, cfg.num_groups, cfg.eps, cfg.pos_enc == "rope", 10000.0) + drops
+    g = _rand(gen, (rows, seq, c)).to(DEV) if training else None
+    counters = _counters()
+    for name, kfn, pfn, w, args, work in (
+            ("ffn_step", FB.fused_norm_ffn_residual, FB.reference_norm_ffn_residual, ffn,
+             fargs, ffn_work(rows, seq, c, inner, k, row_bytes=4)),
+            ("attention_step", AB.fused_attention_block, AB.reference_attention_block, attn,
+             aargs, attn_work(rows, seq, c, a, h, row_bytes=4))):
+        label = f"{name} fp32 {tag} {path} [{rows}, {seq}, {c}]"
+        key = f"{name}_fp32"
+        fflop, fbytes, bflop, bbytes, exps = (*work, 0.0)[:5]   # FFN: no exps
+        wk = [t for t in w if t is not None]
+        pad = [None] * (len(w) - len(wk))   # the partial-sum FFN's absent bias
+
+        def call(fn, _pad=pad, _args=args):
+            return lambda x_, g_, *p: fn(x_, g_, *p, *_pad, *_args)
+        for fn in counters.values():
+            fn.launches = 0
+        if not training:
+            with torch.no_grad():
+                got = call(kfn)(x, gamma, *wk)
+                torch.cuda.synchronize()
+                _check_launches(f"{label} launches", {n: fn.launches for n, fn in
+                                                      counters.items()}, {key: 1}, quiet=True)
+                err = _compare(label, got, call(pfn)(x, gamma, *wk), FP32_TOL,
+                               null=x if residual else None)
+            del got
+            r = results.setdefault(key, dict(err=0.0))
+            r["err"] = max(r["err"], err)
+            r[f"{tag} {path}"] = dict(
+                shape=(rows, seq, c), ms=_time_ms(lambda: call(kfn)(x, gamma, *wk)),
+                plain_ms=_time_ms(lambda: call(pfn)(x, gamma, *wk), iters=3),
+                bf16_ms=_time_ms(lambda: call(kfn)(x16, gamma, *wk)),
+                bound=_bound(fflop, fbytes, exps, PEAK_FP32))
+            continue
+        params = [gamma, *wk]
+        out, got = _autograd(call(kfn), x, params, g)
+        torch.cuda.synchronize()
+        _check_launches(f"{label} launches", {n: fn.launches for n, fn in counters.items()},
+                        {key: 1, f"{key}_backward": 1}, quiet=True)
+        again = _autograd(call(kfn), x, params, g)[1]
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        print(f"[fp32-kernels] {label}: two backward runs bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"{label}: two backward runs differ")
+        del again
+        ref_out, ref = _autograd(call(pfn), x, params, g)
+        ferr = _compare(f"{label} forward (training)", out, ref_out, FP32_TOL,
+                        null=x if residual else None)
+        gerr, grel = _check_grads(f"{label} backward", got, ref, g if residual else None,
+                                  FP32_TOL, FP32_GRAD_REL_L2)
+        del out, got, ref_out, ref
+        kf, kb = _timed_grad(call(kfn), x, params, g)
+        pf, pb = _timed_grad(call(pfn), x, params, g, iters=1)
+        bf, bb = _timed_grad(call(kfn), x16, params, g.to(torch.bfloat16))
+        r = results.setdefault(key, dict(err=0.0))
+        r["err"] = max(r["err"], ferr)
+        rb = results.setdefault(f"{key}_backward", dict(err=0.0, rel_l2=0.0))
+        rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+        rb[f"{tag} {path}"] = dict(
+            rows=rows, seq=seq, c=c, drop=drop, mp=mp, fwd_ms=kf, ms=kb, plain_fwd_ms=pf,
+            plain_ms=pb, bf16_fwd_ms=bf, bf16_ms=bb, bound=_bound(bflop, bbytes, exps, PEAK_FP32),
+            fwd_bound=_bound(fflop, fbytes, exps, PEAK_FP32))
+        torch.cuda.empty_cache()
+    del x, x16, g, ffn, attn
+    torch.cuda.empty_cache()
+
+
+def _keep_rates(rows, seq, cfg, seed=777, p=0.1):
+    """The keep rates of the four dropout sites at a step's shape (16 rows),
+    from the mask kernel at the coordinates the step kernels draw at."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    n = min(rows, 16)
+    ar = lambda m: torch.arange(m, device=DEV)
+    lc = seq + cfg.conv1d_kernel - 1
+    inner = _inner_dims(cfg)[0]
+    rates = {
+        "ffn inner": D.keep_mask(seed, D.SITE_FFN_INNER, ar(n)[:, None, None],
+                                 ar(lc)[None, None], ar(inner)[None, :, None], p=p),
+        "ffn outer": D.keep_mask(seed, D.SITE_FFN_OUTER, ar(n)[:, None, None],
+                                 ar(seq)[None, :, None], ar(cfg.emb_dim)[None, None], p=p),
+        "attention probabilities": AB.probability_mask(seed, ar(n), cfg.n_heads, seq, p, DEV),
+        "attention projection": D.keep_mask(seed, D.SITE_ATTN_PROJ, ar(n)[:, None, None],
+                                            ar(seq)[None, :, None],
+                                            ar(cfg.emb_dim)[None, None], p=p)}
+    return {k: v.float().mean().item() for k, v in rates.items()}
+
+
+def phase_fp32_kernels(results):
+    """#2-#5 on fp32 rows against their fp32 plain versions: #2 and #3 at the
+    speech serving shapes (8 s of wsj0-2mix and of DNS); with the stash, #5
+    and #4 at the wsj0-2mix training shapes (batch 4 x 4 s) at dropout 0, at
+    the base training shapes (micro-batch 2 x 3 s) at dropout 0.1 (the keep
+    rates printed), and shard 0 of mp 2 in the partial-sum mode at the base
+    training shapes at dropout 0.1."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 30)
+    for tag, name in (("speech wsj0-2mix serving", "wsj0_2mix"), ("speech dns serving", "dns")):
+        cfg = speech_config(name)
+        for path, rows, seq in _speech_steps(cfg, 1, 8.0):
+            _fp32_case(results, tag, path, rows, seq, cfg.separator, gen, False)
+    cfg = speech_config("wsj0_2mix")
+    for path, rows, seq in _speech_steps(cfg, SPEECH_BATCH, SPEECH_SEGMENT_S):
+        _fp32_case(results, "speech wsj0-2mix training", path, rows, seq, cfg.separator, gen,
+                   True)
+    base = base_model_config()
+    for path, rows, seq in _train_steps(base):
+        rates = _keep_rates(rows, seq, base)
+        print(f"[fp32-kernels] base training {path}: keep rates at dropout 0.1 "
+              + ", ".join(f"{k} {v:.4f}" for k, v in rates.items()))
+        if not all(abs(v - 0.9) < 0.01 for v in rates.values()):
+            raise AssertionError(f"keep rates {rates}")
+        _fp32_case(results, "base training", path, rows, seq, base, gen, True, 0.1)
+    for path, rows, seq in _train_steps(base)[:1]:
+        _fp32_case(results, "base training shard", path + " mp2", rows, seq, base, gen, True,
+                   0.1, mp=2)
+
+
+def phase_fp32_speech_parity():
+    """The wsj0-2mix separator at fp32, the speech CLIs' default: kernel path
+    (the fp32 step kernels) against plain path on 4 s, per speaker within
+    ``FP32_TOL`` of max|ref| (the bf16 path's figure beside it), exact fp32
+    launches and none of the bf16 kernels."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.models.espnet_compat import separate_waveforms
+    cfg = speech_config("wsj0_2mix")
+    fused, plain = _speech_pair(cfg, FP32)
+    mix = _rand(torch.Generator().manual_seed(SEED + 21), (1, 4 * 8000), 0.1).to(DEV)
+    sep = lambda m: separate_waveforms(m, mix, cfg.stft.n_fft, cfg.stft.hop_length)
+    counters = _counters()
+    with torch.no_grad():
+        for fn in counters.values():
+            fn.launches = 0
+        a = sep(fused)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        b = sep(plain)
+    _check_launches("fp32 speech parity", launches, SPEECH_FORWARD_FP32)
+    errs = [(a[:, s] - b[:, s]).abs().max().item() / b[:, s].abs().max().item()
+            for s in range(2)]
+    rel = [_rel_l2(a[:, s], b[:, s]) for s in range(2)]
+    print(f"[fp32-speech-parity] wsj0-2mix, 6 layers, 4 s, fp32: max error per speaker "
+          f"{', '.join(f'{v:.3e}' for v in errs)} of max|ref| (bound {FP32_TOL:g}), "
+          f"relative L2 {', '.join(f'{v:.3e}' for v in rel)}")
+    if not max(errs) <= FP32_TOL:
+        raise AssertionError(f"fp32 speech parity: {max(errs):.3e} above {FP32_TOL:g}")
+    del fused, plain
+    torch.cuda.empty_cache()
+    return max(errs), max(rel)
+
+
+def phase_fp32_train_steps(reps: int = 2):
+    """``use_amp: false`` (``precision_from_amp``): one optimizer step of the
+    base config (1 x 1 s, dropout 0.1) and of the wsj0-2mix config (batch 2
+    x 4 s, PIT SI-SNR) on the kernel path (the fp32 step kernels forward and
+    backward, exact launches, no bf16 kernel) against the plain path with
+    the same seeds: loss and grad_norm within ``FP32_LOSS_REL``; then the
+    kernel path's step at the full batch (base micro-batch 2 x 3 s, speech 4
+    x 4 s) timed with its peak device memory.  Returns ``{tag: {...}}``."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32, precision_from_amp
+    from mss_tf_locoformer_tpu_torch.train.speech import speech_train_step
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    if precision_from_amp(False) != FP32:
+        raise AssertionError("use_amp false is not fp32")
+    counters = _counters()
+    out = {}
+    base, speech = base_model_config(), speech_config("wsj0_2mix")
+    for tag in ("base", "speech wsj0-2mix"):
+        if tag == "base":
+            models = dict(zip(("kernel", "plain"), _train_models(base, FP32)))
+            opts = {p: make_optimizer(m.parameters(), TrainingConfig()) for p, m in
+                    models.items()}
+            per = {"ffn_step_fp32": 16, "attention_step_fp32": 8}
+            stft = {"stft": 1}   # the model's STFT kernel (fused_stft)
+
+            def step(path, batch):
+                return train_step(models[path], opts[path], *batch, 5e-4,
+                                  torch.Generator().manual_seed(11), LossConfig(), accum=1,
+                                  gradient_clip=5.0)
+            small = _batch(torch.Generator().manual_seed(SEED + 4), 1, SR, DEV)
+            full = _batch(torch.Generator().manual_seed(SEED + 5), TRAIN_MB, SEGMENT, DEV)
+        else:
+            models = dict(zip(("kernel", "plain"), [m.train() for m in
+                                                    _speech_pair(speech, FP32)]))
+            opts = {p: make_optimizer(m.parameters(), speech.training) for p, m in
+                    models.items()}
+            per = SPEECH_FORWARD_FP32
+            stft = {}   # the speech lane's transforms are plain
+            gen = torch.Generator().manual_seed(SEED + 22)
+            n = int(SPEECH_SEGMENT_S * speech.dataset.sample_rate)
+
+            def batch_of(b):
+                src = _rand(gen, (b, 2, n), 0.1).to(DEV)
+                return src.sum(1), src
+
+            def step(path, batch):
+                return speech_train_step(models[path], opts[path], *batch, 1e-4,
+                                         torch.Generator().manual_seed(1), speech)
+            small, full = batch_of(2), batch_of(SPEECH_BATCH)
+        need = {**per, **{f"{k}_backward": v for k, v in per.items()}, **stft}
+        for fn in counters.values():
+            fn.launches = 0
+        got = step("kernel", small)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        _check_launches(f"fp32 train step {tag}", launches, need)
+        ref = step("plain", small)
+        rel = {k: abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
+               for k in ("total_loss", "grad_norm")}
+        print(f"[fp32-train] {tag}, use_amp false: loss kernel {float(got['total_loss']):.6f} "
+              f"plain {float(ref['total_loss']):.6f}; relative differences "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (bound {FP32_LOSS_REL:g})")
+        if not max(rel.values()) <= FP32_LOSS_REL:
+            raise AssertionError(f"fp32 train step {tag}: {rel}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step("kernel", full)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step("kernel", full)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / reps
+        print(f"[fp32-train] {tag}, use_amp false, kernel path at the full batch: {sec:.4f} "
+              f"s/step, peak {peak / 2**30:.2f} GiB")
+        out[tag] = dict(launches=launches, rel=rel, sec=sec, peak=peak)
+        del models, opts, small, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mfu(forward, train_time):
+    """``utils/flops.py`` on the card: ``device_peak_flops`` (the H100's
+    dense bf16 peak from its name), and the MFU of the base forward (the
+    engine batch) and of the base train step (one micro-batch), from the
+    analytic FLOP and the measured times."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.utils import flops as FL
+    peak = FL.device_peak_flops()
+    name = torch.cuda.get_device_name(0)
+    if peak is None:
+        raise AssertionError(f"device_peak_flops knows no peak for {name}")
+    cfg = base_model_config()
+    fwd_flop = FL.tflocoformer_forward_flops(cfg, BATCH, CHUNK)
+    step_flop = FL.train_step_flops(cfg, TRAIN_MB, SEGMENT)
+    fwd_s, step_s = forward["kernel"][0] / 1e3, train_time["kernel"][0]
+    out = {"peak": peak, "forward_flop": fwd_flop, "step_flop": step_flop,
+           "forward_mfu": fwd_flop / fwd_s / peak, "step_mfu": step_flop / step_s / peak}
+    print(f"[mfu] device_peak_flops ({name}): {peak / 1e12:.1f} TFLOP/s dense bf16; base "
+          f"forward [{BATCH}, {CHUNK}] {fwd_flop / 1e12:.3f} TFLOP in {1e3 * fwd_s:.1f} ms: MFU "
+          f"{100 * out['forward_mfu']:.2f}%; base train step [{TRAIN_MB}, {SEGMENT}] "
+          f"{step_flop / 1e12:.3f} TFLOP in {step_s:.3f} s: MFU {100 * out['step_mfu']:.2f}%")
+    return out
+
+
+def _trace_file(log_dir, tag):
+    """The one ``torch.profiler`` trace a training run with ``profile_steps``
+    leaves under ``log_dir/plugins/profile``; fails if there is none or it
+    holds no device kernel."""
+    import glob
+    files = glob.glob(os.path.join(log_dir, "plugins", "profile", "*", "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{tag}: traces {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[profile] {tag}: {files[0]} ({os.path.getsize(files[0])} bytes, "
+          f"{len(events)} events, {kernels} device kernels)")
+    if not kernels:
+        raise AssertionError(f"{tag}: the trace holds no device kernel")
+    return files[0]
 
 
 # ------------------------------------------------------------ parallel runs
@@ -3327,6 +3765,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_gates()
+    phase_fp32_gates()
     results = {}
     phase_kernels(results)
     phase_slice_parity(need={"stft": 1, "ffn_step": 16, "attention_step": 8})
@@ -3335,6 +3774,7 @@ def main():
     # the fused steps and nothing else: 2 forwards (3 chunks in batches of 2)
     _check_launches("slice", launches, {"stft": 2, "ffn_step": 32, "attention_step": 16})
     forward = phase_forward()
+    _mark("base serving")
 
     xl = xlarge_model_config()
     phase_xlarge_kernels(results)
@@ -3346,6 +3786,7 @@ def main():
                     {"stft": 2, "flash_attention": 48, "swiglu_ffn": 96})
     xl_forward = phase_forward(xl, reps=1)
     profiles = {"base": phase_profile(), "xlarge": phase_profile(xl)}
+    _mark("xlarge serving")
 
     phase_train_kernels(results)
     phase_attention_stream(results)
@@ -3353,6 +3794,7 @@ def main():
         train_launches, train_wall = phase_train(workdir)
     phase_train_parity()
     train_time = phase_train_timing()
+    mfu = phase_mfu(forward, train_time)
     peak_gib = train_time["kernel"][1] / 2**30
     print(f"[train] kernel-path train step peak {peak_gib:.3f} GiB (bound "
           f"{BASE_TRAIN_PEAK_GIB} GiB, the wmma backward's)")
@@ -3360,6 +3802,7 @@ def main():
         raise AssertionError(f"train step: peak {peak_gib:.3f} GiB above the wmma backward's "
                              f"{BASE_TRAIN_PEAK_GIB} GiB")
 
+    _mark("base training")
     phase_unfused_train_kernels(results)
     xl_train, xl_train_launches, xl_next_peak = phase_xlarge_train_step()
     phase_xlarge_train_parity()
@@ -3368,6 +3811,7 @@ def main():
         with tempfile.TemporaryDirectory() as workdir:
             unfused_cli[tag] = phase_unfused_train_cli(workdir, tag)
 
+    _mark("unfused training")
     phase_istft_kernel(results)
     phase_stft_shapes(results)
     bs = bs_model_config()
@@ -3382,15 +3826,21 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         evaluation = phase_evaluate(workdir)
 
+    _mark("istft, BS serving, evaluation")
     t_speech = time.perf_counter()
     phase_speech_gates()
     phase_speech_kernels(results)
+    phase_fp32_kernels(results)
+    _mark("speech and fp32 kernels")
     phase_speech_parity()
+    phase_fp32_speech_parity()
     with tempfile.TemporaryDirectory() as workdir:
         speech_launches, speech_wall, speech_audio_s = phase_speech_serving(workdir)
     with tempfile.TemporaryDirectory() as workdir:
         speech_train = phase_speech_train(workdir)
     speech_time = phase_speech_train_timing()
+    fp32_train = phase_fp32_train_steps()
+    _mark("speech training, fp32 train steps")
     with tempfile.TemporaryDirectory() as workdir:
         speech_eval = phase_speech_evaluate(workdir)
     phase_bs_train_parity()
@@ -3543,6 +3993,27 @@ def main():
               f"dropout 0.1: {sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, "
               f"peak {peak / 2**30:.2f} GiB {card}")
     print(f"[timing] the speech and BS-training phases took {t_speech:.1f} s")
+    for k in ("ffn_step_fp32", "attention_step_fp32"):
+        for tag, r in results[k].items():
+            if isinstance(r, dict):
+                print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms (bf16 "
+                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms, fp32 bound "
+                      f"{r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
+    for k in ("ffn_step_fp32_backward", "attention_step_fp32_backward"):
+        for tag, r in results[k].items():
+            if isinstance(r, dict):
+                print(f"[timing] training {k[:-9]} {tag} [{r['rows']}, {r['seq']}, {r['c']}], "
+                      f"dropout {r['drop']:g}: forward (stash) {r['fwd_ms']:.3f} ms (bf16 "
+                      f"{r['bf16_fwd_ms']:.3f}, plain {r['plain_fwd_ms']:.3f}, bound "
+                      f"{r['fwd_bound'][0]:.3f} ms, {r['fwd_bound'][1]}); backward {r['ms']:.3f} "
+                      f"ms (bf16 {r['bf16_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
+                      f"{r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
+    for tag, r in fp32_train.items():
+        print(f"[timing] use_amp false train step, {tag}, kernel path: {r['sec']:.4f} s/step, "
+              f"peak {r['peak'] / 2**30:.2f} GiB {card}")
+    print(f"[timing] MFU (dense bf16 peak {mfu['peak'] / 1e12:.1f} TFLOP/s): base forward "
+          f"{100 * mfu['forward_mfu']:.2f}%, base train step {100 * mfu['step_mfu']:.2f}% "
+          f"{card}")
     for step in ("ffn_step_partial", "attention_step_partial"):
         for tag, r in results[step].items():
             if isinstance(r, dict):
@@ -3595,7 +4066,15 @@ def main():
         "attention_step_partial": ("csrc/attention_block.cu",
                                    "ops/pallas/attention_block.py:304", None, None),
         "attention_step_backward_partial": ("csrc/attention_block.cu",
-                                            "ops/pallas/attention_block.py:621", None, None)}
+                                            "ops/pallas/attention_block.py:621", None, None),
+        # fp32 rows of #2-#5: speech serving's and use_amp false training's
+        "ffn_step_fp32": ("csrc/step_fp32.cu", "ops/pallas/swiglu_block.py:279", None, None),
+        "attention_step_fp32": ("csrc/step_fp32.cu", "ops/pallas/attention_block.py:393",
+                                None, None),
+        "ffn_step_fp32_backward": ("csrc/step_fp32.cu", "ops/pallas/swiglu_block.py:456",
+                                   None, None),
+        "attention_step_fp32_backward": ("csrc/step_fp32.cu",
+                                         "ops/pallas/attention_block.py:626", None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         # a step's partial-sum forward and backward share one results entry
@@ -3631,6 +4110,18 @@ def main():
             b = r["bs"]
             ms, plain_ms, bound = b["ms"], b["plain_ms"], b["bound"]
             main_path = {k: r["launches"]}
+        elif k in ("ffn_step_fp32", "attention_step_fp32"):
+            # the main path: the speech serving CLI (fp32 by default); timed
+            # at wsj0-2mix serving's freq shape
+            f = r["speech wsj0-2mix serving freq"]
+            ms, plain_ms, bound = f["ms"], f["plain_ms"], f["bound"]
+            main_path = speech_launches
+        elif k.endswith("_fp32_backward"):
+            # the main path: a use_amp false base train step; timed at base
+            # training freq, dropout 0.1
+            f = r["base training freq"]
+            ms, plain_ms, bound = f["ms"], f["plain_ms"], f["bound"]
+            main_path = fp32_train["base"]["launches"]
         elif k.endswith("_partial"):
             # one shard at mp 2, base training freq; the launches of rank 0's
             # TP training run (dp 1 mp 2)
@@ -3676,12 +4167,16 @@ def main():
             entry["launches_training"] = train_launches[k]
             entry["launches_bs"] = bs_launches[k]
         if k in ("ffn_step", "attention_step", "ffn_step_backward", "attention_step_backward"):
-            # this slice's paths, each counted from 0 around its run
-            entry["launches_speech_serving"] = speech_launches[k]
+            # the bf16 speech and BS training paths, each counted from 0
+            # around its run (speech serving and evaluation run fp32)
             entry["launches_speech_training"] = speech_train["wsj0_2mix 0"][0][k]
             entry["launches_speech_training_dns"] = speech_train["dns 0"][0][k]
-            entry["launches_speech_evaluation"] = speech_eval[1][k]
             entry["launches_bs_training"] = bs_train[0][0][k]
+        if "_fp32" in k:
+            entry["bf16_ms"] = f["bf16_ms"]   # the bf16 kernel on the same values
+            entry["launches_speech_evaluation"] = speech_eval[1].get(k, 0)
+            entry["launches_use_amp_false_speech_step"] = \
+                fp32_train["speech wsj0-2mix"]["launches"][k]
         kernels.append(entry)
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@
 Separates every full utterance (mono) with ``SpeechSeparator``, assigns the
 estimates to the references by the permutation of largest summed SI-SNR,
 scores SI-SNR, SDR and STOI per utterance and writes ``results.json`` with
-``mean`` and ``per_utterance`` to ``--output_dir``.
+``mean`` and ``per_utterance`` to ``--output_dir``.  The separator's blocks
+run in fp32, as the JAX CLI's (``load_speech_separator``'s default).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ of ``--bucket_seconds`` (the JAX CLI's static-shape buckets; 0: no padding),
 separated by ``models/espnet_compat.SpeechSeparator`` and cropped back.  The
 padding enters the std normalisation, so the outputs equal the JAX CLI's
 only with the same bucket.  Writes ``{input}_spk{i}.wav`` without peak
-normalisation.  On the card the separator's blocks run in bf16 with the fp32
-islands kept (``load_speech_separator``).
+normalisation.  The separator's blocks run in fp32, as the JAX CLI's
+(``load_speech_separator``'s default; on the card the fp32 step kernels of
+``ops/cuda/step_fp32.py``).
 """
 
 from __future__ import annotations
@@ -59,10 +60,10 @@ def main(argv=None):
                            n_fft=cfg.stft.n_fft, hop_length=cfg.stft.hop_length)
 
     if os.path.isdir(args.input):
-        paths = sorted(p for e in ("wav", "WAV")
+        paths = sorted(p for e in ("wav", "flac", "WAV", "FLAC")
                        for p in glob.glob(os.path.join(args.input, f"*.{e}")))
         if not paths:
-            raise FileNotFoundError(f"No WAV files in {args.input}")
+            raise FileNotFoundError(f"No WAV or FLAC files in {args.input}")
     else:
         paths = [args.input]
 

@@ -5,7 +5,10 @@ TF-Locoformer and BS-Locoformer keys).
 The JAX package stores every weight in its torch layout, so the conversion
 is a key rename with no transposes.  The JAX ``BSLocoformerMSS`` nests its
 weights under ``separator``; the reference separator's schema, which the
-port's BS-Locoformer keeps, has no such level, so it is dropped.
+port's BS-Locoformer keeps, has no such level, so it is dropped.  A
+``conv1d``-type FFN (``ConvDeconv1d``, whose conv has as many outputs as
+its deconv inputs; a SwiGLU conv has twice) takes the reference's
+``net.0`` / ``net.3`` keys (the JAX ``convert/torch_ckpt.py:64-73``).
 """
 
 from __future__ import annotations
@@ -68,7 +71,21 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             flat[_unrename(path)] = torch.from_numpy(arr)
 
     walk(tree, ())
-    return flat
+    return _conv1d_ffn_keys(flat)
+
+
+def _conv1d_ffn_keys(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``ffn.N.{conv1d,deconv1d}.*`` of a ConvDeconv1d FFN ->
+    ``ffn.N.net.{0,3}.*``."""
+    out = {}
+    for key, v in flat.items():
+        m = re.fullmatch(r"(.*\bffn\.\d+)\.(conv1d|deconv1d)\.(weight|bias)", key)
+        if m:
+            conv, deconv = flat[f"{m.group(1)}.conv1d.weight"], flat[f"{m.group(1)}.deconv1d.weight"]
+            if conv.shape[0] == deconv.shape[0]:
+                key = f"{m.group(1)}.net.{'0' if m.group(2) == 'conv1d' else '3'}.{m.group(3)}"
+        out[key] = v
+    return out
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

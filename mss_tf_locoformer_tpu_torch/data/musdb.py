@@ -1,8 +1,17 @@
 """MUSDB18-HQ dataset on the host with numpy (the JAX package's
 ``data/musdb.py``, the part the base config uses):
 
-  * layout ``<root>/<subset>/<track>/{mixture,vocals,drums,bass,other}.wav``,
-    track metadata scanned from the WAV headers;
+  * layout ``<root>/<subset>/<track>/{mixture,vocals,drums,bass,other}``
+    with ``.wav`` or ``.flac`` files, track metadata scanned from their
+    headers, and kept in a metadata pickle (``metadata_cache``: the
+    directory, or ``<root>/.cache`` for True) validated by ``CACHE_VERSION``
+    and the dataset's config;
+  * ``precompute_chunks``: the chunk index (offsets every ``chunk_hop``,
+    half a segment by default, kept where the loudest stem's mean |x| over
+    the zero-padded window passes ``min_loudness``), cached in a pickle
+    (``chunk_cache``: a directory, the metadata cache's by default, False
+    for none) under the same validation; samples are then the index's
+    chunks in order;
   * training samples are random chunks of ``segment_length`` with the
     loudness filter (mean |x| of the stems >= ``min_loudness``, at most
     ``max_chunk_attempts`` draws, then the first chunk of a random track),
@@ -20,25 +29,28 @@
     dataset's seeded ``random.Random`` in the JAX dataset's order, so one
     seed gives the JAX dataset's arrays.
 
-The precomputed chunk index and the metadata cache raise
-``NotImplementedError`` (ROADMAP.md, Queue 1: training leftovers).  Samples are
+The pickles hold plain dicts, lists and strings only (the JAX dataset's
+payloads), so either package reads the other's.  Samples are
 ``{'mixture': [C, T] float32, '<stem>': [C, T], ...}``.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import random
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from . import audio_io
 
-__all__ = ["TrackInfo", "MUSDBDataset", "collate_fn"]
+__all__ = ["TrackInfo", "MUSDBDataset", "collate_fn", "CACHE_VERSION"]
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1: training leftovers)"
+CACHE_VERSION = 2
+FILE_TYPES = (".wav", ".flac")
 
 
 @dataclass(frozen=True)
@@ -81,12 +93,10 @@ class MUSDBDataset:
                  random_chunks: bool = True,
                  min_loudness: float = 1e-4, max_chunk_attempts: int = 8,
                  rebuild_mixture: bool = True, precompute_chunks: bool = False,
-                 cache_dir: Optional[str] = None, verbose: bool = True,
+                 chunk_hop: Optional[int] = None,
+                 metadata_cache: Union[bool, str] = True,
+                 chunk_cache: Union[None, bool, str] = None, verbose: bool = True,
                  seed: Optional[int] = None, return_metadata: bool = False):
-        if precompute_chunks:
-            raise NotImplementedError(f"dataset precompute_chunks {_LATER}")
-        if cache_dir:
-            raise NotImplementedError(f"dataset cache_dir {_LATER}")
         if segment_length is not None and segment_length <= 0:
             raise ValueError("segment_length must be positive")
         self.root_dir = Path(root_dir)
@@ -99,47 +109,204 @@ class MUSDBDataset:
         self.max_chunk_attempts = max(1, int(max_chunk_attempts))
         self.rebuild_mixture = rebuild_mixture
         self.return_metadata = return_metadata
+        self.verbose = verbose
+        self.chunk_hop = chunk_hop
         self._rng = random.Random(seed)
         self.augmentation = bool(augmentation) or isinstance(augmentation, dict)
         self._aug_config = _default_aug_config()
         if isinstance(augmentation, dict):
             self._aug_config.update({k: v for k, v in augmentation.items() if v is not None})
+        self._meta_base: Optional[Path] = None
+        if metadata_cache:
+            base = (Path(metadata_cache) if isinstance(metadata_cache, (str, os.PathLike))
+                    else self.root_dir / ".cache")
+            base.mkdir(parents=True, exist_ok=True)
+            self._meta_base = base
+        if chunk_cache is None:
+            self._chunk_base = self._meta_base
+        elif chunk_cache:
+            self._chunk_base = Path(chunk_cache)
+            self._chunk_base.mkdir(parents=True, exist_ok=True)
+        else:
+            self._chunk_base = None
         self.subset_dir = self.root_dir / subset
         if not self.subset_dir.exists():
             raise FileNotFoundError(f"Subset directory not found: {self.subset_dir}")
-        self.track_infos = self._scan()
+        self.track_infos = self._load_track_metadata()
         if not self.track_infos:
             raise ValueError(f"No tracks found in {self.subset_dir}")
-        if verbose:
-            print(f"Loaded {len(self.track_infos)} tracks from {subset} subset")
+        self._chunk_index: Optional[List[Tuple[int, int]]] = None
+        if precompute_chunks:
+            if segment_length is None:
+                raise ValueError("precompute_chunks requires segment_length")
+            self._chunk_index = self._load_or_build_chunk_index()
+        self._log(f"Loaded {len(self.track_infos)} tracks from {subset} subset")
+        if self._chunk_index is not None:
+            self._log(f"Prepared {len(self._chunk_index)} chunk descriptors")
+
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            print(msg)
+
+    # ------------------------------------------------------------ metadata
+
+    def _metadata_cache_path(self) -> Optional[Path]:
+        return None if self._meta_base is None else self._meta_base / f"{self.subset}_metadata.pkl"
+
+    def _chunk_cache_path(self) -> Optional[Path]:
+        if self._chunk_base is None:
+            return None
+        return (self._chunk_base
+                / f"{self.subset}_sr{self.sample_rate}_seg{self.segment_length or 0}.pkl")
+
+    def _metadata_config(self) -> Dict[str, Any]:
+        return {"root": str(self.root_dir), "subset": self.subset,
+                "sample_rate": self.sample_rate, "sources": tuple(self.sources)}
+
+    @staticmethod
+    def _resolve(directory: Path, stem: str) -> Optional[Path]:
+        for ext in FILE_TYPES:
+            p = directory / f"{stem}{ext}"
+            if p.exists():
+                return p
+        return None
+
+    def _load_track_metadata(self) -> List[TrackInfo]:
+        cache = self._metadata_cache_path()
+        if cache and cache.exists():
+            try:
+                with open(cache, "rb") as fh:
+                    payload = pickle.load(fh)
+                if (payload.get("version") == CACHE_VERSION
+                        and payload.get("config") == self._metadata_config()
+                        and "tracks" in payload):
+                    return [TrackInfo(t["name"], Path(t["directory"]), t["length"],
+                                      t["sample_rate"], t.get("channels", 2), Path(t["mixture"]),
+                                      {k: (Path(v) if v else None)
+                                       for k, v in t["sources"].items()})
+                            for t in payload["tracks"]]
+            except Exception:
+                self._log(f"Metadata cache at {cache} is invalid, rebuilding...")
+        tracks = self._scan()
+        if cache:
+            payload = {"version": CACHE_VERSION, "config": self._metadata_config(),
+                       "tracks": [{"name": t.name, "directory": str(t.directory),
+                                   "length": t.length, "sample_rate": t.sample_rate,
+                                   "channels": t.channels, "mixture": str(t.mixture_path),
+                                   "sources": {k: (str(v) if v else None)
+                                               for k, v in t.source_paths.items()}}
+                                  for t in tracks]}
+            with open(cache, "wb") as fh:
+                pickle.dump(payload, fh)
+        return tracks
 
     def _scan(self) -> List[TrackInfo]:
         tracks = []
         for directory in sorted(d for d in self.subset_dir.iterdir() if d.is_dir()):
-            mixture = directory / "mixture.wav"
-            if not mixture.exists():
+            mixture = self._resolve(directory, "mixture")
+            if mixture is None:
+                self._log(f"Skipping {directory.name}: mixture not found")
                 continue
-            meta = audio_io.info(str(mixture))
-            paths = {}
-            for s in self.sources:
-                p = directory / f"{s}.wav"
-                paths[s] = p if p.exists() else None
+            try:
+                meta = audio_io.info(str(mixture))
+            except ValueError as exc:
+                self._log(f"Skipping {directory.name}: {exc}")
+                continue
             tracks.append(TrackInfo(directory.name, directory, meta.frames,
-                                    meta.sample_rate, meta.channels, mixture, paths))
+                                    meta.sample_rate, meta.channels, mixture,
+                                    {s: self._resolve(directory, s) for s in self.sources}))
         return tracks
 
+    # --------------------------------------------------------- chunk index
+
+    def _chunk_config(self) -> Dict[str, Any]:
+        return {"sample_rate": self.sample_rate, "segment_length": self.segment_length,
+                "chunk_hop": self.chunk_hop, "min_loudness": self.min_loudness,
+                "sources": tuple(self.sources)}
+
+    def _load_or_build_chunk_index(self) -> List[Tuple[int, int]]:
+        cache = self._chunk_cache_path()
+        if cache and cache.exists():
+            try:
+                with open(cache, "rb") as fh:
+                    payload = pickle.load(fh)
+                if (payload.get("version") == CACHE_VERSION
+                        and payload.get("config") == self._chunk_config()
+                        and "chunks" in payload):
+                    return payload["chunks"]
+            except Exception:
+                self._log(f"Chunk cache at {cache} is invalid, rebuilding...")
+        chunks = self._build_chunk_index()
+        if cache:
+            with open(cache, "wb") as fh:
+                pickle.dump({"version": CACHE_VERSION, "config": self._chunk_config(),
+                             "chunks": chunks}, fh)
+        return chunks
+
+    def _build_chunk_index(self) -> List[Tuple[int, int]]:
+        """(track index, offset) of every chunk that passes the loudness
+        filter, tracks in order; every track's first chunk when none does."""
+        chunks: List[Tuple[int, int]] = []
+        for idx, track in enumerate(self.track_infos):
+            frames = self._frames(track.sample_rate)
+            hop = max(int(round((self.chunk_hop if self.chunk_hop is not None
+                                 else max(self.segment_length // 2, 1))
+                                * track.sample_rate / self.sample_rate)), 1)
+            offsets = ([0] if track.length <= frames
+                       else list(range(0, track.length - frames + 1, hop)) or [0])
+            loud = self._scan_loudness(track, frames, hop, len(offsets))
+            if loud is not None:
+                chunks += [(idx, off) for off, ok in zip(offsets, loud) if ok]
+                continue
+            for off in offsets:
+                if self._passes_loudness(self._load_chunk(track, off)):
+                    chunks.append((idx, off))
+        return chunks or [(i, 0) for i in range(len(self.track_infos))]
+
+    def _scan_loudness(self, track: TrackInfo, frames: int, hop: int,
+                       n_offsets: int) -> Optional[List[bool]]:
+        """Per-offset pass/fail in one pass over each WAV stem (the JAX
+        package's native ``wav_scan_meanabs``: float64 prefix sums of |x| over
+        frames and channels, windows zero-padded past the end, mean over
+        ``frames x channels``); None where a stem is not WAV or the track's
+        rate is not the dataset's (the caller reads each chunk)."""
+        if self.min_loudness <= 0:
+            return [True] * n_offsets
+        if track.sample_rate != self.sample_rate:
+            return None
+        paths = [p for s, p in track.source_paths.items()
+                 if s in self.sources and p is not None and p.exists()] or [track.mixture_path]
+        if any(audio_io.is_flac(str(p)) for p in paths):
+            return None
+        best = None
+        for p in paths:
+            data, _ = audio_io.read(str(p))
+            total, ch = data.shape
+            prefix = np.concatenate([[0.0], np.cumsum(np.abs(data).astype(np.float64).sum(1))])
+            a = np.minimum(np.arange(n_offsets) * hop, total)
+            b = np.minimum(a + frames, total)
+            mean = (prefix[b] - prefix[a]) / (float(frames) * ch)
+            best = mean if best is None else np.maximum(best, mean)
+        return [bool(v >= self.min_loudness) for v in best]
+
     def __len__(self) -> int:
+        if self._chunk_index is not None:
+            return len(self._chunk_index)
         return len(self.track_infos)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         track = None
         if self.segment_length is None:
-            track = self.track_infos[idx % len(self)]
+            track = self.track_infos[idx % len(self.track_infos)]
             sample = self._load_chunk(track, 0, full=True)
+        elif self._chunk_index is not None:
+            tidx, off = self._chunk_index[idx % len(self._chunk_index)]
+            track = self.track_infos[tidx]
+            sample = self._load_chunk(track, off)
         elif self.random_chunks and self.subset == "train":
             sample, track = self._sample_random_chunk()
         else:
-            track = self.track_infos[idx % len(self)]
+            track = self.track_infos[idx % len(self.track_infos)]
             sample = self._load_chunk(track, 0)
         mix_only = False
         if self.augmentation and self.subset == "train":

@@ -1,7 +1,8 @@
 """Speech-separation mixture datasets (the JAX package's ``data/speech.py``):
 the ``mix/ s1/ s2/ [...]`` parallel-directory layout of wsj0-2mix, WHAMR and
-LibriMix, read with numpy.  FLAC files are listed, as in the JAX dataset,
-and refused when read (ROADMAP.md, Queue 1: serving leftovers)."""
+LibriMix.  WAV and FLAC files are listed, as in the JAX dataset, and read
+through ``data/audio_io.py`` (WAV with numpy, FLAC with the native
+decoder)."""
 
 from __future__ import annotations
 

@@ -9,9 +9,10 @@ model of an optional config file's ``model:`` section (else the
 does the same for the speech family's ``TFLocoformerSeparator`` from a
 ``SpeechConfig`` (the trainer's checkpoints, or an ESPnet ``.pth`` whose
 ``separator.`` prefix is stripped).  Orbax checkpoint directories need JAX
-to read and are not accepted (ROADMAP.md).  Both load bf16 blocks with the
-fp32 islands by default: the fused step kernels take bf16 rows only, and an
-fp32 model raises on the card rather than rerouting.
+to read and are not accepted (ROADMAP.md).  ``load_model`` loads bf16 blocks
+with the fp32 islands by default; ``load_speech_separator`` loads fp32
+blocks, as the JAX loader builds its separator (the fused steps take fp32
+rows on the card through ``ops/cuda/step_fp32.py``).
 
 ``separate_audio`` loads a WAV at the model rate and separates it with the
 chunked overlap-add engine.  A mono model sees the channel mean and its
@@ -33,7 +34,7 @@ import torch
 
 from ..convert.torch_ckpt import load_torch_checkpoint
 from ..core.config import ModelConfig, SpeechConfig, load_model_config
-from ..core.precision import BF16, Precision
+from ..core.precision import BF16, FP32, Precision
 from ..models import build_model
 from ..models.tflocoformer import TFLocoformerSeparator
 from ..utils.audio import load_audio, save_audio
@@ -68,11 +69,13 @@ def load_model(checkpoint_path: str, config_path: Optional[str] = None,
 
 
 def load_speech_separator(checkpoint_path: str, cfg: SpeechConfig,
-                          precision: Precision = BF16,
+                          precision: Precision = FP32,
                           device="cuda") -> TFLocoformerSeparator:
     """The ``TFLocoformerSeparator`` of ``cfg.separator`` with a ``.pth``'s
     weights (the trainer's checkpoint, a raw state_dict, or ESPnet's
-    ``separator.``-prefixed dict), on ``device`` in eval mode."""
+    ``separator.``-prefixed dict), on ``device`` in eval mode; fp32 blocks
+    by default, as the JAX loader (``module_kwargs()`` with the separator's
+    fp32 default)."""
     state = _state_dict(checkpoint_path)
     module = TFLocoformerSeparator(cfg.separator, precision)
     module.load_state_dict(state, strict=True)

@@ -17,13 +17,12 @@ The state_dict is the reference separator's: ``conv.0`` (Conv2d), ``conv.1``
 (GroupNorm), ``blocks.{i}.*`` and ``deconv``.  ``train()``/``eval()`` decide
 dropout, whose seeds come from the ``generator`` passed to ``forward``.
 
-Precision: the JAX separator runs its blocks in fp32 by default.  The fused
-step kernels take bf16 rows only, so on the card the speech entry points
-build bf16 blocks with the fp32 islands kept (``infer/separate.py::
-load_speech_separator``, the trainer's ``use_amp``); an fp32 model on a CUDA
-device raises in the first fused step rather than rerouting (fp32 rows are
-ROADMAP.md, Queue 1: serving leftovers).  On the CPU every precision runs
-the steps' plain versions.
+Precision: fp32 blocks by default, as the JAX separator's.  The speech
+entry points serve and evaluate fp32 blocks (``infer/separate.py::
+load_speech_separator``, as the JAX loader) and train at the trainer's
+``use_amp`` (bf16 blocks with fp32 islands, or fp32).  On the card the fused
+steps take either dtype (fp32 rows through ``ops/cuda/step_fp32.py``); on
+the CPU every precision runs the steps' plain versions.
 """
 
 from __future__ import annotations

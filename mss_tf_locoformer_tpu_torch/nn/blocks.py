@@ -11,13 +11,14 @@ block does (``block_step_applicable``, ``attn_step_applicable``): with
 ``rmsgroupnorm`` pre-norms, an FFN step with ``fused_ffn`` and stride 1 is
 the fused FFN-step kernel, and the attention step with ``flash_attention``
 the fused attention-step kernel, when their gates admit the step's widths
-(``supports_step``, ``supports_block``: the kernels' shared-memory layouts
-on an H100, the backward's too in training mode).  Otherwise the step runs
+in the rows' dtype (``supports_step``, ``supports_block``: the bf16 or the
+fp32 kernels' shared-memory layouts on an H100, the backward's too in
+training mode).  Otherwise the step runs
 as norm + module + residual, and the modules take the flash-attention and
 FFN-core kernels under the same flags (``nn/attention.py``,
 ``nn/ffn.py``); that is the xlarge config's route (C 256) and every
-LayerNorm config's.  The route is decided from shapes and ``self.training``
-before any launch, never from a failure.
+LayerNorm config's.  The route is decided from shapes, the rows' dtype and
+``self.training`` before any launch, never from a failure.
 
 Dropout: in training mode (``module.train()``) with a rate above 0, each
 step takes one int32 seed from the caller's ``torch.Generator`` (FFN before
@@ -55,10 +56,12 @@ from ..ops.cuda.swiglu_block import supports_step
 from ..ops.dropout import draw_seed
 
 from .attention import MultiHeadSelfAttention
-from .ffn import SwiGLUConvDeconv1d
+from .ffn import ConvDeconv1d, SwiGLUConvDeconv1d
 from .norms import LayerNorm, RMSGroupNorm
 
 __all__ = ["LocoformerBlock", "TFLocoformerBlock"]
+
+_FFN = {"conv1d": ConvDeconv1d, "swiglu_conv1d": SwiGLUConvDeconv1d}
 
 
 class LocoformerBlock(nn.Module):
@@ -72,9 +75,8 @@ class LocoformerBlock(nn.Module):
         macaron = isinstance(ffn_type, (tuple, list))
         types = tuple(ffn_type)[::-1] if macaron else (ffn_type,)
         dims = tuple(ffn_hidden_dim)[::-1] if macaron else (ffn_hidden_dim,)
-        if any(t != "swiglu_conv1d" for t in types):
-            raise NotImplementedError(
-                "ffn_type 'conv1d' is not ported yet (ROADMAP.md, Queue 1: serving leftovers)")
+        if any(t not in _FFN for t in types):
+            raise ValueError(f"unknown ffn_type {ffn_type} (expected {sorted(_FFN)})")
         self.num_groups, self.eps, self.dropout = num_groups, eps, dropout
         self.remat_ffn = remat_ffn
 
@@ -85,28 +87,34 @@ class LocoformerBlock(nn.Module):
 
         self.ffn_norm = nn.ModuleList(norm() for _ in types)
         self.ffn = nn.ModuleList(
-            SwiGLUConvDeconv1d(emb_dim, d, conv1d_kernel, conv1d_shift, fused=fused_ffn)
-            for d in dims)
+            _FFN[t](emb_dim, d, conv1d_kernel, conv1d_shift, fused=fused_ffn)
+            for t, d in zip(types, dims))
         self.attn_norm = norm()
         self.attn = MultiHeadSelfAttention(emb_dim, attention_dim, n_heads,
                                            use_rope=use_rope, flash=flash_attention)
         rms = norm_type == "rmsgroupnorm"
         self._widths = (emb_dim, attention_dim, n_heads, dims, conv1d_kernel)
+        self._swiglu = [t == "swiglu_conv1d" for t in types]
         self._fusable = (fused_ffn and rms and conv1d_shift == 1, flash_attention and rms)
         self.mp = 1
         self._step_routes = self._routes(1)
 
     def _routes(self, mp: int):
-        """(training?) -> route of each FFN step and of the attention step, at
-        the widths of one of ``mp`` shards."""
+        """(training?, fp32 rows?) -> route of each FFN step and of the
+        attention step, at the widths of one of ``mp`` shards."""
         c, a, h, dims, k = self._widths
         ffn_ok, attn_ok = self._fusable
-        return {training: ([ffn_ok and d % mp == 0
-                            and supports_step(c, d // mp, k, training, self.num_groups)
-                            for d in dims],
-                           attn_ok and h % mp == 0
-                           and supports_block(c, a // mp, h // mp, training))
-                for training in (False, True)}
+        out = {}
+        for training in (False, True):
+            for fp32 in (False, True):
+                dt = torch.float32 if fp32 else torch.bfloat16
+                out[training, fp32] = (
+                    [ffn_ok and swiglu and d % mp == 0
+                     and supports_step(c, d // mp, k, training, self.num_groups, dt)
+                     for d, swiglu in zip(dims, self._swiglu)],
+                    attn_ok and h % mp == 0
+                    and supports_block(c, a // mp, h // mp, training, dt))
+        return out
 
     def shard(self, mp: int) -> None:
         """Set this block to hold one of ``mp`` shards of its heads and inner
@@ -119,9 +127,10 @@ class LocoformerBlock(nn.Module):
             f.dim_inner //= mp
         self._step_routes = self._routes(mp)
 
-    def fused_steps(self):
-        """``([fused FFN step i], fused attention step)`` in the current mode."""
-        routes = self._step_routes[self.training]
+    def fused_steps(self, fp32: bool = False):
+        """``([fused FFN step i], fused attention step)`` in the current mode,
+        for bf16 rows or (``fp32``) fp32 rows."""
+        routes = self._step_routes[self.training, fp32]
         if self.mp > 1 and not (all(routes[0]) and routes[1]):
             c, a, h, dims, k = self._widths
             raise ValueError(
@@ -147,7 +156,7 @@ class LocoformerBlock(nn.Module):
 
     def _ffn_step(self, x: torch.Tensor, i: int, seed: Optional[int]) -> torch.Tensor:
         rate, seed = self._drop(seed)
-        if self.fused_steps()[0][i]:
+        if self.fused_steps(x.dtype == torch.float32)[0][i]:
             return self.ffn[i].fused_step(x, self.ffn_norm[i].gamma,
                                           self.num_groups, self.eps, rate, seed)
         ffn, xn = self.ffn[i], self.ffn_norm[i](x)
@@ -169,7 +178,7 @@ class LocoformerBlock(nn.Module):
         b, s1, s2, c = x.shape
         rows = x.reshape(b * s1, s2, c)
         rate, seed = self._drop(next(step))
-        if self.fused_steps()[1]:
+        if self.fused_steps(rows.dtype == torch.float32)[1]:
             rows = self.attn.fused_step(rows, self.attn_norm.gamma,
                                         self.num_groups, self.eps, rate, seed)
         else:

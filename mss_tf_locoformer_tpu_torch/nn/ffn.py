@@ -16,8 +16,14 @@ otherwise through torch's convolutions (any stride).  ``fused_step`` runs ``x + 
 fused FFN-step kernel (``ops/cuda/swiglu_block.py``), stride 1 only.  Both
 take a dropout rate and an int32 seed (drawn per call by the block): the
 unfused path applies the kernels' masks (``ops/dropout.py``) at the same two
-sites, the SwiGLU output and the cropped output.  The ``conv1d`` FFN type (the reference's
-``ConvDeconv1d``) is not ported yet.
+sites, the SwiGLU output and the cropped output.
+
+:class:`ConvDeconv1d` is the ``conv1d`` FFN type (the reference's, the JAX
+package's ``nn/ffn.py::ConvDeconv1d``): Conv1d(dim -> inner) -> SiLU ->
+dropout -> ConvTranspose1d(inner -> dim) -> crop -> dropout, the same
+padding; its layers sit in ``net`` at the reference's indices (``net.0``
+the conv, ``net.3`` the deconv).  It has a plain path only, as in the JAX
+package (no kernel takes it); ``fused`` is accepted for API parity.
 
 Under a mesh (``parallel/mesh.py::activate_mesh``) the seed of a data-
 parallel rank folds in its dp index (``parallel/tp_fused.py::dp_seed``),
@@ -42,7 +48,7 @@ from ..ops.cuda.swiglu_block import fused_norm_ffn_residual, inner_mask
 from ..parallel.mesh import active_mesh, tp_mesh
 from ..parallel.tp_fused import dp_seed, tp_ffn_step
 
-__all__ = ["SwiGLUConvDeconv1d"]
+__all__ = ["SwiGLUConvDeconv1d", "ConvDeconv1d"]
 
 
 def _pad_len(s2: int, kernel: int, shift: int) -> int:
@@ -125,3 +131,41 @@ class SwiGLUConvDeconv1d(nn.Module):
             y = D.apply_mask(y, D.row_mask(dp_seed(seed, mesh), D.SITE_FFN_OUTER, y, 0,
                                            drop_rate), drop_rate)
         return (rows + y).reshape(b, s1, s2, c)
+
+
+class ConvDeconv1d(nn.Module):
+    """The ``conv1d`` FFN: ``x [B, S1, S2, C]`` -> Conv1d -> SiLU -> dropout
+    -> ConvTranspose1d -> crop -> dropout, computed in ``x.dtype``; dropout
+    at the SwiGLU FFN's two sites (inner: row, conv position, inner channel;
+    outer: row, position, channel), rows ``B*S1``."""
+
+    def __init__(self, dim: int, dim_inner: int, conv1d_kernel: int, conv1d_shift: int,
+                 fused: bool = False):
+        super().__init__()
+        self.dim_inner = dim_inner
+        self.mp = 1
+        self.kernel, self.shift = conv1d_kernel, conv1d_shift
+        self.net = nn.Sequential(
+            nn.Conv1d(dim, dim_inner, conv1d_kernel, stride=conv1d_shift), nn.SiLU(),
+            nn.Identity(),   # the inner dropout site (the forward applies its mask)
+            nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel, stride=conv1d_shift))
+
+    fused = False   # no kernel: the plain path in every mode
+
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
+        b, s1, s2, c = x.shape
+        diff_ks = self.kernel - self.shift
+        dt = x.dtype
+        seed = dp_seed(seed, active_mesh())
+        conv, deconv = self.net[0], self.net[3]
+        y = F.pad(x.reshape(b * s1, s2, c).transpose(1, 2),
+                  (diff_ks, _pad_len(s2, self.kernel, self.shift) - s2 - diff_ks))
+        y = F.silu(F.conv1d(y, conv.weight.to(dt), conv.bias.to(dt), stride=self.shift))
+        if drop_rate > 0.0:
+            y = D.apply_mask(y, inner_mask(seed, y, 0, drop_rate), drop_rate)
+        y = F.conv_transpose1d(y, deconv.weight.to(dt), deconv.bias.to(dt), stride=self.shift)
+        y = y[:, :, diff_ks:diff_ks + s2].transpose(1, 2)
+        if drop_rate > 0.0:
+            y = D.apply_mask(y, D.row_mask(seed, D.SITE_FFN_OUTER, y, 0, drop_rate), drop_rate)
+        return y.reshape(b, s1, s2, c)

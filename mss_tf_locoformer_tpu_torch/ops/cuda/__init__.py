@@ -28,19 +28,20 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import torch
 
 __all__ = ["SOURCES", "BUILD_DIR", "SMEM_OPTIN", "load", "build_all", "check",
-           "ptr", "stream_handle", "weight_splits", "wgrad_splits"]
+           "ptr", "stream_handle", "weight_splits", "wgrad_splits", "cached_panels"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("stft", "swiglu_block", "attention_block", "flash_attention",
-           "swiglu_ffn", "dropout")
+           "swiglu_ffn", "dropout", "step_fp32")
 # Shared memory one block may opt into on an H100 (227 KB): the ceiling the
 # step gates (``supports_step``, ``supports_block``) hold the layouts to.
 SMEM_OPTIN = 232448
@@ -113,6 +114,22 @@ def build_all() -> float:
     for name in SOURCES:
         load(name)
     return time.perf_counter() - t0
+
+
+def cached_panels(store, key: torch.Tensor, others, make):
+    """The kernel layouts ``make()`` builds from the weights ``key`` and
+    ``others``, kept in ``store`` (a ``WeakIdKeyDictionary``): a step's
+    forward, its backward and a remat replay reuse one layout, and serving
+    lays each step's weights out once.  An entry holds the weights weakly
+    with their versions (an in-place update, as an optimizer step, bumps
+    them), so a stale layout is never used."""
+    ver = tuple(t._version for t in (key, *others))
+    hit = store.get(key)
+    if hit is not None and all(r() is o for r, o in zip(hit[0], others)) and hit[1] == ver:
+        return hit[2]
+    panels = make()
+    store[key] = (tuple(weakref.ref(o) for o in others), ver, panels)
+    return panels
 
 
 def check(rc: int, what: str) -> None:

@@ -26,12 +26,14 @@ through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedAttentionStep` or raises.  The forward keeps what the backward
 needs only when a gradient is asked for: q' = R(q) scale log2 e, k after
 RoPE, v, the head outputs o and the per-query log-sum-exp in log2 units.
-The kernels take bf16 rows only (fp32 rows on the card are a later item,
-ROADMAP.md).
+bf16 rows take the kernels of this module; fp32 rows take the fp32
+kernels of ``ops/cuda/step_fp32.py`` (``csrc/step_fp32.cu``: the same
+contract, the stash in fp32), and no fp32 tensor is cast to bf16.
 
 :func:`supports_block` is the block's gate: whether the kernels serve a step
-of width C, attention width A and H heads, decided from the shared-memory
-layouts of the .cu file (the QKV launch, the streaming core, the
+of width C, attention width A and H heads in the rows' dtype (fp32:
+``step_fp32.supports_attention``), decided from the shared-memory layouts
+of the .cu file (the QKV launch, the streaming core, the
 out-projection and, in training, the four backward launches) before any
 launch, the same on the CPU and on the card.  Per call, the sequence length
 decides between the resident and the streaming core
@@ -49,7 +51,7 @@ from ...nn.norms import rms_group_norm
 from .. import dropout as D
 from ..attention import dot_product_attention
 from ..rope import apply_rope, rope_angles
-from . import SMEM_OPTIN, check, load, ptr, stream_handle, wgrad_splits
+from . import SMEM_OPTIN, check, load, ptr, step_fp32, stream_handle, wgrad_splits
 
 __all__ = ["fused_attention_block", "reference_attention_block",
            "FusedAttentionStep", "probability_mask", "launch_bytes",
@@ -122,11 +124,15 @@ def compiled_core_resident_bytes(seq: int) -> int:
     return fn(seq)
 
 
-def supports_block(c: int, a: int, h: int, training: bool) -> bool:
-    """Whether the attention-step kernels serve a step: an instantiated
-    width, even head_dim <= 32, an attention width of whole 16-byte chunks
-    (a multiple of 8: 24 is a shard of one head of 24), and layouts within
-    :data:`SMEM_OPTIN`."""
+def supports_block(c: int, a: int, h: int, training: bool,
+                   dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the attention-step kernels serve a step of rows of
+    ``dtype``: for bf16 an instantiated width, even head_dim <= 32, an
+    attention width of whole 16-byte chunks (a multiple of 8: 24 is a shard
+    of one head of 24), and layouts within :data:`SMEM_OPTIN`; for fp32
+    ``step_fp32.supports_attention``."""
+    if dtype == torch.float32:
+        return step_fp32.supports_attention(c, a, h, training)
     d = a // h if a % h == 0 else 0
     return (c in _CHANNELS and a % 8 == 0 and d % 2 == 0 and 0 < d <= _DP
             and max(launch_bytes(c, a, h, training).values()) <= SMEM_OPTIN)
@@ -203,9 +209,11 @@ def _check(x, gamma, w_qkv, w_out, n_heads, num_groups):
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_attention_block: the CUDA kernel takes bf16 "
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_attention_block: the CUDA kernels take bf16 or fp32 "
                         f"rows, got {x.dtype}")
+    if x.dtype == torch.float32 and x.data_ptr() % 16:
+        raise ValueError("fused_attention_block: fp32 x must be 16-byte aligned")
     if not x.is_contiguous():
         raise ValueError("fused_attention_block: x must be contiguous")
     if (c not in _CHANNELS or a % 8 or d % 2 or d > _DP or a != n_heads * d
@@ -232,7 +240,11 @@ def attention_step_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
                            rope=True, theta=10000.0, drop_rate=0.0, seed=0,
                            row0=0, residual=True, stash=False):
     """The forward kernels (no autograd).  Returns ``out`` or, with
-    ``stash``, ``(out, (q, k, v, o, lse))`` for the backward."""
+    ``stash``, ``(out, (q, k, v, o, lse))`` for the backward.  fp32 rows take
+    ``step_fp32.attention_forward``."""
+    if x.dtype == torch.float32:
+        return step_fp32.attention_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps,
+                                           rope, theta, drop_rate, seed, row0, residual, stash)
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads
@@ -263,7 +275,12 @@ def attention_step_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
                             drop_rate=0.0, seed=0, row0=0, residual=True):
     """The backward kernels (one counted launch) from the forward's stash:
     returns ``(dx, dgamma, dw_qkv, dw_out)`` in torch layouts (fp32 for the
-    weights, ``x.dtype`` for dx)."""
+    weights, ``x.dtype`` for dx).  fp32 rows take
+    ``step_fp32.attention_backward``."""
+    if x.dtype == torch.float32:
+        return step_fp32.attention_backward(g, x, gamma, w_qkv, w_out, stash, n_heads,
+                                            num_groups, eps, rope, theta, drop_rate, seed,
+                                            row0, residual)
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads

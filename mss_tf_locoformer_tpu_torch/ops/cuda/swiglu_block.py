@@ -23,8 +23,10 @@ shards, where autograd gives the bias its gradient).  The JAX package's
 Dispatch: a CPU tensor takes :func:`reference_norm_ffn_residual` (autograd
 through plain ops); a CUDA tensor runs the kernels through
 :class:`FusedFFNStep` (forward kernel, and the backward kernels when a
-gradient is asked for) or raises.  The kernels take bf16 rows only (fp32
-rows on the card are a later item, ROADMAP.md).  Two routes, by width
+gradient is asked for) or raises.  bf16 rows take the kernels of this
+module; fp32 rows take the fp32 kernels of ``ops/cuda/step_fp32.py``
+(``csrc/step_fp32.cu``), and no fp32 tensor is cast to bf16.  For bf16
+rows, two routes, by width
 (:func:`hopper_route`): at C 96 and 128 the Hopper kernels (wgmma, bulk
 copies and mbarrier rings; 128 conv positions a block; the inner dimension
 in 64-channel chunks, zero-padded to a multiple of 64), whose weight stages
@@ -35,15 +37,15 @@ the FFN core's GEMM; at C 32 and 64 the wmma kernels (64 conv outputs a
 block, 32-channel chunks, :func:`ffn_panels`).
 
 :func:`supports_step` is the block's gate: whether the kernels serve a step
-of width C, inner I and k taps, decided from the shared-memory layouts of
-the .cu file (forward and, in training, backward) before any launch, with
-the same answer on the CPU and on the card.
+of width C, inner I and k taps in the rows' dtype, decided from the
+shared-memory layouts of the .cu file (forward and, in training, backward;
+fp32: ``step_fp32.supports_ffn``) before any launch, with the same answer
+on the CPU and on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +53,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ...nn.norms import rms_group_norm
 from .. import dropout as D
-from . import SMEM_OPTIN, check, load, ptr, stream_handle, weight_splits, wgrad_splits
+from . import (SMEM_OPTIN, cached_panels, check, load, ptr, step_fp32, stream_handle,
+               weight_splits, wgrad_splits)
 
 __all__ = ["fused_norm_ffn_residual", "reference_norm_ffn_residual",
            "ffn_panels", "inner_mask", "FusedFFNStep", "IC", "step_bytes",
@@ -132,11 +135,15 @@ def groups_fit(c: int, num_groups: int) -> bool:
                                      or (num_groups <= MAX_GROUPS and c // num_groups % 8 == 0)))
 
 
-def supports_step(c: int, inner: int, k: int, training: bool, num_groups: int = 1) -> bool:
-    """Whether the FFN-step kernels serve a step: a width of the .cu file,
-    2 <= k <= 8, whole 32-channel chunks on the wmma route (the Hopper
-    route pads the inner dimension), norm groups the kernels take
-    (:func:`groups_fit`), and layouts within :data:`SMEM_OPTIN`."""
+def supports_step(c: int, inner: int, k: int, training: bool, num_groups: int = 1,
+                  dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the FFN-step kernels serve a step of rows of ``dtype``: for
+    bf16 a width of the .cu file, 2 <= k <= 8, whole 32-channel chunks on
+    the wmma route (the Hopper route pads the inner dimension), norm groups
+    the kernels take (:func:`groups_fit`), and layouts within
+    :data:`SMEM_OPTIN`; for fp32 ``step_fp32.supports_ffn``."""
+    if dtype == torch.float32:
+        return step_fp32.supports_ffn(c, inner, k, training, num_groups)
     return (c in _CHANNELS and inner > 0 and (hopper_route(c) or inner % IC == 0)
             and 2 <= k <= 8 and groups_fit(c, num_groups)
             and step_bytes(c, k, training) <= SMEM_OPTIN)
@@ -226,22 +233,13 @@ def wg_step_panels(conv_w, conv_b, deconv_w, dtype=torch.bfloat16):
     return panels.to(dtype).contiguous(), b
 
 
-# The Hopper stages of the weights they were laid out from: a step's
-# forward, its backward and a remat replay reuse one layout, and serving
-# lays each step's weights out once.  An entry holds the three tensors
-# weakly with their versions (an in-place update, as an optimizer step,
-# bumps them), so a stale layout is never used.
+# The Hopper stages of the weights they were laid out from (cached_panels)
 _PANELS = WeakIdKeyDictionary()
 
 
 def _step_panels(conv_w, conv_b, deconv_w):
-    ver = (conv_w._version, conv_b._version, deconv_w._version)
-    hit = _PANELS.get(conv_w)
-    if hit is not None and hit[0]() is conv_b and hit[1]() is deconv_w and hit[2] == ver:
-        return hit[3]
-    panels = wg_step_panels(conv_w, conv_b, deconv_w)
-    _PANELS[conv_w] = (weakref.ref(conv_b), weakref.ref(deconv_w), ver, panels)
-    return panels
+    return cached_panels(_PANELS, conv_w, (conv_b, deconv_w),
+                         lambda: wg_step_panels(conv_w, conv_b, deconv_w))
 
 
 def wg_step_plan(rows: int, seq: int, c: int, inner: int, k: int,
@@ -317,13 +315,16 @@ def _wg_bwd_fn():
 def _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups):
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_norm_ffn_residual: the CUDA kernel takes bf16 "
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_norm_ffn_residual: the CUDA kernels take bf16 or fp32 "
                         f"rows, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_norm_ffn_residual: x must be contiguous and 16-byte aligned")
-    if (c not in _CHANNELS or (not hopper_route(c) and inner % IC) or not 2 <= kernel <= 8
-            or not groups_fit(c, num_groups)):
+    fits = (step_fp32.supports_ffn(c, inner, kernel, False, num_groups)
+            if x.dtype == torch.float32 else
+            c in _CHANNELS and (hopper_route(c) or inner % IC == 0) and 2 <= kernel <= 8
+            and groups_fit(c, num_groups))
+    if not fits:
         raise ValueError(f"fused_norm_ffn_residual: unsupported shape C={c} "
                          f"I={inner} k={kernel} groups={num_groups}")
     if conv_w.shape != (2 * inner, c, kernel) or deconv_w.shape != (inner, c, kernel):
@@ -336,7 +337,10 @@ def _check(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups):
 def ffn_step_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
                      num_groups, eps, drop_rate=0.0, seed=0, row0=0, residual=True):
     """One launch of the forward kernel (no autograd); ``residual=False``
-    takes ``deconv_b`` None."""
+    takes ``deconv_b`` None.  fp32 rows take ``step_fp32.ffn_forward``."""
+    if x.dtype == torch.float32:
+        return step_fp32.ffn_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel,
+                                     num_groups, eps, drop_rate, seed, row0, residual)
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     g32 = gamma.to(torch.float32).contiguous()
@@ -400,7 +404,12 @@ def ffn_step_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
     """The backward kernels (one counted launch): returns ``(dx, dgamma,
     dconv_w, dconv_b, ddeconv_w, ddeconv_b)`` in torch layouts (fp32 for the
     weights, ``x.dtype`` for dx; ``ddeconv_b`` zero with ``residual=False``).
-    ``scratch_cap`` bounds the Hopper route's scratch (its row groups)."""
+    ``scratch_cap`` bounds the Hopper route's scratch (its row groups), and
+    the fp32 route's (``step_fp32.ffn_backward``)."""
+    if x.dtype == torch.float32:
+        return step_fp32.ffn_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel,
+                                      num_groups, eps, drop_rate, seed, row0, residual,
+                                      scratch_cap=scratch_cap)
     r, seq, c = x.shape
     inner = deconv_w.shape[0]
     k = kernel

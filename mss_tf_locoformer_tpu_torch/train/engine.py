@@ -1,5 +1,6 @@
 """Trainer plumbing (the JAX package's ``train/engine.py``): the epoch loop
-over device-prefetched batches and optional TensorBoard scalars.  The only
+over device-prefetched batches, the step profiler's window and optional
+TensorBoard scalars.  The only
 per-step host sync is the scalar loss read for logging."""
 
 from __future__ import annotations
@@ -40,15 +41,21 @@ class Scalars:
 def run_train_epoch(step_fn: Callable, host_batches: Iterable[Dict], *, device,
                     prefetch: int, lr_ctl, step: int, epoch: int,
                     log_interval: int, log: Callable[[str], None],
-                    scalars: Scalars) -> Tuple[int, float]:
+                    scalars: Scalars, profiler=None) -> Tuple[int, float]:
     """One epoch: ``step_fn(batch, lr) -> loss dict`` on each batch (its
-    arrays already on ``device``).  Returns ``(step, mean loss)``."""
+    arrays already on ``device``), each step inside ``profiler``'s
+    ``step_start`` / ``step_end`` (``utils/profiling.py::StepProfiler``),
+    the end after the loss's host sync.  Returns ``(step, mean loss)``."""
     meter = AverageMeter()
     t0 = time.time()
     for i, batch in enumerate(prefetch_to_device(host_batches, device, prefetch)):
         lr = lr_ctl.lr_at(step)
+        if profiler is not None:
+            profiler.step_start(step)
         ld = step_fn(batch, lr)
         loss = float(ld["total_loss"])  # host sync
+        if profiler is not None:
+            profiler.step_end(step)
         step += 1
         meter.update(loss, batch["mixture"].shape[0])
         if i % log_interval == 0:

@@ -30,8 +30,10 @@ rows; chunk and augmentation draws seeded ``seed + 7919 * dp_index``, as
 the JAX trainer seeds by process index), each step averages the gradients
 over dp (``train/step.py``), validation scores every dp-th track and sums
 its meters over dp, only rank 0 logs, and checkpoints keep the reference
-schema (``train/checkpoint.py``).  Not ported yet (ROADMAP.md): the step
-profiler, orbax checkpoints.
+schema (``train/checkpoint.py``).  ``profile_steps`` traces the steps
+``[profile_start_step, profile_start_step + profile_steps)`` with
+``torch.profiler`` (``utils/profiling.py``; the coordinator only) and logs
+the step-time statistics.  Orbax checkpoints are not read (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..parallel import mesh as M
 from ..parallel import multihost as MH
 from ..parallel.sharding import shard_module, validate_tp
 from ..utils.common import AverageMeter, count_parameters, format_time, set_seed
+from ..utils.profiling import StepProfiler
 from .checkpoint import CheckpointManager
 from .engine import Scalars, make_writer, run_train_epoch
 from .schedule import EarlyStopping
@@ -99,9 +102,6 @@ class Trainer:
         if config.training.batch_size % self.mesh.dp:
             raise ValueError(f"batch_size {config.training.batch_size} does not divide "
                              f"over dp={self.mesh.dp}")
-        if config.training.profile_steps:
-            raise NotImplementedError("the step profiler is not ported yet "
-                                      "(ROADMAP.md, Queue 1: training leftovers)")
         self.verbose = verbose and MH.is_coordinator()
         set_seed(config.seed)
         self.output_dir = output_dir or config.paths.output_dir
@@ -123,6 +123,11 @@ class Trainer:
         self.ckpt = CheckpointManager(os.path.join(self.output_dir, "checkpoints"),
                                       keep_last=tcfg.keep_last, save_best=tcfg.save_best)
         self.scalars = Scalars(make_writer(self.log_dir) if MH.is_coordinator() else None)
+        # a torch.profiler trace of steps [profile_start_step, + profile_steps),
+        # from the coordinator only
+        self.profiler = StepProfiler(
+            self.log_dir, n_steps=tcfg.profile_steps if MH.is_coordinator() else 0,
+            start_step=tcfg.profile_start_step)
         self.generator = torch.Generator().manual_seed(config.seed + 1)
         self.step = 0
         self.start_epoch = 0
@@ -160,7 +165,7 @@ class Trainer:
         d = self.config.dataset
         common = dict(sample_rate=d.sample_rate, sources=list(d.sources),
                       min_loudness=d.min_loudness, rebuild_mixture=d.rebuild_mixture,
-                      cache_dir=d.cache_dir, verbose=self.verbose)
+                      metadata_cache=d.cache_dir or True, verbose=self.verbose)
         train = MUSDBDataset(d.root_dir, "train", segment_length=d.segment_length,
                              augmentation=d.augmentation, random_chunks=d.random_chunks,
                              max_chunk_attempts=d.max_chunk_attempts,
@@ -271,7 +276,7 @@ class Trainer:
                 self._train_step, self._host_batches(train_loader), device=self.device,
                 prefetch=tcfg.prefetch_factor, lr_ctl=self.lr_ctl, step=self.step,
                 epoch=epoch, log_interval=tcfg.log_interval, log=self._log,
-                scalars=self.scalars)
+                scalars=self.scalars, profiler=self.profiler)
             self.scalars("train/loss_epoch", train_loss, epoch)
             msg = f"epoch {epoch}: train {train_loss:.4f} ({format_time(time.time() - t0)})"
             val_loss = None
@@ -296,6 +301,12 @@ class Trainer:
             if val_loss is not None and self.early_stop.step(val_loss):
                 self._log(f"Early stopping at epoch {epoch}")
                 break
+        self.profiler.close()
+        stats = self.profiler.stats()
+        if stats:
+            self._log("step time: " + "  ".join(f"{k}={v:.4g}" for k, v in stats.items()))
+        if self.profiler.trace_path:
+            self._log(f"profile trace: {self.profiler.trace_path}")
         self.scalars.close()
         return self.step
 

@@ -13,8 +13,8 @@ step.  ``SpeechTrainer`` is the MSS trainer (``train/loop.py``) with the
 speech model, data and validation: ``LRController`` (warmup x
 ReduceLROnPlateau), ``EarlyStopping``, ``CheckpointManager`` and
 ``run_train_epoch`` are shared, and so are its parallel runs (``config.mesh``
-over the ranks of ``torch.distributed``) and its refusal of
-``profile_steps``.  Batches are the channel mean:
+over the ranks of ``torch.distributed``) and its ``profile_steps`` trace
+window (``utils/profiling.py``).  Batches are the channel mean:
 ``[B, C, T]`` -> ``[B, T]`` and ``[B, S, C, T]`` -> ``[B, S, T]``.
 Validation runs every utterance whole at batch 1.
 """

@@ -1,6 +1,6 @@
 """WAV load/save on the host with numpy (the RIFF reader/writer the JAX
 package's ``data/audio_io.py`` falls back to), resampling with scipy.
-WAV only: other containers are a later item (ROADMAP.md)."""
+FLAC input goes through ``data/audio_io.py``'s native decoder."""
 
 from __future__ import annotations
 
@@ -95,9 +95,11 @@ def _write_wav(path: str, data: np.ndarray, sample_rate: int, bits: int) -> None
 def load_audio(path: str, sample_rate: Optional[int] = None,
                mono: bool = False) -> Tuple[np.ndarray, int]:
     """``[C, T]`` float32 and its rate; optional polyphase resample and mono mean."""
-    if not path.lower().endswith(".wav"):
-        raise ValueError(f"{path}: only WAV input is supported by the port yet")
-    data, sr = _read_wav(path)
+    if path.lower().endswith(".flac"):
+        from ..data.audio_io import read
+        data, sr = read(path)
+    else:
+        data, sr = _read_wav(path)
     audio = data.T
     if sample_rate is not None and sr != sample_rate:
         from scipy.signal import resample_poly

@@ -190,24 +190,127 @@ def test_ffn_step_too_large_for_shared_memory_raises(dev):
         FB.ffn_step_forward(x, torch.ones(128, device=dev), *w, 9, 4, 1e-5)
 
 
-def test_kernels_refuse_fp32_rows(dev):
-    x = torch.randn(2, 16, 32, device=dev)
+def test_kernels_refuse_fp16_rows(dev):
+    """bf16 rows take the step kernels, fp32 rows the fp32 ones; fp16 rows
+    neither (no cast)."""
+    x = torch.randn(2, 16, 32, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         FB.fused_norm_ffn_residual(x, x[0, 0], *(torch.zeros(1, device=dev),) * 4, 4, 4, 1e-5)
     with pytest.raises(TypeError):
         AB.fused_attention_block(x, x[0, 0], x, x, 2, 4, 1e-5)
 
 
-def test_fp32_speech_separator_raises_on_the_card(dev):
-    """An fp32 separator on the card raises in its first fused step; it is
-    not rerouted to the plain versions (the speech entry points load bf16
-    blocks)."""
+# fp32 rows (csrc/step_fp32.cu): fp32 operands and sums on both sides, so
+# outputs within FP32_TOL of max|ref| and gradients within FP32_REL_L2 (the
+# sums' order differs: ~1e-6 relative)
+FP32_TOL, FP32_REL_L2 = 1e-4, 1e-4
+
+
+def _check_fp32(out, ref_out, got, ref, names):
+    _close(out, ref_out, FP32_TOL)
+    for name, a, b in zip(names, got, ref):
+        assert torch.isfinite(a).all(), name
+        if b.abs().max().item() == 0:
+            assert not a.any(), name
+        elif name == "dx":
+            _close(a, b, FP32_TOL)
+        else:
+            assert _rel_l2(a, b) <= FP32_REL_L2, (name, _rel_l2(a, b))
+
+
+@pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(2, 1, 96, 384, 4), (3, 65, 128, 384, 4),
+                                             (2, 130, 64, 96, 3), (3, 61, 128, 192, 8),
+                                             (2, 37, 32, 64, 4)])
+def test_fp32_ffn_step_kernels(dev, r, seq, c, inner, k, drop, residual):
+    """#2 and #5 on fp32 rows against autograd through the plain version in
+    fp32, both dropout sites, the partial-sum mode; one counted launch each
+    way and none on the bf16 kernels."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    x, g = x.float(), g.float()
+    if not residual:
+        params = params[:4] + [None]
+    args = (k, 4, 1e-5, drop, 1234, 7, residual)
+    grad_params = [p for p in params if p is not None]
+    fn = lambda kern: lambda x_, *p: kern(x_, *p, *([None] if not residual else []), *args)
+    counts = (S.ffn_forward.launches, S.ffn_backward.launches, FB.fused_norm_ffn_residual.launches)
+    out, got = _grads(fn(FB.fused_norm_ffn_residual), x, grad_params, g)
+    torch.cuda.synchronize()
+    assert (S.ffn_forward.launches, S.ffn_backward.launches,
+            FB.fused_norm_ffn_residual.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    ref_out, ref = _grads(fn(FB.reference_norm_ffn_residual), x, grad_params, g)
+    _check_fp32(out, ref_out, got, ref,
+                ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+@pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
+@pytest.mark.parametrize("r,seq,c,a,h,rope", [(1, 1, 96, 96, 4, True), (2, 65, 128, 128, 4, True),
+                                              (2, 130, 96, 96, 4, True),
+                                              (3, 70, 64, 48, 2, False)])
+def test_fp32_attention_step_kernels(dev, r, seq, c, a, h, rope, drop, residual):
+    """#3 and #4 on fp32 rows against autograd through the plain version in
+    fp32: both dropout sites, RoPE on and off, the partial-sum mode."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    x, params, g = _attn_inputs(dev, r, seq, c, a)
+    x, g = x.float(), g.float()
+    args = (h, 4, 1e-5, rope, 10000.0, drop, 4321, 5, residual)
+    counts = (S.attention_forward.launches, S.attention_backward.launches)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    torch.cuda.synchronize()
+    assert (S.attention_forward.launches, S.attention_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args), x, params, g)
+    _check_fp32(out, ref_out, got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"))
+
+
+def test_fp32_steps_give_the_same_bits_twice(dev):
+    """No atomics in the fp32 chains: two runs of #5 (in 3 row groups) and
+    of #4 at dropout 0.1 are bit-equal."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    r, seq, c, inner, k = 5, 120, 128, 192, 4
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k)
+    x, g = x.float(), g.float()
+    cap = 2 * 4 * (3 * seq * c + 5 * (seq + k - 1) * inner)
+    assert S.ffn_rows(r, seq, c, inner, k, True, cap) == 2
+    args = (g, x, *params[:4], k, 4, 1e-5, 0.1, 1234, 7)
+    first = FB.ffn_step_backward(*args, scratch_cap=cap)
+    again = FB.ffn_step_backward(*args, scratch_cap=cap)
+    whole = FB.ffn_step_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(_rel_l2(a, b) < 1e-5 for a, b in zip(first[1:], whole[1:]))
+    x, (gamma, w_qkv, w_out), g = _attn_inputs(dev, 3, 300, 96, 96)
+    x, g = x.float(), g.float()
+    args = (4, 4, 1e-5, True, 10000.0, 0.1, 5, 0)
+    _, stash = AB.attention_step_forward(x, gamma, w_qkv, w_out, *args, stash=True)
+    first = AB.attention_step_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    again = AB.attention_step_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_fp32_speech_separator_on_the_card(dev):
+    """An fp32 separator on the card runs its fused steps on the fp32
+    kernels: its output against the same weights on the plain route (the
+    speech CLIs' default precision since the fp32 kernels)."""
+    import dataclasses
     from mss_tf_locoformer_tpu_torch.core.config import SeparatorConfig
     from mss_tf_locoformer_tpu_torch.models import TFLocoformerSeparator
-    sep = TFLocoformerSeparator(SeparatorConfig(n_layers=1, flash_attention=True,
-                                                fused_ffn=True)).to(dev).eval()
-    with pytest.raises(TypeError, match="bf16"):
-        sep(torch.zeros(1, 20, 65, dtype=torch.complex64, device=dev))
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    cfg = SeparatorConfig(n_layers=2, flash_attention=True, fused_ffn=True,
+                          ffn_type=("swiglu_conv1d", "swiglu_conv1d"), ffn_hidden_dim=(384, 384))
+    sep = TFLocoformerSeparator(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    plain = TFLocoformerSeparator(dataclasses.replace(cfg, flash_attention=False,
+                                                      fused_ffn=False)).to(dev).eval()
+    plain.load_state_dict(sep.state_dict(), strict=True)
+    spec = torch.randn(1, 50, 65, dtype=torch.complex64,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+    before = S.ffn_forward.launches, S.attention_forward.launches
+    with torch.no_grad():
+        got, ref = sep(spec), plain(spec)
+    torch.cuda.synchronize()
+    assert (S.ffn_forward.launches - before[0], S.attention_forward.launches - before[1]) == (8, 4)
+    _close(torch.view_as_real(got), torch.view_as_real(ref), FP32_TOL)
 
 
 def test_launch_counters_count_launches(dev):

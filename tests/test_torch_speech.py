@@ -126,7 +126,8 @@ def test_adapter_and_pipeline_match_jax(rng):
 def test_key_schema_and_espnet_checkpoint(tmp_path):
     """The port's keys are the reference separator's (``conv.0``, ``conv.1``,
     ``blocks.0``, ``deconv``); an ESPnet-prefixed ``.pth`` loads through
-    ``load_speech_separator`` with ``strict=True``, bf16 blocks by default,
+    ``load_speech_separator`` with ``strict=True``, fp32 blocks by default
+    (as the JAX loader),
     on the device asked for; an orbax directory is refused."""
     model, _, _ = _pair(2, 4, "rope")
     keys = set(model.state_dict())
@@ -137,7 +138,7 @@ def test_key_schema_and_espnet_checkpoint(tmp_path):
                | {"encoder.stft.window": torch.ones(3)}, tmp_path / "espnet.pth")
     cfg = C.SpeechConfig(separator=model.config)
     loaded = load_speech_separator(str(tmp_path / "espnet.pth"), cfg, device="cpu")
-    assert not loaded.training and loaded.precision.compute_dtype == torch.bfloat16
+    assert not loaded.training and loaded.precision.compute_dtype == torch.float32
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
     with pytest.raises(NotImplementedError, match="orbax"):
