@@ -14,8 +14,9 @@ the unfused route's kernels), base training (the training CLI), training
 through the unfused route (xlarge and small), BS-Locoformer stereo serving
 (the separation CLI), evaluation (the evaluation CLI, base and
 BS-Locoformer), speech serving, training and evaluation (the speech CLIs)
-and BS-Locoformer training (the training CLI).  Phases, each of which
-raises on failure (exit code != 0, no result line):
+and BS-Locoformer training (the training CLI); at fp32, xlarge serving
+and small training through the unfused route's fp32 kernels.  Phases,
+each of which raises on failure (exit code != 0, no result line):
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile the CUDA kernels from ``csrc/`` with nvcc, in parallel;
@@ -189,7 +190,23 @@ raises on failure (exit code != 0, no result line):
      and the fp32 bound; the wsj0-2mix separator at fp32 against its plain
      path (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
      configs, kernel path against plain path (loss and grad_norm within
-     1e-4), and timed at the full batch.
+     1e-4), and timed at the full batch;
+ 28. fp32 rows of #6-#9 (``ops/cuda/unfused_fp32.py`` on
+     ``csrc/step_fp32.cu``): the fp32 gates (the flash launches' bytes
+     against the compiled kernels' count; the xlarge and small configs'
+     fp32 blocks on the unfused route's kernels); #6 and #8 against their
+     fp32 plain versions at the xlarge engine batch's shapes, #6 with its
+     stash, #7, #8 and #9 at the small training shapes, #9 at the xlarge
+     training shapes (a 64-row slice, also in row groups; the whole shape
+     twice for the same bits), exact fp32 launches, timed beside the plain
+     versions, the bf16 kernels, the fp32 bound and SDPA on fp32 q, k, v;
+     the xlarge separation CLI at ``--precision fp32`` on one engine batch
+     (15 s) at full depth (launches, realtime factor, peak memory), and at
+     2 layers on the kernel and the plain route (stems within 1e-4 of the
+     peak); ``use_amp: false`` steps of the small config (#6-#9) and of an
+     xlarge micro-batch (1 x 3 s, 2 layers, remat, dropout 0.1: #8, #9)
+     against the plain path (loss and grad_norm within 1e-4), with their
+     peak memory; the small config's training CLI at ``use_amp: false``.
 
 ``python3 chip_smoke.py --profile-xlarge-train`` instead prints the device-
 time breakdown of one xlarge micro-batch train step (minutes of trace
@@ -799,20 +816,22 @@ def _profile_summary(prof, wall, top, last_row):
 # ------------------------------------------------------------ xlarge
 
 
-def flash_work(r, h, l, d):
+def flash_work(r, h, l, d, row_bytes=2):
     """(FLOP, bytes, exponentials) of one flash-attention call: QK^T and PV
-    at the true head_dim; q, k and v read and o written once, bf16; one
-    exponential per score."""
-    return 4.0 * r * h * l * l * d, 4 * r * h * l * d * 2.0, float(r * h * l * l)
+    at the true head_dim; q, k and v read and o written once, ``row_bytes``
+    an element (bf16 by default); one exponential per score."""
+    return 4.0 * r * h * l * l * d, 4 * r * h * l * d * float(row_bytes), float(r * h * l * l)
 
 
-def ffn_core_work(r, l, c, inner, k):
+def ffn_core_work(r, l, c, inner, k, row_bytes=2):
     """(FLOP, bytes) of one FFN-core call on rows padded to L + 2(k-1): both
     products over the L + k - 1 conv positions; x read and the output
-    written once (bf16), the bf16 weight panels and fp32 biases once."""
+    written once and the weight panels read once, ``row_bytes`` an element
+    (bf16 by default), the fp32 biases once."""
     lin, l1 = l + 2 * (k - 1), l + k - 1
     return (6.0 * r * l1 * k * c * inner,
-            2 * r * lin * c * 2.0 + 3 * inner * c * k * 2.0 + (2 * inner + c) * 4.0)
+            2 * r * lin * c * float(row_bytes) + 3 * inner * c * k * float(row_bytes)
+            + (2 * inner + c) * 4.0)
 
 
 def phase_xlarge_kernels(results):
@@ -1309,6 +1328,7 @@ def _counters():
     from mss_tf_locoformer_tpu_torch.ops.cuda import stft_kernel as SK
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
     return {"stft": SK.stft_fused, "ffn_step": FB.fused_norm_ffn_residual,
             "attention_step": AB.fused_attention_block,
             "ffn_step_backward": FB.ffn_step_backward,
@@ -1320,7 +1340,12 @@ def _counters():
             # fp32 rows of #2-#5 (csrc/step_fp32.cu), counted apart
             "ffn_step_fp32": S32.ffn_forward, "ffn_step_fp32_backward": S32.ffn_backward,
             "attention_step_fp32": S32.attention_forward,
-            "attention_step_fp32_backward": S32.attention_backward}
+            "attention_step_fp32_backward": S32.attention_backward,
+            # fp32 rows of #6-#9 (csrc/step_fp32.cu), counted apart
+            "flash_attention_fp32": U32.flash_forward_fp32,
+            "flash_attention_fp32_backward": U32.flash_backward_fp32,
+            "swiglu_ffn_fp32": U32.ffn_core_fp32,
+            "swiglu_ffn_fp32_backward": U32.ffn_core_fp32_backward}
 
 
 def _train_models(cfg=None, precision=None):
@@ -1444,23 +1469,26 @@ def small_model_config():
         conv1d_kernel=4, conv1d_shift=1, dropout=0.0, eps=1.0e-5)
 
 
-def flash_bwd_work(r, h, l, d):
+def flash_bwd_work(r, h, l, d, row_bytes=2):
     """(FLOP, bytes, exponentials) of one flash-attention backward: S
     recomputed, dP, dV, dQ and dK, 10 L^2 D per (row, head) at the true
-    head_dim; q, k, v, o, dO read and dq, dk, dv written once (bf16), the
-    log-sum-exp read (fp32); P recomputed once, one exponential per score."""
-    return (10.0 * r * h * l * l * d, 8 * r * h * l * d * 2.0 + 4.0 * r * h * l,
+    head_dim; q, k, v, o, dO read and dq, dk, dv written once (``row_bytes``
+    an element, bf16 by default), the log-sum-exp read (fp32); P recomputed
+    once, one exponential per score."""
+    return (10.0 * r * h * l * l * d, 8 * r * h * l * d * float(row_bytes) + 4.0 * r * h * l,
             float(r * h * l * l))
 
 
-def ffn_core_bwd_work(r, l, c, inner, k):
+def ffn_core_bwd_work(r, l, c, inner, k, row_bytes=2):
     """(FLOP, bytes) of one FFN-core backward on rows padded to L + 2(k-1):
     the conv recomputed, dh, dx and both weight products, 16 k C I per conv
-    position; x and the cotangent read and dx written once (bf16), the
-    weights read (bf16) and their gradients written (fp32)."""
+    position; x and the cotangent read and dx written once and the weights
+    read (``row_bytes`` an element, bf16 by default), their gradients
+    written (fp32)."""
     lin, l1 = l + 2 * (k - 1), l + k - 1
     w = 3 * inner * c * k
-    return 16.0 * r * l1 * k * c * inner, 3 * r * lin * c * 2.0 + w * 2.0 + w * 4.0
+    return (16.0 * r * l1 * k * c * inner,
+            3 * r * lin * c * float(row_bytes) + w * float(row_bytes) + w * 4.0)
 
 
 def _inner_dims(cfg):
@@ -1950,12 +1978,13 @@ def phase_xlarge_train_parity():
     return out
 
 
-def _unfused_train_config(root, name, epochs):
+def _unfused_train_config(root, name, epochs, amp=True):
     """The training CLI's config: the small config's published sections
     (batch 16 x 3 s, SI-SDR loss, dropout 0), or the xlarge config's training
     section (augmentation, warmup, batch 8 as 2 x 4, gradient checkpointing,
     combined loss, dropout 0.1) at full width, cut to 1 layer and 1 s
-    segments (the plain attention over 2049 bins dominates its time)."""
+    segments (the plain attention over 2049 bins dominates its time); bf16
+    blocks, or fp32 with ``amp`` False (``use_amp: false``)."""
     import dataclasses
     if name == "small":
         model, seg = dataclasses.asdict(small_model_config()), SMALL_SEGMENT
@@ -1976,7 +2005,7 @@ def _unfused_train_config(root, name, epochs):
                                   "betas": [0.9, 0.999]},
                     "scheduler": {"type": "reducelronplateau", "factor": 0.5, "patience": 10,
                                   "min_lr": 1e-7, "warmup_steps": 4000}}
-    training.update({"num_epochs": epochs, "num_workers": 4, "use_amp": True,
+    training.update({"num_epochs": epochs, "num_workers": 4, "use_amp": amp,
                      "amp_dtype": "bfloat16", "save_interval": 1, "val_interval": 1,
                      "log_interval": 1})
     return {"dataset": {"root_dir": root, "sample_rate": SR, "segment_length": seg,
@@ -1993,11 +2022,12 @@ def _val_forwards(raw, n_test, seconds):
     return -(-chunks // raw["training"].get("val_batch_size", 4))
 
 
-def phase_unfused_train_cli(workdir, name):
+def phase_unfused_train_cli(workdir, name, amp=True):
     """The training CLI through the unfused route: one epoch of 2 optimizer
     steps with validation and a checkpoint, then ``--resume`` for one more
     epoch; exact launch counts of the first run (training and validation
-    forwards)."""
+    forwards), on the bf16 kernels or, with ``amp`` False (``use_amp:
+    false``), on the fp32 ones."""
     import torch
     from mss_tf_locoformer_tpu_torch.cli import train as train_cli
     n_train = 32 if name == "small" else 16
@@ -2008,7 +2038,7 @@ def phase_unfused_train_cli(workdir, name):
     counters = _counters()
     launches, wall = {}, {}
     for epochs, extra in ((1, []), (2, ["--resume", "latest"])):
-        raw = _unfused_train_config(root, name, epochs)
+        raw = _unfused_train_config(root, name, epochs, amp)
         with open(cfg_path, "w") as f:
             json.dump(raw, f)
         for fn in counters.values():
@@ -2025,18 +2055,20 @@ def phase_unfused_train_cli(workdir, name):
     paths = cfg.n_layers * 2
     ffns = paths * len(_inner_dims(cfg))
     remat = 2 if cfg.remat_blocks else 1
+    fa, sf = ("flash_attention", "swiglu_ffn") if amp else ("flash_attention_fp32",
+                                                          "swiglu_ffn_fp32")
     if name == "small":   # dropout 0: flash attention in training too
-        need = {"flash_attention": paths * (micro + val), "flash_attention_backward":
-                paths * micro, "swiglu_ffn": ffns * (micro + val),
-                "swiglu_ffn_backward": ffns * micro, "stft": micro + val}
+        need = {fa: paths * (micro + val), f"{fa}_backward": paths * micro,
+                sf: ffns * (micro + val), f"{sf}_backward": ffns * micro, "stft": micro + val}
     else:                 # dropout 0.1: attention on the plain path in training
-        need = {"flash_attention": paths * val, "swiglu_ffn": ffns * (remat * micro + val),
-                "swiglu_ffn_backward": ffns * micro, "stft": micro + val,
+        need = {fa: paths * val, sf: ffns * (remat * micro + val),
+                f"{sf}_backward": ffns * micro, "stft": micro + val,
                 "dropout_mask": launches[1]["dropout_mask"]}
         if not (cfg.remat_blocks and launches[1]["dropout_mask"] > 0):
             raise AssertionError(f"xlarge CLI: remat {cfg.remat_blocks}, masks "
                                  f"{launches[1]['dropout_mask']}")
-    _check_launches(f"train-cli {name}", launches[1], need)
+    tag = name if amp else f"{name}, use_amp false"
+    _check_launches(f"train-cli {tag}", launches[1], need)
     if trainer.step != 4 or trainer.start_epoch != 1:
         raise AssertionError(f"resume: step {trainer.step}, start epoch {trainer.start_epoch}")
     blob = torch.load(trainer.ckpt.path(1), map_location="cpu", weights_only=True)
@@ -2046,7 +2078,7 @@ def phase_unfused_train_cli(workdir, name):
     for pname, p in trainer.model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: gradient of {pname} missing or not finite")
-    print(f"[train-cli] {name}: {micro} micro-batches + {val} validation forwards per epoch; "
+    print(f"[train-cli] {tag}: {micro} micro-batches + {val} validation forwards per epoch; "
           f"first run {wall[1]:.1f} s, resumed run {wall[2]:.1f} s; losses train "
           f"{blob['metadata']['train_loss']:.4f} val {blob['metadata']['val_loss']:.4f}")
     del trainer
@@ -3345,6 +3377,502 @@ def phase_fp32_train_steps(reps: int = 2):
     return out
 
 
+# ------------------------------------ fp32 rows of the unfused route (#6-#9)
+
+# The xlarge serving CLI's input at fp32: one engine batch (2 chunks of 8 s
+# with 1 s of overlap), the shapes #6 and #8 are timed at
+XL_FP32_SERVE_S = 15.0
+XL_FP32_LAYERS = 2   # the depth at which the stems are held to the plain route
+XL_FP32_SEGMENT = 3 * SR   # the xlarge use_amp false micro-batch's segments
+
+
+def phase_unfused_fp32_gates():
+    """The fp32 gates of #6-#9 (``unfused_fp32.supports_flash`` /
+    ``supports_core``; the flash launches' bytes against the compiled
+    kernels' count) and the routes of the xlarge and small configs' fp32
+    blocks: no fused step, attention on the flash kernels and every FFN on
+    the FFN-core kernels, in eval and in training (dropout aside)."""
+    import dataclasses
+
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
+    for d in (12, 16, 24, 32, 64):
+        want, got = U32.flash_launch_bytes(d), U32.compiled_flash_launch_bytes(d)
+        if want != got:
+            raise AssertionError(f"fp32 flash gate at D {d}: layouts {want} != compiled {got}")
+    for tag, cfg in (("xlarge", xlarge_model_config()), ("small", small_model_config())):
+        block = build_model(dataclasses.replace(cfg, n_layers=1), FP32).blocks[0].freq_path
+        d = cfg.attention_dim // cfg.n_heads
+        for training in (False, True):
+            block.train(training)
+            routes = (block.fused_steps(fp32=True), block.attn._flash[True],
+                      [f._fused[training, True] for f in block.ffn])
+            print(f"[fp32-gates] {tag} (C {cfg.emb_dim}, D {d} padded to {U32.head_pad(d)}, "
+                  f"I {_inner_dims(cfg)[0]}), {'training' if training else 'eval'}: fused "
+                  f"steps {routes[0]}, flash {routes[1]}, FFN cores {routes[2]}; launches "
+                  f"{U32.flash_launch_bytes(d)} / {U32.core_launch_bytes()} B")
+            nf = len(block.ffn)
+            if routes != (([False] * nf, False), True, [True] * nf):
+                raise AssertionError(f"fp32 gates: {tag} should take the unfused route's "
+                                     f"fp32 kernels")
+
+
+def _qkv_fp32(gen, rows, seq, h, d):
+    """fp32 q, k, v as the MHSA hands them over: ``[B, H, L, D]`` views of a
+    QKV product ``[B, L, 3, H, D]`` at 1.5x unit scale (a peaked softmax, so
+    the uniform-attention output is far from the right one)."""
+    import torch
+    return 1.5 * torch.randn(rows, seq, 3, h, d, generator=gen, device=DEV)
+
+
+def _sdpa_fp32(q, k, v):
+    """``scaled_dot_product_attention`` on fp32 q, k, v through its memory-
+    efficient backend, the one that takes fp32 (its math backend would hold
+    every score); the yardstick of #6 and #7 at fp32."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(q, k, v)
+
+
+def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
+    """#6 (and with ``training`` its stash and #7) on fp32 rows against the
+    fp32 plain version on row slices (the plain fp32 scores of all rows
+    would not fit); exact launches; #7 twice for the same bits; timed beside
+    the plain version, the bf16 kernels on the same values, SDPA on fp32 q,
+    k, v (RoPE applied first; its autograd backward for #7) and the bound."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
+    from mss_tf_locoformer_tpu_torch.ops.rope import apply_rope
+    qkv = _qkv_fp32(gen, rows, seq, h, d).requires_grad_(training)
+    q, kk, v = qkv.permute(2, 0, 3, 1, 4)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    label = f"flash_attention fp32 {tag} [{rows}, {h}, {seq}, {d}]"
+    n = 8 if seq > 1000 or rows > 4000 else 64
+    slices = [slice(r0, r0 + n) for r0 in (0, rows - n)]
+    if not training:
+        with torch.no_grad():
+            out = FA.flash_attention(q, kk, v, True)
+            torch.cuda.synchronize()
+            _check_launches(label, {k: f.launches for k, f in counters.items()},
+                            {"flash_attention_fp32": 1}, quiet=True)
+            err = 0.0
+            for sl in slices:
+                ref = FA.reference_flash_attention(q[sl], kk[sl], v[sl], True)
+                err = max(err, _compare(f"{label} rows {sl.start}..{sl.stop}", out[sl], ref,
+                                        FP32_TOL, null=v[sl].mean(-2, keepdim=True).expand(
+                                            ref.shape)))
+            del out, ref
+            r = results.setdefault("flash_attention_fp32", dict(err=0.0))
+            r["err"] = max(r["err"], err)
+            qr, kr = apply_rope(q), apply_rope(kk)
+            q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, kk, v))
+            r[tag] = dict(
+                shape=(rows, h, seq, d),
+                ms=_time_ms(lambda: FA.flash_attention(q, kk, v, True), iters=3),
+                plain_ms=_time_ms(lambda: FA.reference_flash_attention(q, kk, v, True), iters=1),
+                bf16_ms=_time_ms(lambda: FA.flash_attention(q16, k16, v16, True), iters=3),
+                library_ms=_time_ms(lambda: _sdpa_fp32(qr, kr, v), iters=3),
+                bound=_bound(*flash_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+        del qkv, q, kk, v, qr, kr, q16, k16, v16
+        torch.cuda.empty_cache()
+        return
+    go = torch.randn(rows, h, seq, d, generator=gen, device=DEV)
+    out = FA.flash_attention(q, kk, v, True)
+    (got,) = torch.autograd.grad(out, qkv, go)
+    torch.cuda.synchronize()
+    _check_launches(label, {k: f.launches for k, f in counters.items()},
+                    {"flash_attention_fp32": 1, "flash_attention_fp32_backward": 1}, quiet=True)
+    (again,) = torch.autograd.grad(FA.flash_attention(q, kk, v, True), qkv, go)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    print(f"[fp32-unfused] {label}: two backward runs bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"{label}: two backward runs differ")
+    del again
+    ferr, gerr, grel = 0.0, 0.0, 0.0
+    for sl in slices:
+        leaf = qkv.detach()[sl].requires_grad_(True)
+        rq, rk, rv = leaf.permute(2, 0, 3, 1, 4)
+        ref_out = FA.reference_flash_attention(rq, rk, rv, True)
+        (ref,) = torch.autograd.grad(ref_out, leaf, go[sl])
+        ferr = max(ferr, _compare(f"{label} (training) rows {sl.start}..{sl.stop}", out[sl],
+                                  ref_out.detach(), FP32_TOL,
+                                  null=rv.detach().mean(-2, keepdim=True).expand(ref_out.shape)))
+        for i, name in enumerate(("dq", "dk", "dv")):
+            gerr = max(gerr, _compare(f"{label} backward {name} rows {sl.start}..{sl.stop}",
+                                      got[sl, :, i], ref[:, :, i], FP32_TOL,
+                                      null=torch.zeros_like(ref[:, :, i])))
+            rel = _rel_l2(got[sl, :, i], ref[:, :, i])
+            grel = max(grel, rel)
+            if not rel <= FP32_GRAD_REL_L2:
+                raise AssertionError(f"{label} backward {name}: relative L2 {rel:.3e}")
+        del leaf, ref_out, ref
+    print(f"[fp32-unfused] {label} backward: relative L2 <= {grel:.3e} (bound "
+          f"{FP32_GRAD_REL_L2:g})")
+    del got, out
+    q4, k4, v4 = qkv.detach().permute(2, 0, 3, 1, 4)
+    g4 = go.permute(0, 2, 1, 3).contiguous()
+    o, lse = FA._forward(q4, k4, v4, True, 10000.0, True)
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q4, k4, v4))
+    o16, lse16 = FA._forward(q16, k16, v16, True, 10000.0, True)
+    g16 = g4.to(torch.bfloat16)
+    times = dict(
+        fwd_ms=_time_ms(lambda: FA._forward(q4, k4, v4, True, 10000.0, True), iters=3),
+        ms=_time_ms(lambda: FA.flash_attention_backward(g4, q4, k4, v4, o, lse, True, 10000.0),
+                    iters=3),
+        bf16_fwd_ms=_time_ms(lambda: FA._forward(q16, k16, v16, True, 10000.0, True), iters=3),
+        bf16_ms=_time_ms(lambda: FA.flash_attention_backward(g16, q16, k16, v16, o16, lse16,
+                                                             True, 10000.0), iters=3))
+    del o, lse, o16, lse16, q16, k16, v16, g16
+    # the plain version recomputes its score groups in the backward
+    # (checkpoint): its backward is forward + backward less a forward
+    both = _time_ms(lambda: torch.autograd.grad(
+        FA.reference_flash_attention(q, kk, v, True), qkv, go), iters=1)
+    with torch.no_grad():
+        plain_fwd = _time_ms(lambda: FA.reference_flash_attention(q, kk, v, True), iters=1)
+    qr, kr = (apply_rope(t.detach()).requires_grad_(True) for t in (q, kk))
+    vr = v.detach().requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd = _time_ms(lambda: _sdpa_fp32(qr, kr, vr), iters=3)
+    lib_out = _sdpa_fp32(qr, kr, vr)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(lib_out, (qr, kr, vr), go, retain_graph=True),
+                       iters=3)
+    r = results.setdefault("flash_attention_fp32", dict(err=0.0))
+    r["err"] = max(r["err"], ferr)
+    r[tag] = dict(shape=(rows, h, seq, d), ms=times["fwd_ms"], plain_ms=plain_fwd,
+                  bf16_ms=times["bf16_fwd_ms"], library_ms=lib_fwd,
+                  bound=_bound(*flash_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+    rb = results.setdefault("flash_attention_fp32_backward", dict(err=0.0, rel_l2=0.0))
+    rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+    rb[tag] = dict(shape=(rows, h, seq, d), ms=times["ms"], plain_ms=both - plain_fwd,
+                   bf16_ms=times["bf16_ms"], library_ms=lib_bwd,
+                   bound=_bound(*flash_bwd_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+    del qkv, go, q, kk, v, q4, k4, v4, g4, qr, kr, vr, lib_out
+    torch.cuda.empty_cache()
+
+
+def _fp32_core_case(results, tag, rows, seq, c, inner, k, gen, training, slice_rows=None):
+    """#8 (and with ``training`` #9) on fp32 pre-padded rows against the fp32
+    plain version (cuDNN without TF32): the whole shape, or with
+    ``slice_rows`` a slice of that many rows, run again in as many row
+    groups as the whole shape runs (the plain fp32 intermediates of all the
+    rows would not fit); the inner mask on a 16-row slice at its row offset;
+    exact launches; #9 twice for the same bits; timed at the whole shape
+    beside the plain version, the bf16 kernels on the same values and the
+    bound."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
+    lin = seq + 2 * (k - 1)
+    x = torch.zeros(rows, lin, c, device=DEV)
+    x[:, k - 1:k - 1 + seq] = torch.randn(rows, seq, c, generator=gen, device=DEV)
+    b = (c * k) ** -0.5
+    w = [(torch.rand(*s, generator=gen, device=DEV) * 2 - 1) * b
+         for s in ((2 * inner, c, k), (2 * inner,), (inner, c, k), (c,))]
+    fn = lambda *a, p=0.0, r0=0: SF.swiglu_conv_deconv(*a, k, p, 777, r0)
+    pfn = lambda *a, p=0.0, r0=0: SF.reference_swiglu_conv_deconv(*a, k, p, 777, r0)
+    label = f"swiglu_ffn fp32 {tag} [{rows}, {lin}, {c}], I {inner}"
+    counters = _counters()
+    for f in counters.values():
+        f.launches = 0
+    r = results.setdefault("swiglu_ffn_fp32", dict(err=0.0))
+    if not training:
+        with torch.no_grad():
+            got = fn(x, *w)
+            torch.cuda.synchronize()
+            _check_launches(label, {n: f.launches for n, f in counters.items()},
+                            {"swiglu_ffn_fp32": 1}, quiet=True)
+            err = _compare(label, got, pfn(x, *w), FP32_TOL, null=torch.zeros_like(got) + w[3])
+            del got
+            r0 = rows // 2
+            xs = x[r0:r0 + 16].contiguous()
+            _compare(f"{label} rows {r0}..{r0 + 16}, dropout 0.1", fn(xs, *w, p=0.1, r0=r0),
+                     pfn(xs, *w, p=0.1, r0=r0), FP32_TOL, null=pfn(xs, *w))
+            torch.cuda.empty_cache()
+            x16 = x.to(torch.bfloat16)
+            r["err"] = max(r["err"], err)
+            r[tag] = dict(shape=(rows, lin, c), ms=_time_ms(lambda: fn(x, *w), iters=3),
+                          plain_ms=_time_ms(lambda: pfn(x, *w), iters=1),
+                          bf16_ms=_time_ms(lambda: fn(x16, *w), iters=3), library_ms=None,
+                          bound=_bound(*ffn_core_work(rows, seq, c, inner, k, row_bytes=4),
+                                       peak=PEAK_FP32))
+        del x, x16, xs, w
+        torch.cuda.empty_cache()
+        return
+    g = torch.randn(rows, lin, c, generator=gen, device=DEV)
+    n = slice_rows or rows
+    xs, gs = x[:n].contiguous(), g[:n].contiguous()
+    out, got = _autograd(fn, xs, w, gs)
+    torch.cuda.synchronize()
+    _check_launches(label, {nm: f.launches for nm, f in counters.items()},
+                    {"swiglu_ffn_fp32": 1, "swiglu_ffn_fp32_backward": 1}, quiet=True)
+    ref_out, ref = _autograd(pfn, xs, w, gs)
+    ferr = _compare(f"{label} rows 0..{n} (training)", out, ref_out, FP32_TOL,
+                    null=torch.zeros_like(out) + w[3])
+    gerr, grel = _check_grads(f"{label} backward rows 0..{n}", got, ref, gs, FP32_TOL,
+                              FP32_GRAD_REL_L2)
+    del out, ref_out
+    if slice_rows:   # the slice in as many row groups as the whole shape runs
+        groups = -(-rows // U32.core_rows(rows, lin, c, inner, k, True))
+        per_row = 4 * 5 * (lin - k + 1) * (-(-inner // 4) * 4)
+        cap = per_row * -(-n // groups)
+        grouped = SF.swiglu_ffn_backward(gs, xs, *w[:3], k, scratch_cap=cap)
+        _check_grads(f"{label} backward rows 0..{n} in {-(-n // (cap // per_row))} row groups",
+                     grouped, ref, gs, FP32_TOL, FP32_GRAD_REL_L2)
+        del grouped
+    del got, ref
+    r0 = rows // 2
+    xs, gs = x[r0:r0 + 16].contiguous(), g[r0:r0 + 16].contiguous()
+    _, got = _autograd(lambda *a: fn(*a, p=0.1, r0=r0), xs, w, gs)
+    _, ref = _autograd(lambda *a: pfn(*a, p=0.1, r0=r0), xs, w, gs)
+    _check_grads(f"{label} backward rows {r0}..{r0 + 16}, dropout 0.1", got, ref, gs, FP32_TOL,
+                 FP32_GRAD_REL_L2)
+    del got, ref, xs, gs
+    torch.cuda.empty_cache()
+    # no atomics: a second run gives the same bits (split partials summed in
+    # a fixed order, across the row groups)
+    first = SF.swiglu_ffn_backward(g, x, *w[:3], k, 0.1, 777, 0)
+    again = SF.swiglu_ffn_backward(g, x, *w[:3], k, 0.1, 777, 0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(first, again))
+    print(f"[fp32-unfused] {label} backward (dropout 0.1, "
+          f"{-(-rows // U32.core_rows(rows, lin, c, inner, k, True))} row groups): two runs "
+          f"bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"{label}: two backward runs differ")
+    del first, again
+    torch.cuda.empty_cache()
+    x16, g16 = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    times = dict(
+        fwd_ms=_time_ms(lambda: fn(x, *w), iters=3),
+        ms=_time_ms(lambda: SF.swiglu_ffn_backward(g, x, *w[:3], k), iters=2),
+        bf16_fwd_ms=_time_ms(lambda: fn(x16, *w), iters=3),
+        bf16_ms=_time_ms(lambda: SF.swiglu_ffn_backward(g16, x16, *w[:3], k), iters=2))
+    del x16, g16
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        plain_fwd = _time_ms(lambda: pfn(x, *w), iters=1)
+    xp = x.detach().requires_grad_(True)
+    wp = [t.detach().requires_grad_(True) for t in w]
+    pout = pfn(xp, *wp)
+    plain_bwd = _time_ms(lambda: torch.autograd.grad(pout, [xp, *wp], g, retain_graph=True),
+                         iters=1)
+    del pout, xp, wp
+    r["err"] = max(r["err"], ferr)
+    r[tag] = dict(shape=(rows, lin, c), ms=times["fwd_ms"], plain_ms=plain_fwd,
+                  bf16_ms=times["bf16_fwd_ms"], library_ms=None,
+                  bound=_bound(*ffn_core_work(rows, seq, c, inner, k, row_bytes=4),
+                               peak=PEAK_FP32))
+    rb = results.setdefault("swiglu_ffn_fp32_backward", dict(err=0.0, rel_l2=0.0))
+    rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+    rb[tag] = dict(shape=(rows, lin, c), ms=times["ms"], plain_ms=plain_bwd,
+                   bf16_ms=times["bf16_ms"], library_ms=None,
+                   bound=_bound(*ffn_core_bwd_work(rows, seq, c, inner, k, row_bytes=4),
+                                peak=PEAK_FP32))
+    del x, g, w
+    torch.cuda.empty_cache()
+
+
+def phase_unfused_fp32_kernels(results):
+    """#6-#9 on fp32 rows against their fp32 plain versions: #6 and #8 at the
+    xlarge engine batch's serving shapes, #6 with its stash and #7, #8 and #9
+    at the small config's training shapes (batch 16 x 3 s), #9 at the xlarge
+    training shapes (micro-batch 1 x 15 s: a 64-row slice, also in as many
+    row groups as the whole shape runs; the whole shape twice for the same
+    bits); one fp32 launch a call and none of the bf16 kernels; timed beside
+    the plain versions, the bf16 kernels on the same values, the fp32 bound
+    and, for #6 and #7, SDPA on fp32 q, k, v."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 40)
+    xl = xlarge_model_config()
+    h, d = xl.n_heads, xl.attention_dim // xl.n_heads
+    for path, rows, seq in _main_path_steps(xl):
+        _fp32_flash_case(results, f"xlarge {path}", rows, h, seq, d, gen, False)
+        _fp32_core_case(results, f"xlarge {path}", rows, seq, xl.emb_dim, _inner_dims(xl)[0],
+                        xl.conv1d_kernel, gen, False)
+    for name, path, rows, h, seq, d, c, inner in _unfused_train_shapes():
+        tag = f"{name} training {path}"
+        if name == "small":
+            _fp32_flash_case(results, tag, rows, h, seq, d, gen, True)
+            _fp32_core_case(results, tag, rows, seq, c, inner, 4, gen, True)
+        else:
+            _fp32_core_case(results, tag, rows, seq, c, inner, 4, gen, True, slice_rows=64)
+
+
+def _stems_of(out_dir, name):
+    from mss_tf_locoformer_tpu_torch.utils.audio import load_audio
+    return {s: load_audio(os.path.join(out_dir, f"{name}_{s}.wav"))[0]
+            for s in ("vocals", "drums", "bass", "other")}
+
+
+def phase_xlarge_fp32_serving(workdir):
+    """The separation CLI at ``--precision fp32`` on a 15 s stereo WAV (one
+    engine batch of 2 chunks of 8 s): at full depth with the xlarge config
+    (12 layers, exact fp32 launches: per forward 24 of #6 and 48 of #8, no
+    bf16 kernel), its wall time, realtime factor and peak device memory; at
+    2 layers (full width) on the kernel route and on the plain route, every
+    stem within ``FP32_TOL`` of its peak and one 16-bit step of the plain
+    route's.  Returns ``(launches, wall, peak bytes, worst stem error)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from mss_tf_locoformer_tpu_torch.cli import separate as cli
+    from mss_tf_locoformer_tpu_torch.models import build_model
+    from mss_tf_locoformer_tpu_torch.utils.audio import save_audio
+    rng = np.random.default_rng(SEED + 3)
+    t = np.arange(int(XL_FP32_SERVE_S * SR)) / SR
+    mix = np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
+                    for f in (220, 330)]).astype(np.float32)
+    wav = os.path.join(workdir, "mix.wav")
+    save_audio(wav, mix, SR, normalize=True)
+    counters = _counters()
+
+    def run(cfg, tag):
+        model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+        ckpt, cfg_path = (os.path.join(workdir, f"{tag}.{ext}") for ext in ("pth", "json"))
+        torch.save(model.state_dict(), ckpt)
+        del model
+        with open(cfg_path, "w") as f:
+            json.dump({"model": dataclasses.asdict(cfg)}, f)
+        out_dir = os.path.join(workdir, tag)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(["--input", wav, "--output_dir", out_dir, "--checkpoint", ckpt, "--config",
+                  cfg_path, "--batch_size", str(BATCH), "--precision", "fp32"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stems = _stems_of(out_dir, "mix")
+        for s, a in stems.items():
+            if a.shape != mix.shape or not np.isfinite(a).all():
+                raise AssertionError(f"xlarge fp32 {tag} stem {s}: {a.shape}")
+        return launches, wall, torch.cuda.max_memory_allocated(), stems
+
+    xl = xlarge_model_config()
+    paths = 2 * xl.n_layers
+    launches, wall, peak, _ = run(xl, "xlarge")
+    _check_launches("xlarge fp32 serving", launches, {
+        "stft": 1, "flash_attention_fp32": paths, "swiglu_ffn_fp32": 2 * paths})
+    print(f"[xl-fp32-serving] separation CLI, --precision fp32, {xl.n_layers} layers, "
+          f"{XL_FP32_SERVE_S:g} s stereo (one engine batch): {wall:.2f} s wall, "
+          f"{XL_FP32_SERVE_S / wall:.3f}x realtime, peak {peak / 2**30:.2f} GiB")
+    cut = dataclasses.replace(xl, n_layers=XL_FP32_LAYERS)
+    got = run(cut, "kernel")
+    _check_launches("xlarge fp32 serving, 2 layers", got[0], {
+        "stft": 1, "flash_attention_fp32": 2 * XL_FP32_LAYERS,
+        "swiglu_ffn_fp32": 4 * XL_FP32_LAYERS})
+    ref = run(_plain_config(cut), "plain")
+    if any(ref[0].values()):
+        raise AssertionError(f"the plain route launched kernels: {ref[0]}")
+    worst = 0.0
+    for s, a in got[3].items():
+        b = ref[3][s]
+        err = float(np.abs(a - b).max())
+        bound = FP32_TOL * float(np.abs(b).max()) + 1.0 / 32768
+        worst = max(worst, err / float(np.abs(b).max()))
+        print(f"[xl-fp32-serving] 2 layers, stem {s}: max error {err:.3e} against the plain "
+              f"route's (bound {bound:.3e}: {FP32_TOL:g} of the peak and one 16-bit step)")
+        if not err <= bound:
+            raise AssertionError(f"xlarge fp32 stems: {s} off by {err:.3e}")
+    torch.cuda.empty_cache()
+    return launches, wall, peak, worst
+
+
+def phase_fp32_unfused_steps(reps: int = 1):
+    """``use_amp: false`` steps through the unfused route's fp32 kernels,
+    kernel path against the plain path with the same weights, batch and
+    seeds (loss and grad_norm within ``FP32_LOSS_REL``), exact launches and
+    the peak device memory: the small config (dropout 0, #6-#9; parity at 2
+    x 3 s, then the published batch 16 x 3 s timed) and one xlarge micro-
+    batch (1 x 3 s, 2 layers at full width, remat, dropout 0.1: #8 twice
+    and #9 once per FFN, attention on the plain path with the mask kernel).
+    Returns ``{tag: {...}}``."""
+    import dataclasses
+
+    import torch
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    counters = _counters()
+    out = {}
+    small = small_model_config()
+    xl = dataclasses.replace(xlarge_model_config(), n_layers=XL_FP32_LAYERS, remat_blocks=True)
+    for tag, cfg, loss, parity_mb, full_mb, seg in (
+            ("small", small, LossConfig(loss_type="si_sdr", si_sdr_weight=1.0), 2, SMALL_BATCH,
+             SMALL_SEGMENT),
+            ("xlarge micro-batch", xl, LossConfig(), 1, None, XL_FP32_SEGMENT)):
+        models = dict(zip(("kernel", "plain"), _train_models(cfg, FP32)))
+        opts = {p: make_optimizer(m.parameters(), TrainingConfig()) for p, m in models.items()}
+
+        def step(path, batch):
+            return train_step(models[path], opts[path], *batch, 3e-4,
+                              torch.Generator().manual_seed(11), loss, accum=1,
+                              gradient_clip=5.0)
+        paths = 2 * cfg.n_layers
+        ffns = paths * len(_inner_dims(cfg))
+        batch = _batch(torch.Generator().manual_seed(SEED + 6), parity_mb, seg, DEV)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = step("kernel", batch)
+        torch.cuda.synchronize()
+        sec, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if tag == "small":
+            need = {"flash_attention_fp32": paths, "flash_attention_fp32_backward": paths,
+                    "swiglu_ffn_fp32": ffns, "swiglu_ffn_fp32_backward": ffns, "stft": 1}
+        else:
+            if not launches["dropout_mask"] > 0:
+                raise AssertionError("xlarge fp32 step drew no dropout mask on the card")
+            need = {"swiglu_ffn_fp32": 2 * ffns, "swiglu_ffn_fp32_backward": ffns, "stft": 1,
+                    "dropout_mask": launches["dropout_mask"]}
+        _check_launches(f"fp32 unfused step {tag}", launches, need)
+        ref = step("plain", batch)
+        rel = {k: abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
+               for k in ("total_loss", "grad_norm")}
+        print(f"[fp32-unfused-train] {tag}, use_amp false, micro-batch {parity_mb} x "
+              f"{seg / SR:g} s: loss kernel {float(got['total_loss']):.6f} plain "
+              f"{float(ref['total_loss']):.6f}; relative differences "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (bound {FP32_LOSS_REL:g}); kernel-path step {sec:.3f} s (the first), peak "
+              f"{peak / 2**30:.2f} GiB")
+        if not max(rel.values()) <= FP32_LOSS_REL:
+            raise AssertionError(f"fp32 unfused step {tag}: {rel}")
+        out[tag] = dict(launches=launches, rel=rel, sec=sec, peak=peak, mb=parity_mb, seg=seg)
+        if full_mb:
+            del batch
+            full = _batch(torch.Generator().manual_seed(SEED + 7), full_mb, seg, DEV)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step("kernel", full)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step("kernel", full)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / reps
+            print(f"[fp32-unfused-train] {tag}, use_amp false, kernel path at the published "
+                  f"batch {full_mb} x {seg / SR:g} s: {sec:.3f} s/step, peak "
+                  f"{peak / 2**30:.2f} GiB")
+            out[tag].update(full_sec=sec, full_peak=peak, full_mb=full_mb)
+            del full
+        del models, opts
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_mfu(forward, train_time):
     """``utils/flops.py`` on the card: ``device_peak_flops`` (the H100's
     dense bf16 peak from its name), and the MFU of the base forward (the
@@ -3849,6 +4377,18 @@ def main():
     bs_time = phase_train_timing(cfg=bs)
     t_speech = time.perf_counter() - t_speech
 
+    t_fp32u = time.perf_counter()
+    phase_unfused_fp32_gates()
+    phase_unfused_fp32_kernels(results)
+    _mark("fp32 unfused kernels")
+    with tempfile.TemporaryDirectory() as workdir:
+        xl_fp32 = phase_xlarge_fp32_serving(workdir)
+    fp32_unfused_train = phase_fp32_unfused_steps()
+    with tempfile.TemporaryDirectory() as workdir:
+        small_fp32_cli = phase_unfused_train_cli(workdir, "small", amp=False)
+    t_fp32u = time.perf_counter() - t_fp32u
+    _mark("fp32 unfused serving and training")
+
     t_parallel = time.perf_counter()
     phase_partial_kernels(results)
     with tempfile.TemporaryDirectory() as workdir:
@@ -4029,6 +4569,30 @@ def main():
             print(f"[timing] parallel base training, {run}, rank {r} of 2 sharing one card over "
                   f"gloo, global batch {TP_BATCH} x 3 s (accumulation 2): step 2 {steps[-1][2]:.3f} "
                   f"s (one process on the card: {parallel['single'][-1][2]:.3f} s) {card}")
+    for k in ("flash_attention_fp32", "swiglu_ffn_fp32", "flash_attention_fp32_backward",
+              "swiglu_ffn_fp32_backward"):
+        for tag, r in results[k].items():
+            if isinstance(r, dict):
+                lib = "" if r["library_ms"] is None else f", SDPA fp32 {r['library_ms']:.3f} ms"
+                print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms (bf16 "
+                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms{lib}, fp32 "
+                      f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
+    launches_xl32, wall_xl32, peak_xl32, err_xl32 = xl_fp32
+    print(f"[timing] xlarge separation CLI, --precision fp32, {XL_FP32_SERVE_S:g} s (one engine "
+          f"batch): {wall_xl32:.2f} s wall, {XL_FP32_SERVE_S / wall_xl32:.3f}x realtime, peak "
+          f"{peak_xl32 / 2**30:.2f} GiB; stems at {XL_FP32_LAYERS} layers within "
+          f"{err_xl32:.2e} of the plain route's peak {card}")
+    for tag, r in fp32_unfused_train.items():
+        full = (f"; at {r['full_mb']} x {r['seg'] / SR:g} s {r['full_sec']:.3f} s/step, peak "
+                f"{r['full_peak'] / 2**30:.2f} GiB" if "full_sec" in r else "")
+        print(f"[timing] use_amp false train step, {tag}, kernel path: {r['mb']} x "
+              f"{r['seg'] / SR:g} s {r['sec']:.3f} s (first step), peak {r['peak'] / 2**30:.2f} "
+              f"GiB{full} {card}")
+    w = small_fp32_cli[1]
+    print(f"[timing] training CLI, small config, use_amp false: first run {w[1]:.1f} s for 2 "
+          f"steps, resumed run {w[2]:.1f} s for 2 steps (data, validation, checkpoint "
+          f"included) {card}")
+    print(f"[timing] the fp32 unfused-route phases took {t_fp32u:.1f} s")
     print(f"[timing] the parallel phases took {t_parallel:.1f} s (2-rank evaluation CLI "
           f"{parallel['eval_wall']:.1f} s, world-1 NCCL training CLI {parallel['nccl_wall']:.1f} s, "
           f"start-up included)")
@@ -4074,7 +4638,16 @@ def main():
         "ffn_step_fp32_backward": ("csrc/step_fp32.cu", "ops/pallas/swiglu_block.py:456",
                                    None, None),
         "attention_step_fp32_backward": ("csrc/step_fp32.cu",
-                                         "ops/pallas/attention_block.py:626", None, None)}
+                                         "ops/pallas/attention_block.py:626", None, None),
+        # fp32 rows of #6-#9: xlarge --precision fp32 serving's and small
+        # use_amp false training's
+        "flash_attention_fp32": ("csrc/step_fp32.cu", "ops/pallas/flash_attention.py:207",
+                                 None, None),
+        "swiglu_ffn_fp32": ("csrc/step_fp32.cu", "ops/pallas/swiglu_ffn.py:221", None, None),
+        "flash_attention_fp32_backward": ("csrc/step_fp32.cu",
+                                          "ops/pallas/flash_attention.py:315", None, None),
+        "swiglu_ffn_fp32_backward": ("csrc/step_fp32.cu", "ops/pallas/swiglu_ffn.py:363",
+                                     None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
         # a step's partial-sum forward and backward share one results entry
@@ -4116,6 +4689,18 @@ def main():
             f = r["speech wsj0-2mix serving freq"]
             ms, plain_ms, bound = f["ms"], f["plain_ms"], f["bound"]
             main_path = speech_launches
+        elif k in ("flash_attention_fp32", "swiglu_ffn_fp32"):
+            # the main path: the xlarge separation CLI at --precision fp32;
+            # timed at the xlarge engine batch's freq shape
+            f = r["xlarge freq"]
+            ms, plain_ms, bound, library_ms = f["ms"], f["plain_ms"], f["bound"], f["library_ms"]
+            main_path = launches_xl32
+        elif k in ("flash_attention_fp32_backward", "swiglu_ffn_fp32_backward"):
+            # the main path: the small config's training CLI at use_amp
+            # false; timed at its training freq shape
+            f = r["small training freq"]
+            ms, plain_ms, bound, library_ms = f["ms"], f["plain_ms"], f["bound"], f["library_ms"]
+            main_path = small_fp32_cli[0]
         elif k.endswith("_fp32_backward"):
             # the main path: a use_amp false base train step; timed at base
             # training freq, dropout 0.1
@@ -4174,9 +4759,18 @@ def main():
             entry["launches_bs_training"] = bs_train[0][0][k]
         if "_fp32" in k:
             entry["bf16_ms"] = f["bf16_ms"]   # the bf16 kernel on the same values
+        if k.startswith(("ffn_step_fp32", "attention_step_fp32")):
             entry["launches_speech_evaluation"] = speech_eval[1].get(k, 0)
             entry["launches_use_amp_false_speech_step"] = \
                 fp32_train["speech wsj0-2mix"]["launches"][k]
+        if k.startswith(("flash_attention_fp32", "swiglu_ffn_fp32")):
+            # each counted from 0 around its run: the small CLI's epoch (or
+            # the xlarge serving CLI's forward), a small use_amp false step
+            # and an xlarge micro-batch's (2 layers, remat, dropout 0.1)
+            entry["launches_small_training_cli"] = small_fp32_cli[0][k]
+            entry["launches_xlarge_serving_cli"] = launches_xl32[k]
+            for tag, run in fp32_unfused_train.items():
+                entry["launches_use_amp_false_" + tag.replace(" ", "_")] = run["launches"][k]
         kernels.append(entry)
     print(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,19 @@
-// fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4).
+// fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4),
+// and of the unfused route's flash attention (#6, #7) and FFN core (#8, #9).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
-//   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas
+//   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas,
+//   ops/pallas/flash_attention.py:207 _flash_forward, :315 _flash_backward_pallas,
+//   ops/pallas/swiglu_ffn.py:221 _forward, :363 _backward_pallas
 // at their fp32 itemsize: fp32 operands and fp32 sums, no rounding to a
 // narrower type anywhere.  The bf16 kernels (swiglu_block.cu,
-// attention_block.cu) stay as they are; ops/cuda/step_fp32.py chains the
-// kernels below into the four steps.
+// attention_block.cu, flash_attention.cu, swiglu_ffn.cu) stay as they are;
+// ops/cuda/step_fp32.py chains the kernels below into the four steps, and
+// ops/cuda/unfused_fp32.py into the unfused route's four kernels (the flash
+// forward: qkv_split and attn_fwd; its backward: qkv_split and attn_dq /
+// attn_dkdv; the FFN core: the conv and deconv as gemm_nn on windows of the
+// pre-padded rows, no norm; its backward: gemm_nn, gemm_tn, colsum, reduce).
 //
 // Design: fp32 FFMA, no tensor cores (TF32 would round every operand to 10
 // mantissa bits).  Each step is a short chain of launches through device
@@ -26,7 +33,8 @@
 //   norm_fwd / norm_bwd   RMSGroupNorm per (position, group); the backward
 //              writes dx and per-block dgamma partials.
 //   mask_rows  the outer / projection dropout site on the upstream gradient.
-//   qkv_split  q, k (RoPE) and v into [R, H, Lp, 32] (head dims zero-padded).
+//   qkv_split  q, k (RoPE) and v into [R, H, Lp, DP] (head dims zero-padded
+//              to DP: 32 for the steps; 16, 32 or 64 for flash attention).
 //   attn_fwd   one thread per query: 16-key steps of an online softmax in
 //              fp32 with expf, the undropped denominator, the dropped
 //              numerator; o [R, L, A] and the log-sum-exp.
@@ -55,11 +63,12 @@ constexpr int LDA = BM + 4, LDB = BN + 4;    // staged rows (k-major), 16-byte a
 constexpr int GEMM_SMEM = 2 * BK * (LDA + LDB) * 4;
 constexpr int QT = 64;                   // queries (keys) per attention block
 constexpr int KT = 64;                   // keys (queries) staged at a time
-constexpr int DP = 32;                   // head dims, zero-padded
 constexpr int SUB = 16;                  // keys per online-softmax step
 constexpr int NP = 64;                   // positions per norm_bwd block
-constexpr int ATTN_SMEM = 2 * KT * DP * 4;
-constexpr int DKDV_SMEM = 2 * KT * DP * 4 + 2 * KT * 4;
+// The attention kernels are instantiated at DP = 16, 32 and 64 head dims
+// (D zero-padded to DP); their shared memory at DP:
+constexpr long long attn_smem(int dp) { return 2LL * KT * dp * 4; }
+constexpr long long dkdv_smem(int dp) { return 2LL * KT * dp * 4 + 2 * KT * 4; }
 
 enum { EPI_STORE = 0, EPI_SWIGLU = 1, EPI_SWIGLU_BWD = 2, EPI_OUT = 3 };
 
@@ -392,7 +401,8 @@ __global__ void mask_rows(const float* __restrict__ g, float* __restrict__ dz, l
 }
 
 // qkv [R, L, 3A] -> q, k (rotated by RoPE's interleaved pairs), v
-// [R, H, Lp, 32]; rows L..Lp-1 and dims D..31 zero.
+// [R, H, Lp, DP]; rows L..Lp-1 and dims D..DP-1 zero.
+template <int DP>
 __global__ void qkv_split(const float* __restrict__ qkv, const float* __restrict__ cs,
                           const float* __restrict__ sn, float* __restrict__ q,
                           float* __restrict__ k, float* __restrict__ v, int R, int L, int Lp,
@@ -421,7 +431,8 @@ __global__ void qkv_split(const float* __restrict__ qkv, const float* __restrict
   v[o + 1] = s[2 * A + 1];
 }
 
-__device__ __forceinline__ float dot32(const float (&a)[DP], const float* b) {
+template <int DP>
+__device__ __forceinline__ float dotp(const float (&a)[DP], const float* b) {
   float s = 0.f;
 #pragma unroll
   for (int d = 0; d < DP; d += 4) {
@@ -434,7 +445,8 @@ __device__ __forceinline__ float dot32(const float (&a)[DP], const float* b) {
   return s;
 }
 
-__device__ __forceinline__ void axpy32(float (&y)[DP], float a, const float* x) {
+template <int DP>
+__device__ __forceinline__ void axpyp(float (&y)[DP], float a, const float* x) {
 #pragma unroll
   for (int d = 0; d < DP; d += 4) {
     const float4 v = *reinterpret_cast<const float4*>(x + d);
@@ -445,8 +457,9 @@ __device__ __forceinline__ void axpy32(float (&y)[DP], float a, const float* x) 
   }
 }
 
-// Stage rows [t0, t0 + KT) of two [Lp, 32] head slices into shared memory,
+// Stage rows [t0, t0 + KT) of two [Lp, DP] head slices into shared memory,
 // the first times s0scale.
+template <int DP>
 __device__ __forceinline__ void stage2(float* s0, float* s1, const float* g0, const float* g1,
                                        int t0, float s0scale = 1.f) {
   const float4* a = reinterpret_cast<const float4*>(g0 + (long long)t0 * DP);
@@ -464,6 +477,7 @@ __device__ __forceinline__ void stage2(float* s0, float* s1, const float* g0, co
 
 // One thread per query of one (row, head): o = drop(softmax(q k^T scale)) v
 // with the undropped denominator; lse = max + log(sum) (natural log).
+template <int DP>
 __global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
                                                const float* __restrict__ k,
                                                const float* __restrict__ v,
@@ -487,7 +501,7 @@ __global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
   const uint32_t row = dp.row0 + (uint32_t)r;
   for (int kt = 0; kt < L; kt += KT) {
     __syncthreads();
-    stage2(ks, vs, k + hb, v + hb, kt);
+    stage2<DP>(ks, vs, k + hb, v + hb, kt);
     __syncthreads();
     if (i >= L) continue;
     const int nk = L - kt < KT ? L - kt : KT;
@@ -496,7 +510,7 @@ __global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
       float mt = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
-        s[jj] = j0 + jj < nk ? dot32(qr, ks + (j0 + jj) * DP) : -INFINITY;
+        s[jj] = j0 + jj < nk ? dotp(qr, ks + (j0 + jj) * DP) : -INFINITY;
         mt = fmaxf(mt, s[jj]);
       }
       if (mt > m) {
@@ -519,7 +533,7 @@ __global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
           const float p = expf(s[jj] - m);
           l += p;
           const float pd = dp.on ? (w.w[c] < dp.thr ? p * dp.scale : 0.f) : p;
-          axpy32(acc, pd, vs + (j0 + jj) * DP);
+          axpyp(acc, pd, vs + (j0 + jj) * DP);
         }
       }
     }
@@ -534,6 +548,7 @@ __global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
 }
 
 // RoPE's rotation undone on a gradient pair at position l, written to dst.
+template <int DP>
 __device__ __forceinline__ void unrope_store(const float (&g)[DP], float* dst, const float* cs,
                                              const float* sn, int l, int D) {
 #pragma unroll
@@ -547,7 +562,8 @@ __device__ __forceinline__ void unrope_store(const float (&g)[DP], float* dst, c
 
 // One thread per query: delta = do . o, dq = scale sum_j dS_ij k_j with
 // dS = P (drop(dP) - delta); dq (rotated back) into dqkv [R, L, 3A]; do and
-// delta kept for attn_dkdv (dop [R, H, Lp, 32], delta [R, H, L]).
+// delta kept for attn_dkdv (dop [R, H, Lp, DP], delta [R, H, L]).
+template <int DP>
 __global__ void __launch_bounds__(QT) attn_dq(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
@@ -586,7 +602,7 @@ __global__ void __launch_bounds__(QT) attn_dq(
   const uint32_t row = dp.row0 + (uint32_t)r;
   for (int kt = 0; kt < L; kt += KT) {
     __syncthreads();
-    stage2(ks, vs, k + hb, v + hb, kt);
+    stage2<DP>(ks, vs, k + hb, v + hb, kt);
     __syncthreads();
     if (i >= L) continue;
     const int nk = L - kt < KT ? L - kt : KT;
@@ -599,21 +615,22 @@ __global__ void __launch_bounds__(QT) attn_dq(
       for (int c = 0; c < 4; ++c) {
         const int jj = j4 + c;
         if (jj >= nk) break;
-        const float p = expf(dot32(qr, ks + jj * DP) - li);
-        float dpv = dot32(dor, vs + jj * DP);
+        const float p = expf(dotp(qr, ks + jj * DP) - li);
+        float dpv = dotp(dor, vs + jj * DP);
         if (dp.on) dpv = w.w[c] < dp.thr ? dpv * dp.scale : 0.f;
-        axpy32(dq, p * (dpv - dl), ks + jj * DP);
+        axpyp(dq, p * (dpv - dl), ks + jj * DP);
       }
     }
   }
   if (i >= L) return;
 #pragma unroll
   for (int d = 0; d < DP; ++d) dq[d] *= scale;
-  unrope_store(dq, dqkv + (r * L + i) * 3 * A + h * D, cs, sn, i, D);
+  unrope_store<DP>(dq, dqkv + (r * L + i) * 3 * A + h * D, cs, sn, i, D);
 }
 
 // One thread per key: dv = sum_i drop(P_ij) do_i, dk = scale sum_i dS_ij q_i;
 // dk (rotated back) and dv into dqkv.
+template <int DP>
 __global__ void __launch_bounds__(QT) attn_dkdv(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dop, const float* __restrict__ lse,
@@ -639,7 +656,7 @@ __global__ void __launch_bounds__(QT) attn_dkdv(
   const uint32_t row = dp.row0 + (uint32_t)r;
   for (int qt = 0; qt < L; qt += KT) {
     __syncthreads();
-    stage2(qs, dos, q + hb, dop + hb, qt, scale);
+    stage2<DP>(qs, dos, q + hb, dop + hb, qt, scale);
     for (int e = threadIdx.x; e < KT; e += blockDim.x) {
       ls[e] = qt + e < L ? lse[rh * L + qt + e] : 0.f;
       dls[e] = qt + e < L ? delta[rh * L + qt + e] : 0.f;
@@ -648,21 +665,21 @@ __global__ void __launch_bounds__(QT) attn_dkdv(
     if (j >= L) continue;
     const int nq = L - qt < KT ? L - qt : KT;
     for (int ii = 0; ii < nq; ++ii) {
-      const float p = expf(dot32(kr, qs + ii * DP) - ls[ii]);
-      float dpv = dot32(vr, dos + ii * DP), pd = p;
+      const float p = expf(dotp(kr, qs + ii * DP) - ls[ii]);
+      float dpv = dotp(vr, dos + ii * DP), pd = p;
       if (dp.on) {
         const bool keep = dropout_keep(dp.seed, SITE_ATTN_PROB, row, (uint32_t)h, (uint32_t)j,
                                        (uint32_t)(qt + ii), dp.thr);
         pd = keep ? p * dp.scale : 0.f;
         dpv = keep ? dpv * dp.scale : 0.f;
       }
-      axpy32(dv, pd, dos + ii * DP);
-      axpy32(dk, p * (dpv - dls[ii]), qs + ii * DP);
+      axpyp(dv, pd, dos + ii * DP);
+      axpyp(dk, p * (dpv - dls[ii]), qs + ii * DP);
     }
   }
   if (j >= L) return;
   float* dst = dqkv + (r * L + j) * 3 * A;
-  unrope_store(dk, dst + A + h * D, cs, sn, j, D);
+  unrope_store<DP>(dk, dst + A + h * D, cs, sn, j, D);
 #pragma unroll
   for (int d = 0; d < DP; ++d)
     if (d < D) dst[2 * A + h * D + d] = dv[d];
@@ -697,15 +714,22 @@ inline unsigned blocks(long long n, int per) { return (unsigned)((n + per - 1) /
 using namespace f32;
 
 // Shared memory of each launch (bytes): 0 gemm_nn / gemm_tn, 1 attn_fwd /
-// attn_dq, 2 attn_dkdv, 3 norm_bwd at width C.
+// attn_dq, 2 attn_dkdv (both at the steps' DP 32), 3 norm_bwd at width C.
 extern "C" long long step_fp32_smem_bytes(int which, int C) {
   switch (which) {
     case 0: return GEMM_SMEM;
-    case 1: return ATTN_SMEM;
-    case 2: return DKDV_SMEM;
+    case 1: return attn_smem(32);
+    case 2: return dkdv_smem(32);
     case 3: return (long long)NP * C * 4;
   }
   return -1;
+}
+
+// The attention kernels' shared memory at a padded head width dp: 0 attn_fwd
+// / attn_dq, 1 attn_dkdv.
+extern "C" long long f32_attn_smem_bytes(int which, int dp) {
+  if (dp != 16 && dp != 32 && dp != 64) return -1;
+  return which == 0 ? attn_smem(dp) : which == 1 ? dkdv_smem(dp) : -1;
 }
 
 #define WIN_ARGS(n) const void *n##_p, long long n##_rs, long long n##_P, long long n##_ps, \
@@ -795,41 +819,71 @@ extern "C" int f32_mask_rows(const void* g, void* dz, long long n, int L, int C,
   return (int)cudaGetLastError();
 }
 
-extern "C" int f32_qkv_split(const void* qkv, const void* cs, const void* sn, void* q, void* k,
-                             void* v, int R, int L, int Lp, int H, int D, void* stream) {
-  if (D % 2 || D > DP || Lp % KT || Lp < L) return (int)cudaErrorInvalidValue;
-  qkv_split<<<blocks((long long)R * H * Lp * (DP / 2), 256), 256, 0, (cudaStream_t)stream>>>(
+template <int DP>
+int launch_qkv_split(const void* qkv, const void* cs, const void* sn, void* q, void* k, void* v,
+                     int R, int L, int Lp, int H, int D, cudaStream_t st) {
+  qkv_split<DP><<<blocks((long long)R * H * Lp * (DP / 2), 256), 256, 0, st>>>(
       (const float*)qkv, (const float*)cs, (const float*)sn, (float*)q, (float*)k, (float*)v, R,
       L, Lp, H, D);
   return (int)cudaGetLastError();
 }
 
-extern "C" int f32_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int R, int H, int L, int Lp, int D, float scale, unsigned seed,
-                            unsigned thr, unsigned row0, float dscale, int on, void* stream) {
-  if (D > DP || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
-  attn_fwd<<<dim3(R * H, Lp / QT), QT, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, L, Lp, D,
-      scale, drop(seed, thr, row0, dscale, on));
+template <int DP>
+int launch_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int R,
+                    int H, int L, int Lp, int D, float scale, DropParams dp, cudaStream_t st) {
+  attn_fwd<DP><<<dim3(R * H, Lp / QT), QT, 0, st>>>((const float*)q, (const float*)k,
+                                                   (const float*)v, (float*)o, (float*)lse, H, L,
+                                                   Lp, D, scale, dp);
   return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const void* lse, void* dop, void* delta, void* dqkv, const void* cs,
+                    const void* sn, int R, int H, int L, int Lp, int D, float scale,
+                    DropParams dp, cudaStream_t st) {
+  const dim3 grid(R * H, Lp / QT);
+  attn_dq<DP><<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                   (const float*)o, (const float*)dout, (const float*)lse,
+                                   (float*)dop, (float*)delta, (float*)dqkv, (const float*)cs,
+                                   (const float*)sn, H, L, Lp, D, scale, dp);
+  attn_dkdv<DP><<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                     (const float*)dop, (const float*)lse, (const float*)delta,
+                                     (float*)dqkv, (const float*)cs, (const float*)sn, H, L, Lp,
+                                     D, scale, dp);
+  return (int)cudaGetLastError();
+}
+
+// The padded head width dp selects the instantiation: 16, 32 or 64.
+#define DP_DISPATCH(dp, fn, ...)                                       \
+  switch (dp) {                                                        \
+    case 16: return fn<16>(__VA_ARGS__);                               \
+    case 32: return fn<32>(__VA_ARGS__);                               \
+    case 64: return fn<64>(__VA_ARGS__);                               \
+  }                                                                    \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" int f32_qkv_split(const void* qkv, const void* cs, const void* sn, void* q, void* k,
+                             void* v, int R, int L, int Lp, int H, int D, int dp, void* stream) {
+  if (D % 2 || D > dp || Lp % KT || Lp < L) return (int)cudaErrorInvalidValue;
+  DP_DISPATCH(dp, launch_qkv_split, qkv, cs, sn, q, k, v, R, L, Lp, H, D, (cudaStream_t)stream)
+}
+
+extern "C" int f32_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int R, int H, int L, int Lp, int D, int dp, float scale,
+                            unsigned seed, unsigned thr, unsigned row0, float dscale, int on,
+                            void* stream) {
+  if (D > dp || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
+  DP_DISPATCH(dp, launch_attn_fwd, q, k, v, o, lse, R, H, L, Lp, D, scale,
+              drop(seed, thr, row0, dscale, on), (cudaStream_t)stream)
 }
 
 extern "C" int f32_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* dop, void* delta, void* dqkv,
                             const void* cs, const void* sn, int R, int H, int L, int Lp, int D,
-                            float scale, unsigned seed, unsigned thr, unsigned row0,
+                            int dp, float scale, unsigned seed, unsigned thr, unsigned row0,
                             float dscale, int on, void* stream) {
-  if (D > DP || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
-  const DropParams dp = drop(seed, thr, row0, dscale, on);
-  const dim3 grid(R * H, Lp / QT);
-  const cudaStream_t st = (cudaStream_t)stream;
-  attn_dq<<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                               (const float*)o, (const float*)dout, (const float*)lse,
-                               (float*)dop, (float*)delta, (float*)dqkv, (const float*)cs,
-                               (const float*)sn, H, L, Lp, D, scale, dp);
-  attn_dkdv<<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                 (const float*)dop, (const float*)lse, (const float*)delta,
-                                 (float*)dqkv, (const float*)cs, (const float*)sn, H, L, Lp, D,
-                                 scale, dp);
-  return (int)cudaGetLastError();
+  if (D > dp || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
+  DP_DISPATCH(dp, launch_attn_bwd, q, k, v, o, dout, lse, dop, delta, dqkv, cs, sn, R, H, L, Lp,
+              D, scale, drop(seed, thr, row0, dscale, on), (cudaStream_t)stream)
 }

@@ -8,8 +8,9 @@ reference's keys.
 
 ``forward`` is the unfused path: the projections are ``torch.matmul``
 (as the JAX package leaves them to XLA) and, with ``flash`` (the config's
-``flash_attention``), no dropout and a head_dim the kernel takes, the core
-goes to the flash-attention kernels with RoPE fused
+``flash_attention``), no dropout and a head_dim the kernels take in the
+rows' dtype (bf16 or fp32 kernels, keyed as the blocks' routes are), the
+core goes to the flash-attention kernels with RoPE fused
 (``ops/cuda/flash_attention.py``, forward and backward); otherwise RoPE and
 the plain attention run in torch, the probability mask built per row group
 from the seed and the rows' ids (``ops/attention.py``).  A dropout request
@@ -51,10 +52,18 @@ class MultiHeadSelfAttention(nn.Module):
         super().__init__()
         self.n_heads, self.use_rope = n_heads, use_rope
         self.mp = 1   # the heads' split (parallel/sharding.py::shard_module)
-        self.flash = flash and FA.supports_shape(attention_dim // n_heads)
+        # (fp32 rows?) -> whether the core goes to the flash-attention kernels
+        self._flash = {fp32: flash and FA.supports_shape(
+            attention_dim // n_heads, torch.float32 if fp32 else torch.bfloat16)
+            for fp32 in (False, True)}
         self.qkv = nn.Linear(emb_dim, attention_dim * 3, bias=False)
         self.aggregate_heads = nn.Sequential(
             nn.Linear(attention_dim, emb_dim, bias=False))
+
+    @property
+    def flash(self) -> bool:
+        """Whether bf16 rows' core goes to the flash-attention kernels."""
+        return self._flash[False]
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
@@ -64,7 +73,7 @@ class MultiHeadSelfAttention(nn.Module):
         seed = dp_seed(seed, active_mesh())
         qkv = (x @ self.qkv.weight.to(dt).T).reshape(b, l, 3, self.n_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)                  # [B, H, L, D]
-        if self.flash and drop_rate == 0.0:
+        if self._flash[dt == torch.float32] and drop_rate == 0.0:
             out = FA.flash_attention(q, k, v, self.use_rope, 10000.0)
         else:
             if self.use_rope:

@@ -16,9 +16,11 @@ fp32 kernels' shared-memory layouts on an H100, the backward's too in
 training mode).  Otherwise the step runs
 as norm + module + residual, and the modules take the flash-attention and
 FFN-core kernels under the same flags (``nn/attention.py``,
-``nn/ffn.py``); that is the xlarge config's route (C 256) and every
-LayerNorm config's.  The route is decided from shapes, the rows' dtype and
-``self.training`` before any launch, never from a failure.
+``nn/ffn.py``), their bf16 or fp32 kernels by the rows' dtype; that is the
+xlarge config's route (C 256), the small config's (C 48) and every
+LayerNorm config's, in both dtypes.  The route is decided from shapes, the
+rows' dtype and ``self.training`` before any launch, never from a
+failure.
 
 Dropout: in training mode (``module.train()``) with a rate above 0, each
 step takes one int32 seed from the caller's ``torch.Generator`` (FFN before

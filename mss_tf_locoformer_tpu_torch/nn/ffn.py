@@ -8,8 +8,9 @@ whose layouts the JAX package emulates, so reference checkpoints load as
 they are.
 
 ``forward`` is the unfused path: with ``fused`` (the config's
-``fused_ffn``), stride 1 and a shape the kernels take (in training mode the
-backward's too), the padded rows go through the FFN-core kernels
+``fused_ffn``), stride 1 and a shape the kernels take in the rows' dtype
+(bf16 or fp32 kernels; in training mode the backward's too), the padded
+rows go through the FFN-core kernels
 (``ops/cuda/swiglu_ffn.py``: forward, and the backward kernel when a
 gradient is asked for), as the JAX package's ``swiglu_conv_deconv``;
 otherwise through torch's convolutions (any stride).  ``fused_step`` runs ``x + FFN(RMSGroupNorm(x))`` through the
@@ -63,17 +64,20 @@ class SwiGLUConvDeconv1d(nn.Module):
         self.dim_inner = dim_inner
         self.mp = 1   # the inner channels' split (parallel/sharding.py::shard_module)
         self.kernel, self.shift = conv1d_kernel, conv1d_shift
-        # (training?) -> whether the rows go through the FFN-core kernels
-        self._fused = {training: (fused and conv1d_shift == 1 and swiglu_ffn.supports_shape(
-            dim, dim_inner, conv1d_kernel, training)) for training in (False, True)}
+        # (training?, fp32 rows?) -> whether the rows go through the FFN-core kernels
+        self._fused = {(training, fp32): fused and conv1d_shift == 1 and swiglu_ffn.supports_shape(
+            dim, dim_inner, conv1d_kernel, training, torch.float32 if fp32 else torch.bfloat16)
+            for training in (False, True) for fp32 in (False, True)}
         self.conv1d = nn.Conv1d(dim, dim_inner * 2, conv1d_kernel, stride=conv1d_shift)
         self.deconv1d = nn.ConvTranspose1d(dim_inner, dim, conv1d_kernel,
                                            stride=conv1d_shift)
 
     @property
     def fused(self) -> bool:
-        """Whether the rows go through the FFN-core kernels in the current mode."""
-        return self._fused[self.training]
+        """Whether bf16 rows go through the FFN-core kernels in the current
+        mode (fp32 rows: wherever bf16 rows do, the fp32 gate being the
+        wider)."""
+        return self._fused[self.training, False]
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
@@ -86,7 +90,7 @@ class SwiGLUConvDeconv1d(nn.Module):
         dt = x.dtype
         seed = dp_seed(seed, active_mesh())
         rows = x.reshape(b * s1, s2, c)
-        if self.fused:
+        if self._fused[self.training, dt == torch.float32]:
             xp = F.pad(rows, (0, 0, diff_ks, diff_ks))        # [R, L + 2(k-1), C]
             y = swiglu_ffn.swiglu_conv_deconv(
                 xp, self.conv1d.weight, self.conv1d.bias, self.deconv1d.weight,

@@ -18,8 +18,11 @@ kernel needs a transpose.
 Dispatch: a CPU tensor takes :func:`reference_flash_attention` (RoPE from
 ``ops/rope.py``, then the plain ``dot_product_attention``; autograd through
 it is the backward's plain version); a CUDA tensor runs the kernels through
-:class:`FlashAttention` or raises.  The kernels take bf16 with an even
-head_dim up to 64.  When a gradient is asked for, the forward also stashes
+:class:`FlashAttention` or raises.  The kernels of this module take bf16
+with an even head_dim up to 64; fp32 tensors take the fp32 kernels of
+``ops/cuda/unfused_fp32.py`` (``csrc/step_fp32.cu``, the same head dims,
+their own launch counts), and nothing casts fp32 to bf16; any other dtype
+raises.  When a gradient is asked for, the forward also stashes
 each query's log-sum-exp (fp32 ``[B*H, L]``) and the backward kernels
 recompute the probabilities from it, q and k rotated in the kernel and the
 cotangents rotated back there (:func:`flash_attention_backward`).
@@ -40,7 +43,7 @@ import torch
 
 from ..attention import dot_product_attention
 from ..rope import apply_rope
-from . import SMEM_OPTIN, check, load, ptr, stream_handle
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, unfused_fp32
 from .attention_block import _rope_tables
 
 __all__ = ["flash_attention", "flash_attention_backward", "FlashAttention",
@@ -54,9 +57,12 @@ MAX_HEAD_DIM = 64   # D padded to a multiple of 16 (the MMA depth) up to 64
 _BW_WARPS, _BW_SLABS = 11, 3
 
 
-def supports_shape(d: int) -> bool:
-    """Whether the kernels (forward and backward) take head_dim ``d``."""
-    return d % 2 == 0 and 0 < d <= MAX_HEAD_DIM
+def supports_shape(d: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernels (forward and backward) take head_dim ``d`` in
+    ``dtype``: bf16 this module's, fp32 ``unfused_fp32.supports_flash``."""
+    if dtype == torch.float32:
+        return unfused_fp32.supports_flash(d)
+    return dtype == torch.bfloat16 and d % 2 == 0 and 0 < d <= MAX_HEAD_DIM
 
 
 def _rows_bytes(lp: int, d: int) -> int:
@@ -148,12 +154,13 @@ def _check(q, k, v):
     if q.shape != k.shape or q.shape != v.shape or q.dim() < 3:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must share one [..., L, D] shape")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"flash_attention: the CUDA kernel takes bf16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or {k.dtype, v.dtype} != {q.dtype}:
+        raise TypeError(f"flash_attention: the CUDA kernels take bf16 or fp32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: tensors on different devices")
     d = q.shape[-1]
-    if not supports_shape(d) or q.shape[-2] < 1:
+    if not supports_shape(d, q.dtype) or q.shape[-2] < 1:
         raise ValueError(f"flash_attention: head_dim {d} must be even and <= "
                          f"{MAX_HEAD_DIM}, L {q.shape[-2]} >= 1")
 
@@ -170,7 +177,10 @@ def _strides(t: torch.Tensor):
 
 
 def _forward(q4, k4, v4, rope: bool, theta: float, stash: bool):
-    """One launch of the forward kernel: ``(out [B, L, H, D], lse or None)``."""
+    """One launch of the forward kernel: ``(out [B, L, H, D], lse or None)``;
+    fp32 tensors take ``unfused_fp32.flash_forward_fp32``."""
+    if q4.dtype == torch.float32:
+        return unfused_fp32.flash_forward_fp32(q4, k4, v4, rope, theta, stash)
     b, h, seq, d = q4.shape
     out = torch.empty(b, seq, h, d, dtype=q4.dtype, device=q4.device)
     o4 = out.permute(0, 2, 1, 3)                    # [B, H, L, D] view
@@ -189,7 +199,9 @@ def flash_attention_backward(g, q4, k4, v4, out, lse, rope: bool, theta: float):
     """The backward kernels (one counted launch): ``g`` the cotangent of
     ``out [B, L, H, D]``, the rest as :func:`_forward` took and gave them;
     returns ``(dq, dk, dv)`` as ``[B, H, L, D]`` views of ``[B, L, H, D]``
-    buffers."""
+    buffers.  fp32 tensors take ``unfused_fp32.flash_backward_fp32``."""
+    if q4.dtype == torch.float32:
+        return unfused_fp32.flash_backward_fp32(g, q4, k4, v4, out, lse, rope, theta)
     b, h, seq, d = q4.shape
     dev = q4.device
     g4 = g.to(q4.dtype).contiguous().permute(0, 2, 1, 3)

@@ -212,9 +212,9 @@ class CudaPrims:
                 ("f32_norm_fwd", [vp, vp, vp, ll, i, i, f, vp]),
                 ("f32_norm_bwd", [vp] * 6 + [ll, i, i, f, vp]),
                 ("f32_mask_rows", [vp, vp, ll, i, i] + [u] * 4 + [f, vp]),
-                ("f32_qkv_split", [vp] * 6 + [i] * 5 + [vp]),
-                ("f32_attn_fwd", [vp] * 5 + [i] * 5 + [f] + [u] * 3 + [f, i, vp]),
-                ("f32_attn_bwd", [vp] * 11 + [i] * 5 + [f] + [u] * 3 + [f, i, vp])):
+                ("f32_qkv_split", [vp] * 6 + [i] * 6 + [vp]),
+                ("f32_attn_fwd", [vp] * 5 + [i] * 6 + [f] + [u] * 3 + [f, i, vp]),
+                ("f32_attn_bwd", [vp] * 11 + [i] * 6 + [f] + [u] * 3 + [f, i, vp])):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = ctypes.c_int, args
             self._fn[name] = fn
@@ -249,19 +249,21 @@ class CudaPrims:
         self._call("f32_mask_rows", ptr(g), ptr(dz), n, seq, c, site, *drop[:4],
                    device=dz.device)
 
+    # The attention kernels take the padded head width from q's last axis
+    # (their instantiations: 16, 32 and 64).
     def qkv_split(self, qkv, cos, sin, q, k, v, r, seq, lp, h, d):
         self._call("f32_qkv_split", ptr(qkv), ptr(cos), ptr(sin), ptr(q), ptr(k), ptr(v),
-                   r, seq, lp, h, d, device=q.device)
+                   r, seq, lp, h, d, q.shape[-1], device=q.device)
 
     def attn_fwd(self, q, k, v, o, lse, r, h, seq, lp, d, scale, drop):
         self._call("f32_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(o), _opt(lse), r, h, seq, lp,
-                   d, scale, *drop, device=o.device)
+                   d, q.shape[-1], scale, *drop, device=o.device)
 
     def attn_bwd(self, q, k, v, o, dout, lse, dop, delta, dqkv, cos, sin, r, h, seq, lp, d,
                  scale, drop):
         self._call("f32_attn_bwd", *(ptr(t) for t in (q, k, v, o, dout, lse, dop, delta, dqkv,
                                                        cos, sin)),
-                   r, h, seq, lp, d, scale, *drop, device=dqkv.device)
+                   r, h, seq, lp, d, q.shape[-1], scale, *drop, device=dqkv.device)
 
 
 _CUDA = []

@@ -19,8 +19,11 @@ convolutions through ``torch.nn.functional`` on the card; autograd through
 it is the backward's plain version); a CUDA tensor runs the kernels through
 :class:`SwiGLUCore` or raises.  The kernels take bf16 rows, C a multiple of
 16 up to 256 and 2 <= k <= 8 (:func:`supports_shape`, which the FFN module
-consults before calling, with the backward's layouts in training).  Two
-routes, by width (:func:`hopper_route`): at C 128 and 256 the Hopper
+consults before calling, with the backward's layouts in training).  fp32
+rows take the fp32 kernels of ``ops/cuda/unfused_fp32.py``
+(``csrc/step_fp32.cu``: every shape the bf16 gate takes, their own launch
+counts), and nothing casts fp32 to bf16; any other dtype raises.  For bf16
+rows, two routes, by width (:func:`hopper_route`): at C 128 and 256 the Hopper
 kernels (wgmma, bulk and tensor copies; the inner dimension in 64-channel
 chunks forward, 32-channel ones backward, zero-padded to a multiple of
 64), whose weight stages the wrapper
@@ -40,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import dropout as D
-from . import SMEM_OPTIN, check, load, ptr, stream_handle, weight_splits
+from . import SMEM_OPTIN, check, load, ptr, stream_handle, unfused_fp32, weight_splits
 from .swiglu_block import ffn_panels, inner_mask
 
 __all__ = ["swiglu_conv_deconv", "swiglu_ffn_backward", "SwiGLUCore",
@@ -236,11 +239,15 @@ def wg_backward_plan(rows: int, lin: int, c: int, inner: int, k: int,
             "partial_bytes": splits * (k * c * 3 * ip + 2 * ip) * 4}
 
 
-def supports_shape(c: int, inner: int, k: int, training: bool = False) -> bool:
+def supports_shape(c: int, inner: int, k: int, training: bool = False,
+                   dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the kernels take width ``c``, ``inner`` channels and ``k``
-    taps (stride 1); in training the backward's layouts must fit too."""
-    return (c % 16 == 0 and 0 < c <= MAX_C and inner > 0 and 2 <= k <= 8
-            and core_bytes(c) <= SMEM_OPTIN
+    taps (stride 1) on rows of ``dtype``; in training the backward's layouts
+    must fit too.  fp32: ``unfused_fp32.supports_core``."""
+    if dtype == torch.float32:
+        return unfused_fp32.supports_core(c, inner, k, training)
+    return (dtype == torch.bfloat16 and c % 16 == 0 and 0 < c <= MAX_C and inner > 0
+            and 2 <= k <= 8 and core_bytes(c) <= SMEM_OPTIN
             and (not training or max(backward_bytes(c, k).values()) <= SMEM_OPTIN))
 
 
@@ -279,12 +286,12 @@ def _bwd_fn():
 def _check(x, conv_w, conv_b, deconv_w, deconv_b, kernel):
     r, lin, c = x.shape
     inner = deconv_w.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"swiglu_conv_deconv: the CUDA kernel takes bf16 rows, "
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"swiglu_conv_deconv: the CUDA kernels take bf16 or fp32 rows, "
                         f"got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("swiglu_conv_deconv: x must be contiguous and 16-byte aligned")
-    if not supports_shape(c, inner, kernel) or lin < kernel:
+    if not supports_shape(c, inner, kernel, dtype=x.dtype) or lin < kernel:
         raise ValueError(f"swiglu_conv_deconv: unsupported shape C={c} I={inner} "
                          f"k={kernel} Lin={lin}")
     if (conv_w.shape != (2 * inner, c, kernel) or conv_b.shape != (2 * inner,)
@@ -294,7 +301,7 @@ def _check(x, conv_w, conv_b, deconv_w, deconv_b, kernel):
     if any(t.device != x.device for t in params):
         raise ValueError("swiglu_conv_deconv: tensors on different devices")
     if (torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + params)
-            and not supports_shape(c, inner, kernel, training=True)):
+            and not supports_shape(c, inner, kernel, training=True, dtype=x.dtype)):
         raise ValueError(f"swiglu_conv_deconv: the backward kernels do not take "
                          f"C={c} k={kernel} (shared memory)")
 
@@ -317,7 +324,11 @@ def _wg_bwd_fn():
 
 def core_forward(x, conv_w, conv_b, deconv_w, deconv_b, kernel, drop_rate=0.0,
                  seed=0, row0=0):
-    """One launch of the forward kernel (no autograd)."""
+    """One launch of the forward kernel (no autograd); fp32 rows take
+    ``unfused_fp32.ffn_core_fp32``."""
+    if x.dtype == torch.float32:
+        return unfused_fp32.ffn_core_fp32(x, conv_w, conv_b, deconv_w, deconv_b, kernel,
+                                          drop_rate, seed, row0)
     r, lin, c = x.shape
     bd = deconv_b.to(torch.float32).contiguous()
     out = torch.empty_like(x)
@@ -382,7 +393,13 @@ def swiglu_ffn_backward(g, x, conv_w, conv_b, deconv_w, kernel, drop_rate=0.0,
     ddeconv_b)`` in torch layouts (fp32 for the weights, ``x.dtype`` for
     dx).  The deconv bias's gradient is the cotangent's sum, a torch
     reduction (the JAX package takes it outside its kernel too).
-    ``scratch_cap`` bounds the Hopper route's scratch (its row groups)."""
+    ``scratch_cap`` bounds the Hopper route's scratch (its row groups), and
+    the fp32 route's (``unfused_fp32.ffn_core_fp32_backward``, which fp32
+    rows take)."""
+    if x.dtype == torch.float32:
+        return unfused_fp32.ffn_core_fp32_backward(g, x, conv_w, conv_b, deconv_w, kernel,
+                                                   drop_rate, seed, row0,
+                                                   scratch_cap=scratch_cap)
     r, lin, c = x.shape
     k = kernel
     inner = deconv_w.shape[0]

@@ -836,3 +836,113 @@ def test_tp_steps_summed_over_shards(dev, mp):
         for j, key in enumerate(keys):
             got = unshard_tensor(key, [d[j] for d in dws])
             assert _rel_l2(got, ref[2 + j]) <= GRAD_REL_L2, key
+
+
+# fp32 rows of the unfused route (#6-#9, ops/cuda/unfused_fp32.py on
+# csrc/step_fp32.cu): fp32 on both sides, FP32_TOL / FP32_REL_L2 as the
+# fused steps' fp32 rows.  Head dims 12 and 16 (DP 16), 24 (32), 64 (64);
+# L 1, the 129- and 513-position tails of 64-row tiles, and a copy of
+# contiguous q, k, v beside the MHSA's views.
+FP32_FLASH_SHAPES = [(2, 3, 65, 12, True), (1, 16, 130, 16, True), (2, 2, 37, 24, False),
+                     (3, 4, 1, 16, True), (1, 2, 200, 64, True), (2, 4, 513, 12, True),
+                     (1, 4, 129, 12, False), (1, 2, 1000, 64, True)]
+
+
+@pytest.mark.parametrize("r,h,seq,d,rope", FP32_FLASH_SHAPES)
+def test_fp32_flash_attention_kernels(dev, r, h, seq, d, rope):
+    """#6 and #7 on fp32 views of a QKV product against autograd through the
+    plain version in fp32: one counted fp32 launch each way, none of the
+    bf16 kernels; contiguous q, k, v give the same bits."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    g = torch.Generator().manual_seed(11)
+    qkv = (1.5 * torch.randn(r, seq, 3, h, d, generator=g)).to(dev)
+    go = torch.randn(r, h, seq, d, generator=g).to(dev)
+    counters = (U.flash_forward_fp32, U.flash_backward_fp32, FA.flash_attention,
+                FA.flash_attention_backward)
+    before = [f.launches for f in counters]
+    leaf = qkv.detach().requires_grad_(True)
+    q, k, v = leaf.permute(2, 0, 3, 1, 4)
+    out = FA.flash_attention(q, k, v, rope)
+    (got,) = torch.autograd.grad(out, leaf, go)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 0, 0]
+    ref_leaf = qkv.detach().requires_grad_(True)
+    rq, rk, rv = ref_leaf.permute(2, 0, 3, 1, 4)
+    ref_out = FA.reference_flash_attention(rq, rk, rv, rope)
+    (ref,) = torch.autograd.grad(ref_out, ref_leaf, go)
+    _close(out, ref_out, FP32_TOL)
+    for i in range(3):
+        if seq == 1 and i < 2:   # softmax over one key: no gradient reaches q or k
+            assert got[:, :, i].abs().max() < 1e-6
+        else:
+            assert _rel_l2(got[:, :, i], ref[:, :, i]) <= FP32_REL_L2, i
+    with torch.no_grad():
+        dense = FA.flash_attention(*(t.detach().contiguous() for t in (q, k, v)), rope)
+    assert torch.equal(dense, out.detach())
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", [(2, 37, 48, 192, 4), (2, 130, 256, 96, 4),
+                                             (3, 5, 16, 32, 8), (1, 61, 256, 1024, 4),
+                                             (2, 70, 96, 30, 3), (1, 9, 112, 36, 2)])
+def test_fp32_swiglu_ffn_kernels(dev, r, seq, c, inner, k, drop):
+    """#8 and #9 on fp32 pre-padded rows against autograd through the plain
+    version in fp32 (cuDNN without TF32), the inner mask at rows offset by
+    7, an inner width padded to whole float4s (30); one counted fp32 launch
+    each way and none of the bf16 kernels."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    x = x.float()
+    go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(12)).to(dev)
+    counters = (U.ffn_core_fp32, U.ffn_core_fp32_backward, SF.swiglu_conv_deconv,
+                SF.swiglu_ffn_backward)
+    before = [f.launches for f in counters]
+    out, got = _all_grads(lambda *a: SF.swiglu_conv_deconv(*a, k, drop, 1234, 7), [x, *w], go)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 0, 0]
+    ref_out, ref = _all_grads(lambda *a: SF.reference_swiglu_conv_deconv(*a, k, drop, 1234, 7),
+                              [x, *w], go)
+    _check_fp32(out, ref_out, got, ref, ("dx", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+def test_fp32_unfused_kernels_give_the_same_bits_twice(dev):
+    """No atomics in the fp32 chains: two #7 runs and two #9 runs (dropout
+    0.1, 3 row groups) are bit-equal; #9 in row groups differs from the
+    one-group run only by the order of its fp32 sums; the layouts' bytes are
+    the compiled kernels' own."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    for d in (12, 16, 24, 64):
+        assert U.flash_launch_bytes(d) == U.compiled_flash_launch_bytes(d)
+    g = torch.Generator().manual_seed(13)
+    qkv = (1.5 * torch.randn(2, 300, 3, 4, 16, generator=g)).to(dev)
+    go = torch.randn(2, 300, 4, 16, generator=g).to(dev)
+    q4, k4, v4 = qkv.permute(2, 0, 3, 1, 4)
+    out, lse = FA._forward(q4, k4, v4, True, 10000.0, True)
+    first = FA.flash_attention_backward(go, q4, k4, v4, out, lse, True, 10000.0)
+    again = FA.flash_attention_backward(go, q4, k4, v4, out, lse, True, 10000.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    r, seq, c, inner, k = 5, 200, 256, 128, 4
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    x = x.float()
+    go = torch.randn(*x.shape, generator=g).to(dev)
+    lin = x.shape[1]
+    cap = 2 * 4 * 5 * (lin - k + 1) * inner
+    assert U.core_rows(r, lin, c, inner, k, True, cap) == 2
+    first = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7, scratch_cap=cap)
+    again = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7, scratch_cap=cap)
+    whole = SF.swiglu_ffn_backward(go, x, *w[:3], k, 0.1, 1234, 7)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(first[0], whole[0])
+    assert all(_rel_l2(a, b) < 1e-5 for a, b in zip(first[1:], whole[1:]))
+
+
+def test_unfused_kernels_refuse_fp16(dev):
+    """bf16 and fp32 take the unfused route's kernels; fp16 neither (no cast)."""
+    q = torch.randn(1, 2, 8, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q, q, True)
+    x, w = _core_inputs(dev, 1, 5, 48, 64, 4)
+    with pytest.raises(TypeError):
+        SF.swiglu_conv_deconv(x.half(), *w, 4)
