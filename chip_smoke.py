@@ -192,14 +192,17 @@ each of which raises on failure (exit code != 0, no result line):
      configs, kernel path against plain path (loss and grad_norm within
      1e-4), and timed at the full batch;
  28. fp32 rows of #6-#9 (``ops/cuda/unfused_fp32.py`` on
-     ``csrc/step_fp32.cu``): the fp32 gates (the flash launches' bytes
-     against the compiled kernels' count; the xlarge and small configs'
-     fp32 blocks on the unfused route's kernels); #6 and #8 against their
-     fp32 plain versions at the xlarge engine batch's shapes, #6 with its
-     stash, #7, #8 and #9 at the small training shapes, #9 at the xlarge
-     training shapes (a 64-row slice, also in row groups; the whole shape
-     twice for the same bits), exact fp32 launches, timed beside the plain
-     versions, the bf16 kernels, the fp32 bound and SDPA on fp32 q, k, v;
+     ``csrc/step_fp32.cu``, the FFN core's products on the 3xTF32 GEMMs of
+     ``csrc/ffn_core_fp32.cu``): the fp32 gates (the flash and FFN-core
+     launches' bytes against the compiled kernels' count; the xlarge and
+     small configs' fp32 blocks on the unfused route's kernels); #6 and #8
+     against their fp32 plain versions at the xlarge engine batch's shapes,
+     #6 with its stash, #7, #8 and #9 at the small training shapes, #9 at
+     the xlarge training shapes (a 64-row slice, also in row groups; the
+     whole shape twice for the same bits), exact fp32 launches, #8/#9's
+     kernels by CUDA events (3xTF32 GEMMs, no FFMA GEMM), timed beside the
+     plain versions, the bf16 kernels, the bounds (fp32 FFMA; 3xTF32 for
+     #8/#9) and SDPA on fp32 q, k, v;
      the xlarge separation CLI at ``--precision fp32`` on one engine batch
      (15 s) at full depth (launches, realtime factor, peak memory), and at
      2 layers on the kernel and the plain route (stems within 1e-4 of the
@@ -916,6 +919,11 @@ def phase_xlarge_kernels(results):
 # H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds of the
 # kernels: bf16 tensor cores, fp32 outside them, device memory.
 PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
+# TF32 tensor cores (dense): the fp32 rows of #8/#9 run their products there
+# in three passes (3xTF32), so their bound is 3 x FLOP at this rate (0.41x
+# the FFMA bound at PEAK_FP32, which the other fp32 rows are held to)
+PEAK_TF32 = 494.7e12
+TF32_PASSES = 3
 # Exponentials on the special-function units: 16 per SM per clock x 132 SMs
 # x 1.83 GHz, "989 TFLOPS of FP16 matmul but only 3.9 TFLOPS of special
 # functions" (FlashAttention-3, Shah et al. 2024, section 1).  A softmax
@@ -936,11 +944,13 @@ ATTN_STREAM_SHAPE = (16, 1900, 96)
 GRAD_REL_L2, STEP_GRAD_REL_L2, STEP_LOSS_REL = 2e-2, 1e-1, 2e-2
 
 
-def _bound(flop: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16):
-    """(least ms, what bounds it) for ``flop`` at ``peak``, ``nbytes`` moved
-    once at the device memory rate and ``exps`` exponentials at the
-    special-function rate: "operations", "bytes" or "exponentials"."""
-    terms = {"operations": flop / peak, "bytes": nbytes / HBM_RATE,
+def _bound(flop: float, nbytes: float, exps: float = 0.0, peak: float = PEAK_BF16,
+           passes: int = 1):
+    """(least ms, what bounds it) for ``flop`` at ``peak`` (``passes`` times
+    over: 3xTF32 runs each product three times), ``nbytes`` moved once at
+    the device memory rate and ``exps`` exponentials at the special-function
+    rate: "operations", "bytes" or "exponentials"."""
+    terms = {"operations": passes * flop / peak, "bytes": nbytes / HBM_RATE,
              "exponentials": exps / SFU_RATE}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by
@@ -3401,6 +3411,9 @@ def phase_unfused_fp32_gates():
         want, got = U32.flash_launch_bytes(d), U32.compiled_flash_launch_bytes(d)
         if want != got:
             raise AssertionError(f"fp32 flash gate at D {d}: layouts {want} != compiled {got}")
+    want, got = U32.core_launch_bytes(), U32.compiled_core_launch_bytes()
+    if want != got:
+        raise AssertionError(f"fp32 FFN-core gate: layouts {want} != compiled {got}")
     for tag, cfg in (("xlarge", xlarge_model_config()), ("small", small_model_config())):
         block = build_model(dataclasses.replace(cfg, n_layers=1), FP32).blocks[0].freq_path
         d = cfg.attention_dim // cfg.n_heads
@@ -3555,6 +3568,62 @@ def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
     torch.cuda.empty_cache()
 
 
+def _fp32_core_kernels(label, fn, backward, reps=2) -> dict:
+    """The launches of one #8 (or with ``backward`` one #9) fp32 call ``fn``,
+    caught on the prims: the 3xTF32 kernels of ``csrc/ffn_core_fp32.cu``
+    (``core_nn`` by epilogue, ``core_tn``, ``core_colsum``) and those of
+    ``csrc/step_fp32.cu``; per kernel ``[launches, device ms]`` a call, the
+    device time from CUDA events around each launch (mean of ``reps``
+    calls; a ``torch.profiler`` trace loses its kernels late in this
+    process).  Raises when an FFMA GEMM (``gemm_nn``, ``gemm_tn``) ran or a
+    3xTF32 GEMM did not."""
+    import torch
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
+    epi = {S.EPI_STORE: "store", S.EPI_SWIGLU: "swiglu", S.EPI_SWIGLU_BWD: "swiglu_bwd"}
+    events = []
+    saved = []
+    for cls, names, lib in ((S.CudaPrims, ("gemm_nn", "gemm_tn", "colsum", "reduce"),
+                             "step_fp32"),
+                            (U32.CorePrims, ("gemm_nn", "gemm_tn", "colsum"), "ffn_core_fp32")):
+        for name in names:
+            real = getattr(cls, name)
+            kernel = {"gemm_nn": "core_nn", "gemm_tn": "core_tn",
+                      "colsum": "core_colsum"}[name] if lib == "ffn_core_fp32" else name
+
+            def timed(self, *a, _real=real, _key=f"{lib} {kernel}", **kw):
+                key = _key + (f" {epi[a[0]]}" if _key.endswith("core_nn") else "")
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = _real(self, *a, **kw)
+                ev[1].record()
+                events.append((key, ev))
+                return out
+            saved.append((cls, name, real))
+            setattr(cls, name, timed)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+    out = {}
+    for key, (start, end) in events:
+        n, ms = out.get(key, (0, 0.0))
+        out[key] = (n + 1, ms + start.elapsed_time(end))
+    out = {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
+    print(f"[fp32-unfused] {label} {'backward' if backward else 'forward'}: per kernel "
+          f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
+                                                        for k, (n, ms) in out.items()))
+    ffma = [k for k in out if k in ("step_fp32 gemm_nn", "step_fp32 gemm_tn")]
+    need = ("core_nn", "core_tn") if backward else ("core_nn",)
+    missing = [n for n in need if not any(k.startswith(f"ffn_core_fp32 {n}") for k in out)]
+    if ffma or missing:
+        raise AssertionError(f"{label}: FFMA GEMMs {ffma} ran, 3xTF32 GEMMs {missing} did not")
+    return out
+
+
 def _fp32_core_case(results, tag, rows, seq, c, inner, k, gen, training, slice_rows=None):
     """#8 (and with ``training`` #9) on fp32 pre-padded rows against the fp32
     plain version (cuDNN without TF32): the whole shape, or with
@@ -3562,8 +3631,10 @@ def _fp32_core_case(results, tag, rows, seq, c, inner, k, gen, training, slice_r
     groups as the whole shape runs (the plain fp32 intermediates of all the
     rows would not fit); the inner mask on a 16-row slice at its row offset;
     exact launches; #9 twice for the same bits; timed at the whole shape
-    beside the plain version, the bf16 kernels on the same values and the
-    bound."""
+    beside the plain version, the bf16 kernels on the same values and both
+    bounds (3xTF32, which the design is held to, and fp32 FFMA); each
+    kernel's launches and device ms a call (CUDA events around each launch:
+    3xTF32 GEMMs, no FFMA GEMM)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_ffn as SF
     from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
@@ -3595,11 +3666,13 @@ def _fp32_core_case(results, tag, rows, seq, c, inner, k, gen, training, slice_r
             torch.cuda.empty_cache()
             x16 = x.to(torch.bfloat16)
             r["err"] = max(r["err"], err)
+            work = ffn_core_work(rows, seq, c, inner, k, row_bytes=4)
             r[tag] = dict(shape=(rows, lin, c), ms=_time_ms(lambda: fn(x, *w), iters=3),
                           plain_ms=_time_ms(lambda: pfn(x, *w), iters=1),
                           bf16_ms=_time_ms(lambda: fn(x16, *w), iters=3), library_ms=None,
-                          bound=_bound(*ffn_core_work(rows, seq, c, inner, k, row_bytes=4),
-                                       peak=PEAK_FP32))
+                          bound=_bound(*work, peak=PEAK_TF32, passes=TF32_PASSES),
+                          ffma_bound=_bound(*work, peak=PEAK_FP32),
+                          kernels=_fp32_core_kernels(label, lambda: fn(x, *w), False))
         del x, x16, xs, w
         torch.cuda.empty_cache()
         return
@@ -3663,16 +3736,21 @@ def _fp32_core_case(results, tag, rows, seq, c, inner, k, gen, training, slice_r
                          iters=1)
     del pout, xp, wp
     r["err"] = max(r["err"], ferr)
+    work = ffn_core_work(rows, seq, c, inner, k, row_bytes=4)
     r[tag] = dict(shape=(rows, lin, c), ms=times["fwd_ms"], plain_ms=plain_fwd,
                   bf16_ms=times["bf16_fwd_ms"], library_ms=None,
-                  bound=_bound(*ffn_core_work(rows, seq, c, inner, k, row_bytes=4),
-                               peak=PEAK_FP32))
+                  bound=_bound(*work, peak=PEAK_TF32, passes=TF32_PASSES),
+                  ffma_bound=_bound(*work, peak=PEAK_FP32),
+                  kernels=_fp32_core_kernels(label, lambda: fn(x, *w), False))
     rb = results.setdefault("swiglu_ffn_fp32_backward", dict(err=0.0, rel_l2=0.0))
     rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+    work = ffn_core_bwd_work(rows, seq, c, inner, k, row_bytes=4)
     rb[tag] = dict(shape=(rows, lin, c), ms=times["ms"], plain_ms=plain_bwd,
                    bf16_ms=times["bf16_ms"], library_ms=None,
-                   bound=_bound(*ffn_core_bwd_work(rows, seq, c, inner, k, row_bytes=4),
-                                peak=PEAK_FP32))
+                   bound=_bound(*work, peak=PEAK_TF32, passes=TF32_PASSES),
+                   ffma_bound=_bound(*work, peak=PEAK_FP32),
+                   kernels=_fp32_core_kernels(
+                       label, lambda: SF.swiglu_ffn_backward(g, x, *w[:3], k), True))
     del x, g, w
     torch.cuda.empty_cache()
 
@@ -4574,9 +4652,12 @@ def main():
         for tag, r in results[k].items():
             if isinstance(r, dict):
                 lib = "" if r["library_ms"] is None else f", SDPA fp32 {r['library_ms']:.3f} ms"
+                bound = (f"3xTF32 bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), FFMA bound "
+                         f"{r['ffma_bound'][0]:.3f} ms" if "ffma_bound" in r else
+                         f"fp32 bound {r['bound'][0]:.3f} ms ({r['bound'][1]})")
                 print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms (bf16 "
-                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms{lib}, fp32 "
-                      f"bound {r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
+                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms{lib}, "
+                      f"{bound} {card}")
     launches_xl32, wall_xl32, peak_xl32, err_xl32 = xl_fp32
     print(f"[timing] xlarge separation CLI, --precision fp32, {XL_FP32_SERVE_S:g} s (one engine "
           f"batch): {wall_xl32:.2f} s wall, {XL_FP32_SERVE_S / wall_xl32:.3f}x realtime, peak "
@@ -4643,10 +4724,11 @@ def main():
         # use_amp false training's
         "flash_attention_fp32": ("csrc/step_fp32.cu", "ops/pallas/flash_attention.py:207",
                                  None, None),
-        "swiglu_ffn_fp32": ("csrc/step_fp32.cu", "ops/pallas/swiglu_ffn.py:221", None, None),
+        "swiglu_ffn_fp32": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_ffn.py:221", None,
+                            None),
         "flash_attention_fp32_backward": ("csrc/step_fp32.cu",
                                           "ops/pallas/flash_attention.py:315", None, None),
-        "swiglu_ffn_fp32_backward": ("csrc/step_fp32.cu", "ops/pallas/swiglu_ffn.py:363",
+        "swiglu_ffn_fp32_backward": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_ffn.py:363",
                                      None, None)}
     kernels = []
     for k, (src, tpu, bound, library_ms) in sources.items():
@@ -4759,6 +4841,11 @@ def main():
             entry["launches_bs_training"] = bs_train[0][0][k]
         if "_fp32" in k:
             entry["bf16_ms"] = f["bf16_ms"]   # the bf16 kernel on the same values
+        if k.startswith("swiglu_ffn_fp32"):
+            # bound_ms is 3xTF32's (the design's products); the FFMA bound
+            # beside it, and the device ms of each kernel a call launches
+            entry["ffma_bound_ms"] = f["ffma_bound"][0]
+            entry["kernels"] = f["kernels"]
         if k.startswith(("ffn_step_fp32", "attention_step_fp32")):
             entry["launches_speech_evaluation"] = speech_eval[1].get(k, 0)
             entry["launches_use_amp_false_speech_step"] = \

@@ -1,23 +1,25 @@
 // fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4),
-// and of the unfused route's flash attention (#6, #7) and FFN core (#8, #9).
+// and of the unfused route's flash attention (#6, #7); the fixed-order
+// reductions of the unfused route's FFN core (#8, #9), whose GEMMs and
+// column sums run in ffn_core_fp32.cu.
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
 //   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas,
-//   ops/pallas/flash_attention.py:207 _flash_forward, :315 _flash_backward_pallas,
-//   ops/pallas/swiglu_ffn.py:221 _forward, :363 _backward_pallas
+//   ops/pallas/flash_attention.py:207 _flash_forward, :315 _flash_backward_pallas
 // at their fp32 itemsize: fp32 operands and fp32 sums, no rounding to a
 // narrower type anywhere.  The bf16 kernels (swiglu_block.cu,
-// attention_block.cu, flash_attention.cu, swiglu_ffn.cu) stay as they are;
+// attention_block.cu, flash_attention.cu) stay as they are;
 // ops/cuda/step_fp32.py chains the kernels below into the four steps, and
-// ops/cuda/unfused_fp32.py into the unfused route's four kernels (the flash
-// forward: qkv_split and attn_fwd; its backward: qkv_split and attn_dq /
-// attn_dkdv; the FFN core: the conv and deconv as gemm_nn on windows of the
-// pre-padded rows, no norm; its backward: gemm_nn, gemm_tn, colsum, reduce).
+// ops/cuda/unfused_fp32.py into the flash forward (qkv_split and attn_fwd)
+// and backward (qkv_split and attn_dq / attn_dkdv), and lends reduce to the
+// FFN core's chain.
 //
-// Design: fp32 FFMA, no tensor cores (TF32 would round every operand to 10
-// mantissa bits).  Each step is a short chain of launches through device
-// memory rather than one fused kernel:
+// Design: fp32 FFMA, no tensor cores (one TF32 pass would round every
+// operand to 11 bits; the FFN core's 3xTF32 GEMMs in ffn_core_fp32.cu keep
+// fp32's accuracy on the tensor cores, and could take these GEMMs too).
+// Each step is a short chain of launches through device memory rather than
+// one fused kernel:
 //   gemm_nn    out = epilogue(A @ B): A's rows are windows of a per-row
 //              buffer (Win: the conv's k taps of C channels are k*C
 //              consecutive floats of the row, zero outside the row), B a

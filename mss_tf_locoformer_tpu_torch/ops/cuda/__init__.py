@@ -41,7 +41,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("stft", "swiglu_block", "attention_block", "flash_attention",
-           "swiglu_ffn", "dropout", "step_fp32")
+           "swiglu_ffn", "dropout", "step_fp32", "ffn_core_fp32")
 # Shared memory one block may opt into on an H100 (227 KB): the ceiling the
 # step gates (``supports_step``, ``supports_block``) hold the layouts to.
 SMEM_OPTIN = 232448

@@ -10,8 +10,9 @@ fp32 by default.  The bf16 kernels (``swiglu_block.cu``,
 nothing casts it to bf16.  Same contracts as the bf16 kernels (the
 RMSGroupNorm prologue, both dropout sites of each step at the same Philox
 coordinates, ``row0``, the partial-sum mode ``residual=False``), with fp32
-operands and fp32 sums throughout: fp32 FFMA, no tensor cores (TF32 rounds
-operands to 10 mantissa bits).
+operands and fp32 sums throughout: fp32 FFMA, no tensor cores (one TF32
+pass rounds operands to 11 significant bits; the unfused FFN core's 3xTF32
+GEMMs, ``unfused_fp32.CorePrims``, keep fp32's accuracy on them).
 
 Each step is a chain of launches through device memory (the .cu file's
 header lists the kernels):

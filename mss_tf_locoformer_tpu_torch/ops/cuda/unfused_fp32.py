@@ -1,5 +1,6 @@
-"""fp32 rows of the unfused route's kernels: flash attention (#6, #7) and the
-FFN core (#8, #9), on the kernels of ``csrc/step_fp32.cu``.
+"""fp32 rows of the unfused route's kernels: flash attention (#6, #7) on the
+kernels of ``csrc/step_fp32.cu``, and the FFN core (#8, #9) on the 3xTF32
+tensor-core GEMMs of ``csrc/ffn_core_fp32.cu``.
 
 The JAX package runs its Pallas flash-attention and FFN-core kernels in the
 compute dtype, fp32 included (``nn/attention.py:146-157``,
@@ -9,11 +10,15 @@ small and LayerNorm configs run them at fp32.  The bf16 kernels
 (``flash_attention.cu``, ``swiglu_ffn.cu``) keep bf16 rows; an fp32 CUDA
 tensor given to ``flash_attention`` or ``swiglu_conv_deconv`` comes here,
 and nothing casts it to bf16.  Same contracts as the bf16 kernels, with fp32
-operands and fp32 sums throughout: fp32 FFMA, no tensor cores (TF32 would
-round operands to 10 mantissa bits).
+operands and fp32 sums throughout.  Flash attention runs fp32 FFMA.  The
+FFN core's products run on the tensor cores in three TF32 passes: each
+operand split into TF32 hi and lo halves, rounded to nearest, and lo hi' +
+hi lo' + hi hi' summed in fp32, each 32-deep stage's total added into an
+fp32 sum (the tensor cores truncate as they add), as accurate as FFMA (one
+TF32 pass would round every operand to 11 bits: ~3e-4 of the output's
+peak).
 
-Each kernel is a chain of launches of ``csrc/step_fp32.cu`` through device
-memory, on the pieces of the fused steps' fp32 rows (``step_fp32.py``):
+Each kernel is a chain of launches through device memory:
 
 * Flash forward (#6): ``qkv_split`` reads the ``[B, L, 3, H, D]`` QKV
   product that the ``[B, H, L, D]`` views of q, k and v come from (a copy
@@ -27,24 +32,28 @@ memory, on the pieces of the fused steps' fp32 rows (``step_fp32.py``):
   ``attn_dkdv`` (one thread per key), P recomputed from the log-sum-exp, dq
   and dk rotated back in their epilogues, into one ``[B, L, 3, H, D]``
   buffer whose ``[B, H, L, D]`` views are the gradients.
-* FFN core forward (#8), per row group: the conv as ``gemm_nn`` on windows
-  of ``k C`` consecutive floats of the pre-padded rows with the SwiGLU
-  epilogue (the inner mask at ``inner_mask``'s coordinates), then the
-  deconv as ``gemm_nn`` on windows of the SwiGLU output (``k - 1`` zero
+* FFN core forward (#8), per row group: the conv as ``core_nn`` (wgmma) on
+  windows of ``k C`` consecutive floats of the pre-padded rows with the
+  SwiGLU epilogue (the inner mask at ``inner_mask``'s coordinates), then
+  the deconv as ``core_nn`` on windows of the SwiGLU output (``k - 1`` zero
   positions before it, none stored) with the bias; no norm, no residual, no
   outer mask: the caller crops and applies the outer site.
 * FFN core backward (#9), per row group: the conv again keeping the pre-
   activation, dh by the transposed deconv with the SwiGLU backward in its
-  epilogue, dx by the transposed conv, and the weight and bias gradients as
-  per-split partials (``gemm_tn``, ``colsum``), summed in a fixed order
-  (``reduce``) once every group has run.
+  epilogue, dx by the transposed conv (all ``core_nn``), and the weight and
+  bias gradients as per-split partials (``core_tn`` on mma.sync,
+  ``core_colsum``), summed in a fixed order (``step_fp32.cu``'s
+  ``reduce``) once every group has run.
 
-The inner width is zero-padded to whole float4s in the weight panels, so
-every inner width runs.  Each kernel counts one launch per call on its own
-function (:func:`flash_forward_fp32`, :func:`flash_backward_fp32`,
+The weight panels are laid out K-major and split into TF32 halves once,
+when they are made (:func:`core_panels`, cached per weight version); the
+inner width is zero-padded to whole float4s in them, so every inner width
+runs.  Each kernel counts one launch per call on its own function
+(:func:`flash_forward_fp32`, :func:`flash_backward_fp32`,
 :func:`ffn_core_fp32`, :func:`ffn_core_fp32_backward`), not on the bf16
 kernels' counts.  The chains run on ``prims`` (``step_fp32.CudaPrims`` by
-default); a test hands them the kernels' arithmetic in plain torch.
+default, whose FFN-core GEMMs are :class:`CorePrims`); a test hands them the
+kernels' arithmetic in plain torch.
 
 :func:`supports_flash` and :func:`supports_core` are the fp32 gates, from
 the launches' shared-memory layouts (:func:`flash_launch_bytes`,
@@ -61,16 +70,19 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import dropout as D
-from . import SMEM_OPTIN, cached_panels, load
+from . import SMEM_OPTIN, cached_panels, check, load, ptr, stream_handle
 from . import step_fp32 as S
 
 __all__ = ["MAX_HEAD_DIM", "SCRATCH_CAP", "head_pad", "flash_launch_bytes",
-           "compiled_flash_launch_bytes", "core_launch_bytes", "supports_flash",
-           "supports_core", "core_rows", "core_panels", "flash_forward_fp32",
+           "compiled_flash_launch_bytes", "core_launch_bytes", "compiled_core_launch_bytes",
+           "supports_flash", "supports_core", "core_rows", "tf32_split", "split_panel",
+           "panel_halves", "core_panels", "CorePrims", "flash_forward_fp32",
            "flash_backward_fp32", "ffn_core_fp32", "ffn_core_fp32_backward"]
 
 MAX_HEAD_DIM = 64           # as the bf16 kernels: even head dims up to 64
 SCRATCH_CAP = 1 << 30       # bytes of fp32 scratch per FFN-core row group
+CORE_BM, CORE_BK = 128, 32        # the FFN-core GEMMs' tiles: rows, k a stage
+CORE_NN_STAGES, CORE_STAGES = 4, 3   # core_nn's ring, core_tn's
 _NO_DROP = D.kernel_args(0.0, 0, 0)   # a dropout request never reaches flash attention
 
 
@@ -98,10 +110,24 @@ def compiled_flash_launch_bytes(d: int) -> dict:
 
 
 def core_launch_bytes() -> dict:
-    """Shared memory of the FFN core's launches: the GEMMs' (``gemm_nn``,
-    ``gemm_tn``: two 8-deep stages of a 128 x 64 tile); ``colsum`` and
-    ``reduce`` take none."""
-    return {"gemm": S.launch_bytes(0)["gemm"]}
+    """Shared memory of the FFN core's launches (``csrc/ffn_core_fp32.cu``):
+    ``core_nn``'s four stages of the A tile and the B hi and lo tiles in rows
+    of 32 floats (128 rows of A; 128 of B, or 64 at a narrow N: ``nn64``)
+    and 1 KB to align them to the swizzle's atoms; ``core_tn``'s three
+    stages of 32 positions of A and B, 128 + 8 floats each (the column sums'
+    4 KB and ``reduce``'s none are no limit)."""
+    row = CORE_BK * 4
+    nn = lambda bn: CORE_NN_STAGES * (CORE_BM + 2 * bn) * row + 1024
+    return {"nn": nn(128), "nn64": nn(64),
+            "tn": CORE_STAGES * 2 * CORE_BK * (CORE_BM + 8) * 4}
+
+
+def compiled_core_launch_bytes() -> dict:
+    """:func:`core_launch_bytes` as the compiled kernels count them."""
+    fn = load("ffn_core_fp32").core_fp32_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int]
+    return {name: fn(i) for i, name in enumerate(("nn", "nn64", "tn"))}
 
 
 def supports_flash(d: int) -> bool:
@@ -113,10 +139,11 @@ def supports_flash(d: int) -> bool:
 
 def supports_core(c: int, inner: int, k: int, training: bool = False) -> bool:
     """The fp32 FFN-core gate: a width of whole float4s (the GEMMs' windows
-    load 4 channels at a time), any inner width (padded in the panels),
-    2 <= k <= 8 as the bf16 kernels, and layouts within :data:`SMEM_OPTIN`
-    (the backward's launches are the forward's, so training changes
-    nothing)."""
+    load 4 channels at a time; a k8 step past K reads zeros), any inner
+    width (padded in the panels), 2 <= k <= 8 as the bf16 kernels, and
+    layouts within :data:`SMEM_OPTIN` (no layout depends on the widths, and
+    the backward's GEMMs are the forward's and ``core_tn``, so training
+    changes nothing)."""
     return (c > 0 and c % 4 == 0 and inner > 0 and 2 <= k <= 8
             and max(core_launch_bytes().values()) <= SMEM_OPTIN)
 
@@ -197,10 +224,47 @@ def flash_backward_fp32(g, q4, k4, v4, out, lse, rope: bool, theta: float, prims
 
 # ---------------------------------------------------------------- FFN core
 
+def tf32_split(t: torch.Tensor):
+    """``(hi, lo)`` of fp32 ``t``: ``hi`` rounded to nearest TF32 (ties away
+    from zero, as ``cvt.rna``: the low 13 bits of the bit pattern dropped
+    after adding half of their weight) and ``lo`` the remainder ``t - hi``
+    (exact in fp32) rounded the same way; ``hi + lo`` is ``t`` to within
+    2^-21 of ``|t|``."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def split_panel(p: torch.Tensor) -> torch.Tensor:
+    """The ``[K, N]`` weight panel ``p`` as ``core_nn`` reads it: a ``[3, N,
+    K]`` tensor of ``p^T`` (K-major) and its :func:`tf32_split` halves;
+    returns the ``[K, N]`` view of its first slice, so that ``p``'s values
+    stand where a GEMM's ``b`` is expected."""
+    t = p.T.contiguous()
+    return torch.stack([t, *tf32_split(t)])[0].T
+
+
+def panel_halves(b: torch.Tensor, k: int, n: int):
+    """The hi and lo ``[N, K]`` halves of a :func:`split_panel` view ``b``:
+    the two ``[N, K]`` slices that follow its values in their storage (read
+    from the storage, as views made under ``torch.inference_mode`` keep no
+    ``_base``)."""
+    base, off = b._base, b.storage_offset()
+    if (tuple(b.shape) != (k, n) or b.stride() != (1, k)
+            or (base is not None and tuple(base.shape) != (3, n, k))
+            or b.untyped_storage().nbytes() < 4 * (off + 3 * n * k)):
+        raise ValueError(f"core_nn: b must be a split_panel view of [{k}, {n}]")
+    return (b.as_strided((n, k), (k, 1), off + n * k),
+            b.as_strided((n, k), (k, 1), off + 2 * n * k))
+
+
 def core_panels(conv_w, conv_b, deconv_w):
     """``step_fp32.ffn_panels`` of the weights with the inner width zero-
     padded to whole float4s (a padded channel's value, gate and deconv rows
-    are 0, so its SwiGLU output is 0 and it adds nothing)."""
+    are 0, so its SwiGLU output is 0 and it adds nothing), the four GEMM
+    panels split for the tensor cores (:func:`split_panel`): ``(wc, bc,
+    wdf, wd2, w2)``."""
     two_i, c, k = conv_w.shape
     inner = two_i // 2
     pad = -inner % 4
@@ -209,7 +273,8 @@ def core_panels(conv_w, conv_b, deconv_w):
                        (0, 0, 0, 0, 0, pad)).reshape(2 * (inner + pad), c, k)
         conv_b = F.pad(conv_b.detach().float().reshape(2, inner), (0, pad)).reshape(-1)
         deconv_w = F.pad(deconv_w.detach().float(), (0, 0, 0, 0, 0, pad))
-    return S.ffn_panels(conv_w, conv_b, deconv_w)
+    wc, bc, wdf, wd2, w2 = S.ffn_panels(conv_w, conv_b, deconv_w)
+    return split_panel(wc), bc, split_panel(wdf), split_panel(wd2), split_panel(w2)
 
 
 # The panels of the weights they were laid out from (``cached_panels``)
@@ -221,12 +286,77 @@ def _panels(conv_w, conv_b, deconv_w):
                          lambda: core_panels(conv_w, conv_b, deconv_w))
 
 
+class CorePrims:
+    """The kernels of ``csrc/ffn_core_fp32.cu`` with ``step_fp32.CudaPrims``'
+    ``gemm_nn`` / ``gemm_tn`` / ``colsum`` conventions, launched on the
+    current stream: ``core_nn`` (wgmma, 3xTF32) takes the FFN core's
+    epilogues (store, SwiGLU, its backward) and, as ``b``, a
+    :func:`split_panel` view, whose halves it reads; ``core_tn`` (mma.sync,
+    3xTF32) the weight products; ``core_colsum`` the bias gradients'
+    column sums.  Every tensor is fp32, contiguous and 16-byte aligned."""
+
+    def __init__(self):
+        lib = load("ffn_core_fp32")
+        u, i, ll, f, vp = (ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                           ctypes.c_void_p)
+        win = S._win_types()
+        self._nn, self._tn = lib.core_fp32_nn, lib.core_fp32_tn
+        self._colsum = lib.core_fp32_colsum
+        for fn in (self._nn, self._tn, self._colsum):
+            fn.restype = ctypes.c_int
+        self._nn.argtypes = ([i] + win + [ll, i, vp, vp, i, vp, ll, vp, vp, ll] + [u] * 4
+                             + [f, i, vp])
+        self._tn.argtypes = win + [i] + win + [i, ll, i, vp, vp]
+        self._colsum.argtypes = win + [i, ll, i, vp, vp]
+
+    def gemm_nn(self, epi, a: S.Win, m, k, b, n, out, ldo, bias=None, y=None, res=None, p=1,
+                site=0, drop=(0, 0, 0, 1.0, 0)):
+        if res is not None or epi not in (S.EPI_STORE, S.EPI_SWIGLU, S.EPI_SWIGLU_BWD):
+            raise ValueError("core_nn: the FFN core's epilogues (store, SwiGLU, its "
+                             "backward) take no residual")
+        hi, lo = panel_halves(b, k, n)
+        check(self._nn(epi, *S._win_args(a), m, k, ptr(hi), ptr(lo), n, ptr(out), ldo,
+                       S._opt(bias), S._opt(y), p, site, *drop, stream_handle(out.device)),
+              "core_nn")
+
+    def gemm_tn(self, a: S.Win, m, b: S.Win, n, total, splits, part):
+        check(self._tn(*S._win_args(a), m, *S._win_args(b), n, total, splits, ptr(part),
+                       stream_handle(part.device)), "core_tn")
+
+    def colsum(self, a: S.Win, w, total, splits, part):
+        check(self._colsum(*S._win_args(a), w, total, splits, ptr(part),
+                           stream_handle(part.device)), "core_colsum")
+
+
+_CORE = []
+
+
+def _core_gemms(P):
+    """The FFN core's GEMMs and column sums: :class:`CorePrims` beside
+    ``step_fp32``'s CUDA prims ``P`` (whose ``reduce`` the chain keeps), or
+    ``P``'s own ``gemm_nn`` / ``gemm_tn`` / ``colsum`` when ``P`` is another
+    implementation of the kernels (an emulation in plain torch)."""
+    if not isinstance(P, S.CudaPrims):
+        return P
+    if not _CORE:
+        _CORE.append(CorePrims())
+    return _CORE[0]
+
+
+def _tn_splits(m: int, n: int, total: int) -> int:
+    """Position splits of a ``core_tn`` product: its 128 x 128 tiles about
+    four times on the SMs (one block an SM: four waves), at least 256
+    positions a split."""
+    tiles = -(-m // CORE_BM) * -(-n // CORE_BM)
+    return max(1, min(-(-4 * S._SMS // tiles), total // 256, 65535))
+
+
 def ffn_core_fp32(x, conv_w, conv_b, deconv_w, deconv_b, kernel, drop_rate=0.0, seed=0,
                   row0=0, prims=None, scratch_cap=SCRATCH_CAP):
     """#8 on fp32 pre-padded rows ``x [R, Lin, C]`` (one counted launch):
     ``ConvT1d(drop_inner(SwiGLU(Conv1d(x)))) + b``, the full-length ``[R,
     Lin, C]``."""
-    P = S._prims(prims)
+    G = _core_gemms(S._prims(prims))
     r, lin, c = x.shape
     k = kernel
     lc = lin - k + 1
@@ -239,9 +369,9 @@ def ffn_core_fp32(x, conv_w, conv_b, deconv_w, deconv_b, kernel, drop_rate=0.0, 
     for g0 in range(0, r, rg):
         n = min(rg, r - g0)
         drop = D.kernel_args(drop_rate, seed, row0 + g0)
-        P.gemm_nn(S.EPI_SWIGLU, S.Win(x[g0:g0 + n], lin * c, lc, c, 0, lin * c), n * lc, k * c,
+        G.gemm_nn(S.EPI_SWIGLU, S.Win(x[g0:g0 + n], lin * c, lc, c, 0, lin * c), n * lc, k * c,
                   wc, 2 * ip, h, ip, bias=bc, p=lc, site=D.SITE_FFN_INNER, drop=drop)
-        P.gemm_nn(S.EPI_STORE, S.Win(h, lc * ip, lin, ip, -(k - 1) * ip, lc * ip), n * lin,
+        G.gemm_nn(S.EPI_STORE, S.Win(h, lc * ip, lin, ip, -(k - 1) * ip, lc * ip), n * lin,
                   k * ip, wdf, c, out[g0:g0 + n], c, bias=bd)
     ffn_core_fp32.launches += 1
     return out
@@ -253,6 +383,7 @@ def ffn_core_fp32_backward(g, x, conv_w, conv_b, deconv_w, kernel, drop_rate=0.0
     length output; returns ``(dx, dconv_w, dconv_b, ddeconv_w, ddeconv_b)``
     in torch layouts."""
     P = S._prims(prims)
+    G = _core_gemms(P)
     r, lin, c = x.shape
     inner, k = deconv_w.shape[0], kernel
     lc = lin - k + 1
@@ -264,7 +395,7 @@ def ffn_core_fp32_backward(g, x, conv_w, conv_b, deconv_w, kernel, drop_rate=0.0
     groups = -(-r // rg)
     y, dy = torch.empty(rg, lc, 2 * ip, **f32), torch.empty(rg, lc, 2 * ip, **f32)
     h = torch.empty(rg, lc, ip, **f32)
-    s1, s2 = S._splits(2 * ip, k * c, rg * lc), S._splits(ip, k * c, rg * lc)
+    s1, s2 = _tn_splits(2 * ip, k * c, rg * lc), _tn_splits(ip, k * c, rg * lc)
     sb, sdb = S._col_splits(rg * lc), S._col_splits(rg * lin)
     pw, pd = torch.empty(groups * s1, 2 * ip, k * c, **f32), \
         torch.empty(groups * s2, ip, k * c, **f32)
@@ -276,18 +407,18 @@ def ffn_core_fp32_backward(g, x, conv_w, conv_b, deconv_w, kernel, drop_rate=0.0
         xg, gg = x[g0:g0 + n], g[g0:g0 + n]
         xwin = S.Win(xg, lin * c, lc, c, 0, lin * c)
         gwin = S.Win(gg, lin * c, lc, c, 0, lin * c)
-        P.gemm_nn(S.EPI_SWIGLU, xwin, n * lc, k * c, wc, 2 * ip, h, ip, bias=bc, y=y, p=lc,
+        G.gemm_nn(S.EPI_SWIGLU, xwin, n * lc, k * c, wc, 2 * ip, h, ip, bias=bc, y=y, p=lc,
                   site=D.SITE_FFN_INNER, drop=drop)
-        P.gemm_nn(S.EPI_SWIGLU_BWD, gwin, n * lc, k * c, wd2, ip, dy, 2 * ip, y=y, p=lc,
+        G.gemm_nn(S.EPI_SWIGLU_BWD, gwin, n * lc, k * c, wd2, ip, dy, 2 * ip, y=y, p=lc,
                   site=D.SITE_FFN_INNER, drop=drop)
-        P.gemm_nn(S.EPI_STORE, S.Win(dy, lc * 2 * ip, lin, 2 * ip, -(k - 1) * 2 * ip,
+        G.gemm_nn(S.EPI_STORE, S.Win(dy, lc * 2 * ip, lin, 2 * ip, -(k - 1) * 2 * ip,
                                      lc * 2 * ip), n * lin, k * 2 * ip, w2, c, dx[g0:g0 + n], c)
         dyd = S._dense(dy, n * lc, 2 * ip)
-        P.gemm_tn(dyd, 2 * ip, xwin, k * c, n * lc, s1, pw[gi * s1:(gi + 1) * s1])
-        P.colsum(dyd, 2 * ip, n * lc, sb, pb[gi * sb:(gi + 1) * sb])
-        P.gemm_tn(S._dense(h, n * lc, ip), ip, gwin, k * c, n * lc, s2,
+        G.gemm_tn(dyd, 2 * ip, xwin, k * c, n * lc, s1, pw[gi * s1:(gi + 1) * s1])
+        G.colsum(dyd, 2 * ip, n * lc, sb, pb[gi * sb:(gi + 1) * sb])
+        G.gemm_tn(S._dense(h, n * lc, ip), ip, gwin, k * c, n * lc, s2,
                   pd[gi * s2:(gi + 1) * s2])
-        P.colsum(S._dense(gg, n * lin, c), c, n * lin, sdb, pdb[gi * sdb:(gi + 1) * sdb])
+        G.colsum(S._dense(gg, n * lin, c), c, n * lin, sdb, pdb[gi * sdb:(gi + 1) * sdb])
     red = lambda part, *shape: S._reduce(P, part.reshape(part.shape[0], -1),
                                          torch.empty(*shape, **f32))
     dcw, dcb, ddw = S._unpack_ffn_grads(red(pw, 2 * ip, k * c), red(pb, 2 * ip),

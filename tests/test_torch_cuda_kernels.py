@@ -946,3 +946,51 @@ def test_unfused_kernels_refuse_fp16(dev):
     x, w = _core_inputs(dev, 1, 5, 48, 64, 4)
     with pytest.raises(TypeError):
         SF.swiglu_conv_deconv(x.half(), *w, 4)
+
+
+# fp32 #8/#9 on the 3xTF32 GEMMs of csrc/ffn_core_fp32.cu at odd shapes:
+# widths 4 and 12 (K = k C ends inside a 32-float stage, N = C inside a
+# 64-wide tile), inner 30 (padded to 32), L 1, k 2 and 8; FP32_TOL /
+# FP32_REL_L2 as above.
+FP32_CORE_ODD = [(2, 1, 4, 30, 2), (3, 17, 12, 30, 8), (1, 1, 12, 64, 8), (2, 40, 4, 30, 4),
+                 (2, 9, 12, 30, 2), (1, 65, 4, 30, 8)]
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("r,seq,c,inner,k", FP32_CORE_ODD)
+def test_fp32_swiglu_ffn_kernels_odd_shapes(dev, monkeypatch, r, seq, c, inner, k, drop):
+    """#8 and #9 on fp32 rows against autograd through the plain version in
+    fp32: one counted launch each way, and no FFMA GEMM of step_fp32.cu
+    (``gemm_nn``, ``gemm_tn``) inside either call."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    ffma = []
+    for name in ("gemm_nn", "gemm_tn"):
+        real = getattr(S.CudaPrims, name)
+        monkeypatch.setattr(S.CudaPrims, name,
+                            lambda self, *a, _n=name, _f=real, **kw: ffma.append(_n) or _f(
+                                self, *a, **kw))
+    x, w = _core_inputs(dev, r, seq, c, inner, k)
+    x = x.float()
+    go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(14)).to(dev)
+    before = [U.ffn_core_fp32.launches, U.ffn_core_fp32_backward.launches]
+    out, got = _all_grads(lambda *a: SF.swiglu_conv_deconv(*a, k, drop, 1234, 3), [x, *w], go)
+    torch.cuda.synchronize()
+    assert [U.ffn_core_fp32.launches - before[0],
+            U.ffn_core_fp32_backward.launches - before[1]] == [1, 1]
+    assert ffma == []
+    ref_out, ref = _all_grads(lambda *a: SF.reference_swiglu_conv_deconv(*a, k, drop, 1234, 3),
+                              [x, *w], go)
+    _check_fp32(out, ref_out, got, ref, ("dx", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+def test_fp32_core_layouts_match_the_compiled_kernels(dev):
+    """The FFN-core gate's layout bytes are the compiled kernels' own, and a
+    GEMM panel that is not a split panel is refused."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    assert U.core_launch_bytes() == U.compiled_core_launch_bytes()
+    x = torch.zeros(1, 8, 8, device=dev)
+    with pytest.raises(ValueError):
+        U.CorePrims().gemm_nn(S.EPI_STORE, S.Win(x, 64, 8, 8, 0, 64), 8, 8,
+                              torch.zeros(8, 8, device=dev), 8, torch.empty(8, 8, device=dev), 8)

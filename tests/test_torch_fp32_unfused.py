@@ -191,7 +191,7 @@ def test_fp32_gates_admit_what_the_bf16_gates_admit():
     assert U.flash_launch_bytes(12) == U.flash_launch_bytes(16) == {"attn": 8192, "dkdv": 8704}
     assert U.flash_launch_bytes(24) == {"attn": 16384, "dkdv": 16896}
     assert U.flash_launch_bytes(64) == {"attn": 32768, "dkdv": 33280}
-    assert U.core_launch_bytes() == {"gemm": 12800}
+    assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448}
     # the small config's freq path at its training micro-batch: 16 row
     # groups of <= 1 GiB of fp32 scratch
     assert U.core_rows(8272, 519, 48, 192, 4, True) == 541
