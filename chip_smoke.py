@@ -179,30 +179,35 @@ each of which raises on failure (exit code != 0, no result line):
      launches per rank, step time), the 2-rank evaluation CLI's
      ``results.json`` against one rank's, and the training CLI under a
      world-1 NCCL process group;
- 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``, run with the speech
+ 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``, #3/#4's attention core on
+     the 3xTF32 kernels of ``csrc/attn_fp32.cu``; run with the speech
      phases): the fp32 gates at the base, BS and speech widths (the
-     layouts' bytes against the compiled kernels' count); #2 and #3 against
-     their fp32 plain versions at the speech serving shapes (wsj0-2mix and
-     DNS), with the stash and #5 and #4 at the wsj0-2mix training shapes
-     (dropout 0), the base training shapes (dropout 0.1, keep rates
-     printed) and shard 0 of mp 2 in the partial-sum mode; exact fp32
-     launches, two backward runs bit-equal, timed beside the bf16 kernels
-     and the fp32 bound; the wsj0-2mix separator at fp32 against its plain
+     layouts' bytes against the compiled kernels' count; no FFMA attention
+     kernel left in ``step_fp32.cu``'s library); #2 and #3 against their
+     fp32 plain versions at the speech serving shapes (wsj0-2mix and DNS),
+     with the stash and #5 and #4 at the wsj0-2mix training shapes (dropout
+     0), the base training shapes (dropout 0.1, keep rates printed) and
+     shard 0 of mp 2 in the partial-sum mode; exact fp32 launches, two
+     backward runs bit-equal, #3/#4's launches by CUDA events (the 3xTF32
+     core among them), timed beside the bf16 kernels and the fp32 bounds
+     (FFMA; for #3/#4 also 3xTF32); the wsj0-2mix separator at fp32 against its plain
      path (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
      configs, kernel path against plain path (loss and grad_norm within
      1e-4), and timed at the full batch;
- 28. fp32 rows of #6-#9 (``ops/cuda/unfused_fp32.py`` on
-     ``csrc/step_fp32.cu``, the FFN core's products on the 3xTF32 GEMMs of
+ 28. fp32 rows of #6-#9 (``ops/cuda/unfused_fp32.py``: flash attention on
+     ``csrc/step_fp32.cu``'s RoPE split and the 3xTF32 core of
+     ``csrc/attn_fp32.cu``, the FFN core's products on the 3xTF32 GEMMs of
      ``csrc/ffn_core_fp32.cu``): the fp32 gates (the flash and FFN-core
      launches' bytes against the compiled kernels' count; the xlarge and
      small configs' fp32 blocks on the unfused route's kernels); #6 and #8
      against their fp32 plain versions at the xlarge engine batch's shapes,
      #6 with its stash, #7, #8 and #9 at the small training shapes, #9 at
      the xlarge training shapes (a 64-row slice, also in row groups; the
-     whole shape twice for the same bits), exact fp32 launches, #8/#9's
-     kernels by CUDA events (3xTF32 GEMMs, no FFMA GEMM), timed beside the
-     plain versions, the bf16 kernels, the bounds (fp32 FFMA; 3xTF32 for
-     #8/#9) and SDPA on fp32 q, k, v;
+     whole shape twice for the same bits), exact fp32 launches, each
+     call's kernels by CUDA events (#6/#7: the RoPE split and the 3xTF32
+     core; #8/#9: 3xTF32 GEMMs, no FFMA GEMM), timed beside the plain
+     versions, the bf16 kernels, the bounds (3xTF32, fp32 FFMA beside) and
+     SDPA on fp32 q, k, v;
      the xlarge separation CLI at ``--precision fp32`` on one engine batch
      (15 s) at full depth (launches, realtime factor, peak memory), and at
      2 layers on the kernel and the plain route (stems within 1e-4 of the
@@ -919,9 +924,10 @@ def phase_xlarge_kernels(results):
 # H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds of the
 # kernels: bf16 tensor cores, fp32 outside them, device memory.
 PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
-# TF32 tensor cores (dense): the fp32 rows of #8/#9 run their products there
-# in three passes (3xTF32), so their bound is 3 x FLOP at this rate (0.41x
-# the FFMA bound at PEAK_FP32, which the other fp32 rows are held to)
+# TF32 tensor cores (dense): the fp32 rows of #8/#9 and of the attention
+# core (#6/#7, and #3/#4 whose projections stay FFMA) run their products
+# there in three passes (3xTF32), so their bound is 3 x FLOP at this rate
+# (0.41x the FFMA bound at PEAK_FP32, which #2/#5's fp32 rows are held to)
 PEAK_TF32 = 494.7e12
 TF32_PASSES = 3
 # Exponentials on the special-function units: 16 per SM per clock x 132 SMs
@@ -3103,9 +3109,18 @@ def phase_fp32_gates():
     at the base, BS-Locoformer and speech configs' widths, in eval and in
     training, from the layouts' bytes, which the compiled kernels count the
     same."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import load
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
     cfgs = [("base", base_model_config()), ("bs", bs_model_config())] + [
         (f"speech {n}", speech_config(n).separator) for n in ("wsj0_2mix", "whamr", "dns")]
+    # the attention core is csrc/attn_fp32.cu's alone: no FFMA attention
+    # kernel is left in step_fp32.cu's library
+    left = [n for n in ("f32_attn_fwd", "f32_attn_bwd", "f32_attn_smem_bytes")
+            if hasattr(load("step_fp32"), n)]
+    if left or not all(hasattr(load("attn_fp32"), n) for n in ("f32_attn_fwd", "f32_attn_bwd")):
+        raise AssertionError(f"fp32 gates: step_fp32.cu still exports {left}")
+    print("[fp32-gates] the attention core: csrc/attn_fp32.cu (3xTF32); step_fp32.cu exports "
+          "no attention kernel")
     for training in (False, True):
         for c in (96, 128):
             want, got = S32.launch_bytes(c, training), S32.compiled_launch_bytes(c, training)
@@ -3131,9 +3146,12 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
     the partial-sum mode) against the fp32 plain versions: one counted fp32
     launch each way and none of the bf16 kernels; two backward runs
     bit-equal; the kernels timed beside the plain versions, the bf16 kernels
-    on the same values and the fp32 bound."""
+    on the same values and the fp32 bound (#3/#4, whose core runs 3xTF32:
+    the 3xTF32 bound, the FFMA bound beside it, and each launch of the
+    chain by CUDA events)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     inner = _inner_dims(cfg)[0]
     c, k, h, a = cfg.emb_dim, cfg.conv1d_kernel, cfg.n_heads, cfg.attention_dim
@@ -3160,6 +3178,15 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         fflop, fbytes, bflop, bbytes, exps = (*work, 0.0)[:5]   # FFN: no exps
         wk = [t for t in w if t is not None]
         pad = [None] * (len(w) - len(wk))   # the partial-sum FFN's absent bias
+        attn = name == "attention_step"
+
+        def bounds(flop, nbytes, _attn=attn, _exps=exps):
+            """{bound (3xTF32 for the attention step), its FFMA bound}"""
+            out = {"bound": _bound(flop, nbytes, _exps, PEAK_FP32)}
+            if _attn:
+                out = {"bound": _bound(flop, nbytes, _exps, PEAK_TF32, TF32_PASSES),
+                       "ffma_bound": out["bound"]}
+            return out
 
         def call(fn, _pad=pad, _args=args):
             return lambda x_, g_, *p: fn(x_, g_, *p, *_pad, *_args)
@@ -3180,7 +3207,10 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
                 shape=(rows, seq, c), ms=_time_ms(lambda: call(kfn)(x, gamma, *wk)),
                 plain_ms=_time_ms(lambda: call(pfn)(x, gamma, *wk), iters=3),
                 bf16_ms=_time_ms(lambda: call(kfn)(x16, gamma, *wk)),
-                bound=_bound(fflop, fbytes, exps, PEAK_FP32))
+                **bounds(fflop, fbytes))
+            if attn:
+                r[f"{tag} {path}"]["kernels"] = _fp32_attn_launches(
+                    label, lambda: call(kfn)(x, gamma, *wk), False)
             continue
         params = [gamma, *wk]
         out, got = _autograd(call(kfn), x, params, g)
@@ -3207,10 +3237,18 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         r["err"] = max(r["err"], ferr)
         rb = results.setdefault(f"{key}_backward", dict(err=0.0, rel_l2=0.0))
         rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
+        fb_ = bounds(fflop, fbytes)
         rb[f"{tag} {path}"] = dict(
             rows=rows, seq=seq, c=c, drop=drop, mp=mp, fwd_ms=kf, ms=kb, plain_fwd_ms=pf,
-            plain_ms=pb, bf16_fwd_ms=bf, bf16_ms=bb, bound=_bound(bflop, bbytes, exps, PEAK_FP32),
-            fwd_bound=_bound(fflop, fbytes, exps, PEAK_FP32))
+            plain_ms=pb, bf16_fwd_ms=bf, bf16_ms=bb, **bounds(bflop, bbytes),
+            **{f"fwd_{k}": v for k, v in fb_.items()})
+        if attn:   # each launch of the chain, forward (with its stash) and backward
+            _, stash = S32.attention_forward(x, gamma, *wk, *args, stash=True)
+            rb[f"{tag} {path}"]["fwd_kernels"] = _fp32_attn_launches(
+                label, lambda: S32.attention_forward(x, gamma, *wk, *args, stash=True), False)
+            rb[f"{tag} {path}"]["kernels"] = _fp32_attn_launches(
+                label, lambda: S32.attention_backward(g, x, gamma, *wk, stash, *args), True)
+            del stash
         torch.cuda.empty_cache()
     del x, x16, g, ffn, attn
     torch.cuda.empty_cache()
@@ -3449,12 +3487,22 @@ def _sdpa_fp32(q, k, v):
         return F.scaled_dot_product_attention(q, k, v)
 
 
+def _fp32_attn_bounds(work) -> dict:
+    """The bounds of an fp32 attention call of ``work`` (FLOP, bytes,
+    exponentials): ``bound`` at 3 x FLOP on the TF32 tensor cores (the 3xTF32
+    core's), ``ffma_bound`` at the fp32 FFMA rate beside it."""
+    return {"bound": _bound(*work, peak=PEAK_TF32, passes=TF32_PASSES),
+            "ffma_bound": _bound(*work, peak=PEAK_FP32)}
+
+
 def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
     """#6 (and with ``training`` its stash and #7) on fp32 rows against the
     fp32 plain version on row slices (the plain fp32 scores of all rows
-    would not fit); exact launches; #7 twice for the same bits; timed beside
-    the plain version, the bf16 kernels on the same values, SDPA on fp32 q,
-    k, v (RoPE applied first; its autograd backward for #7) and the bound."""
+    would not fit); exact launches; #7 twice for the same bits; each call's
+    launches by CUDA events (the RoPE split and the 3xTF32 core); timed
+    beside the plain version, the bf16 kernels on the same values, SDPA on
+    fp32 q, k, v (RoPE applied first; its autograd backward for #7) and the
+    bounds (3xTF32, FFMA beside)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import flash_attention as FA
     from mss_tf_locoformer_tpu_torch.ops.rope import apply_rope
@@ -3489,7 +3537,9 @@ def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
                 plain_ms=_time_ms(lambda: FA.reference_flash_attention(q, kk, v, True), iters=1),
                 bf16_ms=_time_ms(lambda: FA.flash_attention(q16, k16, v16, True), iters=3),
                 library_ms=_time_ms(lambda: _sdpa_fp32(qr, kr, v), iters=3),
-                bound=_bound(*flash_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+                **_fp32_attn_bounds(flash_work(rows, h, seq, d, row_bytes=4)),
+                kernels=_fp32_attn_launches(label, lambda: FA.flash_attention(q, kk, v, True),
+                                            False))
         del qkv, q, kk, v, qr, kr, q16, k16, v16
         torch.cuda.empty_cache()
         return
@@ -3540,6 +3590,10 @@ def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
         bf16_fwd_ms=_time_ms(lambda: FA._forward(q16, k16, v16, True, 10000.0, True), iters=3),
         bf16_ms=_time_ms(lambda: FA.flash_attention_backward(g16, q16, k16, v16, o16, lse16,
                                                              True, 10000.0), iters=3))
+    kern = (_fp32_attn_launches(label, lambda: FA._forward(q4, k4, v4, True, 10000.0, True),
+                                False),
+            _fp32_attn_launches(label, lambda: FA.flash_attention_backward(
+                g4, q4, k4, v4, o, lse, True, 10000.0), True))
     del o, lse, o16, lse16, q16, k16, v16, g16
     # the plain version recomputes its score groups in the backward
     # (checkpoint): its backward is forward + backward less a forward
@@ -3558,14 +3612,62 @@ def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
     r["err"] = max(r["err"], ferr)
     r[tag] = dict(shape=(rows, h, seq, d), ms=times["fwd_ms"], plain_ms=plain_fwd,
                   bf16_ms=times["bf16_fwd_ms"], library_ms=lib_fwd,
-                  bound=_bound(*flash_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+                  **_fp32_attn_bounds(flash_work(rows, h, seq, d, row_bytes=4)), kernels=kern[0])
     rb = results.setdefault("flash_attention_fp32_backward", dict(err=0.0, rel_l2=0.0))
     rb["err"], rb["rel_l2"] = max(rb["err"], gerr), max(rb["rel_l2"], grel)
     rb[tag] = dict(shape=(rows, h, seq, d), ms=times["ms"], plain_ms=both - plain_fwd,
                    bf16_ms=times["bf16_ms"], library_ms=lib_bwd,
-                   bound=_bound(*flash_bwd_work(rows, h, seq, d, row_bytes=4), peak=PEAK_FP32))
+                   **_fp32_attn_bounds(flash_bwd_work(rows, h, seq, d, row_bytes=4)),
+                   kernels=kern[1])
     del qkv, go, q, kk, v, q4, k4, v4, g4, qr, kr, vr, lib_out
     torch.cuda.empty_cache()
+
+
+def _fp32_attn_launches(label, fn, backward, reps=2, prims=None) -> dict:
+    """The launches of one fp32 attention call ``fn`` (#3 or #6, or with
+    ``backward`` #4 or #7), caught on ``prims`` (``step_fp32.CudaPrims`` by
+    default; a benchmark passes another checkout's): per launch
+    ``[launches, device ms]`` a call from CUDA events around each (mean of
+    ``reps`` calls; ``attn_bwd`` is the core's dq and dk/dv kernels in one
+    call).  Raises when the attention core (``attn_fwd`` / ``attn_bwd``)
+    did not run once a call."""
+    import torch
+    if prims is None:
+        from mss_tf_locoformer_tpu_torch.ops.cuda.step_fp32 import CudaPrims as prims
+    events, saved = [], []
+    for name in ("gemm_nn", "gemm_tn", "reduce", "norm_fwd", "norm_bwd", "mask_rows",
+                 "qkv_split", "attn_fwd", "attn_bwd"):
+        real = getattr(prims, name)
+
+        def timed(self, *a, _real=real, _name=name, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = _real(self, *a, **kw)
+            ev[1].record()
+            events.append((_name, ev))
+            return out
+        saved.append((name, real))
+        setattr(prims, name, timed)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, real in saved:
+            setattr(prims, name, real)
+    out = {}
+    for key, (start, end) in events:
+        n, ms = out.get(key, (0, 0.0))
+        out[key] = (n + 1, ms + start.elapsed_time(end))
+    out = {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
+    core = "attn_bwd" if backward else "attn_fwd"
+    print(f"[fp32-kernels] {label} {'backward' if backward else 'forward'}: per launch "
+          f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
+                                                        for k, (n, ms) in out.items()))
+    if out.get(core, [0])[0] != 1:
+        raise AssertionError(f"{label}: the 3xTF32 core {core} ran {out.get(core, [0])[0]} "
+                             f"times a call, not once")
+    return out
 
 
 def _fp32_core_kernels(label, fn, backward, reps=2) -> dict:
@@ -4611,21 +4713,28 @@ def main():
               f"dropout 0.1: {sec:.3f} s/step, {mb * SEGMENT / SR / sec:.2f} s of audio per s, "
               f"peak {peak / 2**30:.2f} GiB {card}")
     print(f"[timing] the speech and BS-training phases took {t_speech:.1f} s")
+    def fp32_bound(r, pre=""):
+        """The fp32 row's bound as printed: 3xTF32's with the FFMA bound
+        beside it (the attention core's rows), else the FFMA bound."""
+        b = r[f"{pre}bound"]
+        if f"{pre}ffma_bound" not in r:
+            return f"fp32 bound {b[0]:.3f} ms, {b[1]}"
+        return (f"3xTF32 bound {b[0]:.3f} ms, {b[1]}; FFMA bound "
+                f"{r[f'{pre}ffma_bound'][0]:.3f} ms")
     for k in ("ffn_step_fp32", "attention_step_fp32"):
         for tag, r in results[k].items():
             if isinstance(r, dict):
                 print(f"[timing] {k} {tag} {list(r['shape'])}: kernel {r['ms']:.3f} ms (bf16 "
-                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms, fp32 bound "
-                      f"{r['bound'][0]:.3f} ms ({r['bound'][1]}) {card}")
+                      f"kernel {r['bf16_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
+                      f"{fp32_bound(r)} {card}")
     for k in ("ffn_step_fp32_backward", "attention_step_fp32_backward"):
         for tag, r in results[k].items():
             if isinstance(r, dict):
                 print(f"[timing] training {k[:-9]} {tag} [{r['rows']}, {r['seq']}, {r['c']}], "
                       f"dropout {r['drop']:g}: forward (stash) {r['fwd_ms']:.3f} ms (bf16 "
-                      f"{r['bf16_fwd_ms']:.3f}, plain {r['plain_fwd_ms']:.3f}, bound "
-                      f"{r['fwd_bound'][0]:.3f} ms, {r['fwd_bound'][1]}); backward {r['ms']:.3f} "
-                      f"ms (bf16 {r['bf16_ms']:.3f}, plain {r['plain_ms']:.3f}, bound "
-                      f"{r['bound'][0]:.3f} ms, {r['bound'][1]}) {card}")
+                      f"{r['bf16_fwd_ms']:.3f}, plain {r['plain_fwd_ms']:.3f}, "
+                      f"{fp32_bound(r, 'fwd_')}); backward {r['ms']:.3f} ms (bf16 "
+                      f"{r['bf16_ms']:.3f}, plain {r['plain_ms']:.3f}, {fp32_bound(r)}) {card}")
     for tag, r in fp32_train.items():
         print(f"[timing] use_amp false train step, {tag}, kernel path: {r['sec']:.4f} s/step, "
               f"peak {r['peak'] / 2**30:.2f} GiB {card}")
@@ -4722,11 +4831,11 @@ def main():
                                          "ops/pallas/attention_block.py:626", None, None),
         # fp32 rows of #6-#9: xlarge --precision fp32 serving's and small
         # use_amp false training's
-        "flash_attention_fp32": ("csrc/step_fp32.cu", "ops/pallas/flash_attention.py:207",
+        "flash_attention_fp32": ("csrc/attn_fp32.cu", "ops/pallas/flash_attention.py:207",
                                  None, None),
         "swiglu_ffn_fp32": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_ffn.py:221", None,
                             None),
-        "flash_attention_fp32_backward": ("csrc/step_fp32.cu",
+        "flash_attention_fp32_backward": ("csrc/attn_fp32.cu",
                                           "ops/pallas/flash_attention.py:315", None, None),
         "swiglu_ffn_fp32_backward": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_ffn.py:363",
                                      None, None)}
@@ -4841,11 +4950,14 @@ def main():
             entry["launches_bs_training"] = bs_train[0][0][k]
         if "_fp32" in k:
             entry["bf16_ms"] = f["bf16_ms"]   # the bf16 kernel on the same values
-        if k.startswith("swiglu_ffn_fp32"):
+        if k.startswith(("swiglu_ffn_fp32", "flash_attention_fp32", "attention_step_fp32")):
             # bound_ms is 3xTF32's (the design's products); the FFMA bound
             # beside it, and the device ms of each kernel a call launches
             entry["ffma_bound_ms"] = f["ffma_bound"][0]
             entry["kernels"] = f["kernels"]
+        if k.startswith("attention_step_fp32"):
+            # the chain's attention core (csrc/attn_fp32.cu) among its launches
+            entry["core_source"] = "mss_tf_locoformer_tpu_torch/csrc/attn_fp32.cu"
         if k.startswith(("ffn_step_fp32", "attention_step_fp32")):
             entry["launches_speech_evaluation"] = speech_eval[1].get(k, 0)
             entry["launches_use_amp_false_speech_step"] = \

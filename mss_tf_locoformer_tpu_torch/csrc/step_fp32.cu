@@ -1,25 +1,25 @@
 // fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4),
-// and of the unfused route's flash attention (#6, #7); the fixed-order
-// reductions of the unfused route's FFN core (#8, #9), whose GEMMs and
-// column sums run in ffn_core_fp32.cu.
+// and the RoPE split of the unfused route's flash attention (#6, #7); the
+// fixed-order reductions of the unfused route's FFN core (#8, #9), whose
+// GEMMs and column sums run in ffn_core_fp32.cu.  The attention core of #3,
+// #4, #6 and #7 runs in attn_fp32.cu (3xTF32 on the tensor cores).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
-//   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas,
-//   ops/pallas/flash_attention.py:207 _flash_forward, :315 _flash_backward_pallas
-// at their fp32 itemsize: fp32 operands and fp32 sums, no rounding to a
-// narrower type anywhere.  The bf16 kernels (swiglu_block.cu,
-// attention_block.cu, flash_attention.cu) stay as they are;
-// ops/cuda/step_fp32.py chains the kernels below into the four steps, and
-// ops/cuda/unfused_fp32.py into the flash forward (qkv_split and attn_fwd)
-// and backward (qkv_split and attn_dq / attn_dkdv), and lends reduce to the
-// FFN core's chain.
+//   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas
+// at their fp32 itemsize (the attention steps' core in attn_fp32.cu):
+// fp32 operands and fp32 sums, no rounding to a narrower type anywhere.  The
+// bf16 kernels (swiglu_block.cu, attention_block.cu, flash_attention.cu)
+// stay as they are; ops/cuda/step_fp32.py chains the kernels below and
+// attn_fp32.cu's into the four steps, ops/cuda/unfused_fp32.py qkv_split
+// and attn_fp32.cu's into the flash forward and backward, and lends reduce
+// to the FFN core's chain.
 //
 // Design: fp32 FFMA, no tensor cores (one TF32 pass would round every
-// operand to 11 bits; the FFN core's 3xTF32 GEMMs in ffn_core_fp32.cu keep
-// fp32's accuracy on the tensor cores, and could take these GEMMs too).
-// Each step is a short chain of launches through device memory rather than
-// one fused kernel:
+// operand to 11 bits; the 3xTF32 kernels of ffn_core_fp32.cu and
+// attn_fp32.cu keep fp32's accuracy on the tensor cores, and could take
+// these GEMMs too).  Each step is a short chain of launches through device
+// memory rather than one fused kernel:
 //   gemm_nn    out = epilogue(A @ B): A's rows are windows of a per-row
 //              buffer (Win: the conv's k taps of C channels are k*C
 //              consecutive floats of the row, zero outside the row), B a
@@ -36,12 +36,8 @@
 //              writes dx and per-block dgamma partials.
 //   mask_rows  the outer / projection dropout site on the upstream gradient.
 //   qkv_split  q, k (RoPE) and v into [R, H, Lp, DP] (head dims zero-padded
-//              to DP: 32 for the steps; 16, 32 or 64 for flash attention).
-//   attn_fwd   one thread per query: 16-key steps of an online softmax in
-//              fp32 with expf, the undropped denominator, the dropped
-//              numerator; o [R, L, A] and the log-sum-exp.
-//   attn_dq / attn_dkdv   one thread per query (dq, delta) / key (dk, dv),
-//              P recomputed from the log-sum-exp, dq and dk rotated back.
+//              to DP: 32 for the steps; 16, 32 or 64 for flash attention),
+//              the layout attn_fp32.cu's kernels read.
 // Bound: FLOP at the fp32 rate (67 TFLOP/s) for every shipped shape.  What
 // the design gives up: the intermediates (the SwiGLU output, the projected
 // rows) pass through device memory, and no kernel overlaps loads with
@@ -49,8 +45,8 @@
 //
 // Dropout masks come from philox.cuh at the bf16 kernels' coordinates
 // (ops/dropout.py): the inner site at (row, conv position, inner channel),
-// the outer and projection sites at (row, position, channel), the
-// probability site at (row, head, key, query).
+// the outer and projection sites at (row, position, channel); the
+// probability site, at (row, head, key, query), is attn_fp32.cu's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -63,14 +59,8 @@ constexpr int BM = 128, BN = 64, BK = 8, NT = 256;   // GEMM tile, 8 x 4 a threa
 constexpr int TM = 8, TN = 4;
 constexpr int LDA = BM + 4, LDB = BN + 4;    // staged rows (k-major), 16-byte aligned
 constexpr int GEMM_SMEM = 2 * BK * (LDA + LDB) * 4;
-constexpr int QT = 64;                   // queries (keys) per attention block
-constexpr int KT = 64;                   // keys (queries) staged at a time
-constexpr int SUB = 16;                  // keys per online-softmax step
+constexpr int KT = 64;                   // qkv_split's Lp: a multiple of 64 rows
 constexpr int NP = 64;                   // positions per norm_bwd block
-// The attention kernels are instantiated at DP = 16, 32 and 64 head dims
-// (D zero-padded to DP); their shared memory at DP:
-constexpr long long attn_smem(int dp) { return 2LL * KT * dp * 4; }
-constexpr long long dkdv_smem(int dp) { return 2LL * KT * dp * 4 + 2 * KT * 4; }
 
 enum { EPI_STORE = 0, EPI_SWIGLU = 1, EPI_SWIGLU_BWD = 2, EPI_OUT = 3 };
 
@@ -433,260 +423,6 @@ __global__ void qkv_split(const float* __restrict__ qkv, const float* __restrict
   v[o + 1] = s[2 * A + 1];
 }
 
-template <int DP>
-__device__ __forceinline__ float dotp(const float (&a)[DP], const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(b + d);
-    s = fmaf(a[d], v.x, s);
-    s = fmaf(a[d + 1], v.y, s);
-    s = fmaf(a[d + 2], v.z, s);
-    s = fmaf(a[d + 3], v.w, s);
-  }
-  return s;
-}
-
-template <int DP>
-__device__ __forceinline__ void axpyp(float (&y)[DP], float a, const float* x) {
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(x + d);
-    y[d] = fmaf(a, v.x, y[d]);
-    y[d + 1] = fmaf(a, v.y, y[d + 1]);
-    y[d + 2] = fmaf(a, v.z, y[d + 2]);
-    y[d + 3] = fmaf(a, v.w, y[d + 3]);
-  }
-}
-
-// Stage rows [t0, t0 + KT) of two [Lp, DP] head slices into shared memory,
-// the first times s0scale.
-template <int DP>
-__device__ __forceinline__ void stage2(float* s0, float* s1, const float* g0, const float* g1,
-                                       int t0, float s0scale = 1.f) {
-  const float4* a = reinterpret_cast<const float4*>(g0 + (long long)t0 * DP);
-  const float4* b = reinterpret_cast<const float4*>(g1 + (long long)t0 * DP);
-  for (int e = threadIdx.x; e < KT * DP / 4; e += blockDim.x) {
-    float4 va = a[e];
-    va.x *= s0scale;
-    va.y *= s0scale;
-    va.z *= s0scale;
-    va.w *= s0scale;
-    reinterpret_cast<float4*>(s0)[e] = va;
-    reinterpret_cast<float4*>(s1)[e] = b[e];
-  }
-}
-
-// One thread per query of one (row, head): o = drop(softmax(q k^T scale)) v
-// with the undropped denominator; lse = max + log(sum) (natural log).
-template <int DP>
-__global__ void __launch_bounds__(QT) attn_fwd(const float* __restrict__ q,
-                                               const float* __restrict__ k,
-                                               const float* __restrict__ v,
-                                               float* __restrict__ o, float* __restrict__ lse,
-                                               int H, int L, int Lp, int D, float scale,
-                                               DropParams dp) {
-  __shared__ __align__(16) float ks[KT * DP];
-  __shared__ __align__(16) float vs[KT * DP];
-  const long long rh = blockIdx.x;
-  const int h = (int)(rh % H);
-  const long long r = rh / H;
-  const int i = blockIdx.y * QT + threadIdx.x;
-  const long long hb = rh * Lp * DP;
-  float qr[DP], acc[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = q[hb + (long long)i * DP + d] * scale;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  const uint32_t row = dp.row0 + (uint32_t)r;
-  for (int kt = 0; kt < L; kt += KT) {
-    __syncthreads();
-    stage2<DP>(ks, vs, k + hb, v + hb, kt);
-    __syncthreads();
-    if (i >= L) continue;
-    const int nk = L - kt < KT ? L - kt : KT;
-    for (int j0 = 0; j0 < nk; j0 += SUB) {
-      float s[SUB];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        s[jj] = j0 + jj < nk ? dotp(qr, ks + (j0 + jj) * DP) : -INFINITY;
-        mt = fmaxf(mt, s[jj]);
-      }
-      if (mt > m) {
-        const float corr = expf(m - mt);
-        l *= corr;
-#pragma unroll
-        for (int d = 0; d < DP; ++d) acc[d] *= corr;
-        m = mt;
-      }
-#pragma unroll
-      for (int j4 = 0; j4 < SUB; j4 += 4) {
-        Philox4 w;
-        if (dp.on)
-          w = dropout_words(dp.seed, SITE_ATTN_PROB, row, (uint32_t)h,
-                            (uint32_t)((kt + j0 + j4) >> 2), (uint32_t)i);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int jj = j4 + c;
-          if (j0 + jj >= nk) break;
-          const float p = expf(s[jj] - m);
-          l += p;
-          const float pd = dp.on ? (w.w[c] < dp.thr ? p * dp.scale : 0.f) : p;
-          axpyp(acc, pd, vs + (j0 + jj) * DP);
-        }
-      }
-    }
-  }
-  if (i >= L) return;
-  const float inv = 1.f / l;
-  float* od = o + (r * L + i) * (long long)(H * D) + h * D;
-#pragma unroll
-  for (int d = 0; d < DP; ++d)
-    if (d < D) od[d] = acc[d] * inv;
-  if (lse) lse[rh * L + i] = m + logf(l);
-}
-
-// RoPE's rotation undone on a gradient pair at position l, written to dst.
-template <int DP>
-__device__ __forceinline__ void unrope_store(const float (&g)[DP], float* dst, const float* cs,
-                                             const float* sn, int l, int D) {
-#pragma unroll
-  for (int t = 0; t < DP / 2; ++t) {
-    if (2 * t >= D) break;
-    const float c = cs[l * (D / 2) + t], s = sn[l * (D / 2) + t];
-    dst[2 * t] = g[2 * t] * c + g[2 * t + 1] * s;
-    dst[2 * t + 1] = g[2 * t + 1] * c - g[2 * t] * s;
-  }
-}
-
-// One thread per query: delta = do . o, dq = scale sum_j dS_ij k_j with
-// dS = P (drop(dP) - delta); dq (rotated back) into dqkv [R, L, 3A]; do and
-// delta kept for attn_dkdv (dop [R, H, Lp, DP], delta [R, H, L]).
-template <int DP>
-__global__ void __launch_bounds__(QT) attn_dq(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ dop, float* __restrict__ delta, float* __restrict__ dqkv,
-    const float* __restrict__ cs, const float* __restrict__ sn, int H, int L, int Lp, int D,
-    float scale, DropParams dp) {
-  __shared__ __align__(16) float ks[KT * DP];
-  __shared__ __align__(16) float vs[KT * DP];
-  const long long rh = blockIdx.x;
-  const int h = (int)(rh % H);
-  const long long r = rh / H;
-  const int i = blockIdx.y * QT + threadIdx.x;
-  const int A = H * D;
-  const long long hb = rh * Lp * DP;
-  float qr[DP], dor[DP], dq[DP];
-  float dl = 0.f, li = 0.f;
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = q[hb + (long long)i * DP + d] * scale;
-    dor[d] = 0.f;
-    dq[d] = 0.f;
-  }
-  if (i < L) {
-    const long long ro = (r * L + i) * A + h * D;
-#pragma unroll
-    for (int d = 0; d < DP; ++d)
-      if (d < D) {
-        dor[d] = dout[ro + d];
-        dl = fmaf(dor[d], o[ro + d], dl);
-      }
-    li = lse[rh * L + i];
-    delta[rh * L + i] = dl;
-  }
-#pragma unroll
-  for (int d = 0; d < DP; ++d) dop[hb + (long long)i * DP + d] = dor[d];
-  const uint32_t row = dp.row0 + (uint32_t)r;
-  for (int kt = 0; kt < L; kt += KT) {
-    __syncthreads();
-    stage2<DP>(ks, vs, k + hb, v + hb, kt);
-    __syncthreads();
-    if (i >= L) continue;
-    const int nk = L - kt < KT ? L - kt : KT;
-    for (int j4 = 0; j4 < nk; j4 += 4) {
-      Philox4 w;
-      if (dp.on)
-        w = dropout_words(dp.seed, SITE_ATTN_PROB, row, (uint32_t)h, (uint32_t)((kt + j4) >> 2),
-                          (uint32_t)i);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int jj = j4 + c;
-        if (jj >= nk) break;
-        const float p = expf(dotp(qr, ks + jj * DP) - li);
-        float dpv = dotp(dor, vs + jj * DP);
-        if (dp.on) dpv = w.w[c] < dp.thr ? dpv * dp.scale : 0.f;
-        axpyp(dq, p * (dpv - dl), ks + jj * DP);
-      }
-    }
-  }
-  if (i >= L) return;
-#pragma unroll
-  for (int d = 0; d < DP; ++d) dq[d] *= scale;
-  unrope_store<DP>(dq, dqkv + (r * L + i) * 3 * A + h * D, cs, sn, i, D);
-}
-
-// One thread per key: dv = sum_i drop(P_ij) do_i, dk = scale sum_i dS_ij q_i;
-// dk (rotated back) and dv into dqkv.
-template <int DP>
-__global__ void __launch_bounds__(QT) attn_dkdv(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dop, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dqkv, const float* __restrict__ cs,
-    const float* __restrict__ sn, int H, int L, int Lp, int D, float scale, DropParams dp) {
-  __shared__ __align__(16) float qs[KT * DP];
-  __shared__ __align__(16) float dos[KT * DP];
-  __shared__ float ls[KT], dls[KT];
-  const long long rh = blockIdx.x;
-  const int h = (int)(rh % H);
-  const long long r = rh / H;
-  const int j = blockIdx.y * QT + threadIdx.x;
-  const int A = H * D;
-  const long long hb = rh * Lp * DP;
-  float kr[DP], vr[DP], dk[DP], dv[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    kr[d] = k[hb + (long long)j * DP + d];
-    vr[d] = v[hb + (long long)j * DP + d];
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-  }
-  const uint32_t row = dp.row0 + (uint32_t)r;
-  for (int qt = 0; qt < L; qt += KT) {
-    __syncthreads();
-    stage2<DP>(qs, dos, q + hb, dop + hb, qt, scale);
-    for (int e = threadIdx.x; e < KT; e += blockDim.x) {
-      ls[e] = qt + e < L ? lse[rh * L + qt + e] : 0.f;
-      dls[e] = qt + e < L ? delta[rh * L + qt + e] : 0.f;
-    }
-    __syncthreads();
-    if (j >= L) continue;
-    const int nq = L - qt < KT ? L - qt : KT;
-    for (int ii = 0; ii < nq; ++ii) {
-      const float p = expf(dotp(kr, qs + ii * DP) - ls[ii]);
-      float dpv = dotp(vr, dos + ii * DP), pd = p;
-      if (dp.on) {
-        const bool keep = dropout_keep(dp.seed, SITE_ATTN_PROB, row, (uint32_t)h, (uint32_t)j,
-                                       (uint32_t)(qt + ii), dp.thr);
-        pd = keep ? p * dp.scale : 0.f;
-        dpv = keep ? dpv * dp.scale : 0.f;
-      }
-      axpyp(dv, pd, dos + ii * DP);
-      axpyp(dk, p * (dpv - dls[ii]), qs + ii * DP);
-    }
-  }
-  if (j >= L) return;
-  float* dst = dqkv + (r * L + j) * 3 * A;
-  unrope_store<DP>(dk, dst + A + h * D, cs, sn, j, D);
-#pragma unroll
-  for (int d = 0; d < DP; ++d)
-    if (d < D) dst[2 * A + h * D + d] = dv[d];
-}
-
 inline Win win(const void* p, long long rs, long long P, long long ps, long long shift,
                long long lim) {
   Win w;
@@ -715,23 +451,14 @@ inline unsigned blocks(long long n, int per) { return (unsigned)((n + per - 1) /
 
 using namespace f32;
 
-// Shared memory of each launch (bytes): 0 gemm_nn / gemm_tn, 1 attn_fwd /
-// attn_dq, 2 attn_dkdv (both at the steps' DP 32), 3 norm_bwd at width C.
+// Shared memory of each launch (bytes): 0 gemm_nn / gemm_tn, 1 norm_bwd at
+// width C (the attention core's: attn_fp32.cu's f32_attn_smem_bytes).
 extern "C" long long step_fp32_smem_bytes(int which, int C) {
   switch (which) {
     case 0: return GEMM_SMEM;
-    case 1: return attn_smem(32);
-    case 2: return dkdv_smem(32);
-    case 3: return (long long)NP * C * 4;
+    case 1: return (long long)NP * C * 4;
   }
   return -1;
-}
-
-// The attention kernels' shared memory at a padded head width dp: 0 attn_fwd
-// / attn_dq, 1 attn_dkdv.
-extern "C" long long f32_attn_smem_bytes(int which, int dp) {
-  if (dp != 16 && dp != 32 && dp != 64) return -1;
-  return which == 0 ? attn_smem(dp) : which == 1 ? dkdv_smem(dp) : -1;
 }
 
 #define WIN_ARGS(n) const void *n##_p, long long n##_rs, long long n##_P, long long n##_ps, \
@@ -830,32 +557,6 @@ int launch_qkv_split(const void* qkv, const void* cs, const void* sn, void* q, v
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int R,
-                    int H, int L, int Lp, int D, float scale, DropParams dp, cudaStream_t st) {
-  attn_fwd<DP><<<dim3(R * H, Lp / QT), QT, 0, st>>>((const float*)q, (const float*)k,
-                                                   (const float*)v, (float*)o, (float*)lse, H, L,
-                                                   Lp, D, scale, dp);
-  return (int)cudaGetLastError();
-}
-
-template <int DP>
-int launch_attn_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                    const void* lse, void* dop, void* delta, void* dqkv, const void* cs,
-                    const void* sn, int R, int H, int L, int Lp, int D, float scale,
-                    DropParams dp, cudaStream_t st) {
-  const dim3 grid(R * H, Lp / QT);
-  attn_dq<DP><<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                   (const float*)o, (const float*)dout, (const float*)lse,
-                                   (float*)dop, (float*)delta, (float*)dqkv, (const float*)cs,
-                                   (const float*)sn, H, L, Lp, D, scale, dp);
-  attn_dkdv<DP><<<grid, QT, 0, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                     (const float*)dop, (const float*)lse, (const float*)delta,
-                                     (float*)dqkv, (const float*)cs, (const float*)sn, H, L, Lp,
-                                     D, scale, dp);
-  return (int)cudaGetLastError();
-}
-
 // The padded head width dp selects the instantiation: 16, 32 or 64.
 #define DP_DISPATCH(dp, fn, ...)                                       \
   switch (dp) {                                                        \
@@ -869,23 +570,4 @@ extern "C" int f32_qkv_split(const void* qkv, const void* cs, const void* sn, vo
                              void* v, int R, int L, int Lp, int H, int D, int dp, void* stream) {
   if (D % 2 || D > dp || Lp % KT || Lp < L) return (int)cudaErrorInvalidValue;
   DP_DISPATCH(dp, launch_qkv_split, qkv, cs, sn, q, k, v, R, L, Lp, H, D, (cudaStream_t)stream)
-}
-
-extern "C" int f32_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int R, int H, int L, int Lp, int D, int dp, float scale,
-                            unsigned seed, unsigned thr, unsigned row0, float dscale, int on,
-                            void* stream) {
-  if (D > dp || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
-  DP_DISPATCH(dp, launch_attn_fwd, q, k, v, o, lse, R, H, L, Lp, D, scale,
-              drop(seed, thr, row0, dscale, on), (cudaStream_t)stream)
-}
-
-extern "C" int f32_attn_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* dop, void* delta, void* dqkv,
-                            const void* cs, const void* sn, int R, int H, int L, int Lp, int D,
-                            int dp, float scale, unsigned seed, unsigned thr, unsigned row0,
-                            float dscale, int on, void* stream) {
-  if (D > dp || Lp % QT || Lp / QT > 65535) return (int)cudaErrorInvalidValue;
-  DP_DISPATCH(dp, launch_attn_bwd, q, k, v, o, dout, lse, dop, delta, dqkv, cs, sn, R, H, L, Lp,
-              D, scale, drop(seed, thr, row0, dscale, on), (cudaStream_t)stream)
 }

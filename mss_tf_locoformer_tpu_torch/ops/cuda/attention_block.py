@@ -27,8 +27,9 @@ through plain ops); a CUDA tensor runs the kernels through
 needs only when a gradient is asked for: q' = R(q) scale log2 e, k after
 RoPE, v, the head outputs o and the per-query log-sum-exp in log2 units.
 bf16 rows take the kernels of this module; fp32 rows take the fp32
-kernels of ``ops/cuda/step_fp32.py`` (``csrc/step_fp32.cu``: the same
-contract, the stash in fp32), and no fp32 tensor is cast to bf16.
+kernels of ``ops/cuda/step_fp32.py`` (``csrc/step_fp32.cu``, the core in
+``csrc/attn_fp32.cu``: the same contract, the stash in fp32), and no fp32
+tensor is cast to bf16.
 
 :func:`supports_block` is the block's gate: whether the kernels serve a step
 of width C, attention width A and H heads in the rows' dtype (fp32:

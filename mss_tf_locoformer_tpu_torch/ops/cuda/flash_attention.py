@@ -20,7 +20,7 @@ Dispatch: a CPU tensor takes :func:`reference_flash_attention` (RoPE from
 it is the backward's plain version); a CUDA tensor runs the kernels through
 :class:`FlashAttention` or raises.  The kernels of this module take bf16
 with an even head_dim up to 64; fp32 tensors take the fp32 kernels of
-``ops/cuda/unfused_fp32.py`` (``csrc/step_fp32.cu``, the same head dims,
+``ops/cuda/unfused_fp32.py`` (``csrc/attn_fp32.cu``, the same head dims,
 their own launch counts), and nothing casts fp32 to bf16; any other dtype
 raises.  When a gradient is asked for, the forward also stashes
 each query's log-sum-exp (fp32 ``[B*H, L]``) and the backward kernels

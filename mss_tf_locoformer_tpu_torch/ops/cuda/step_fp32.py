@@ -10,9 +10,11 @@ fp32 by default.  The bf16 kernels (``swiglu_block.cu``,
 nothing casts it to bf16.  Same contracts as the bf16 kernels (the
 RMSGroupNorm prologue, both dropout sites of each step at the same Philox
 coordinates, ``row0``, the partial-sum mode ``residual=False``), with fp32
-operands and fp32 sums throughout: fp32 FFMA, no tensor cores (one TF32
-pass rounds operands to 11 significant bits; the unfused FFN core's 3xTF32
-GEMMs, ``unfused_fp32.CorePrims``, keep fp32's accuracy on them).
+operands and fp32 sums throughout: the norms and GEMMs in fp32 FFMA, no
+tensor cores (one TF32 pass rounds operands to 11 significant bits); the
+attention core on the tensor cores in three TF32 passes
+(``csrc/attn_fp32.cu``, as accurate as FFMA), as are the unfused FFN
+core's GEMMs (``unfused_fp32.CorePrims``).
 
 Each step is a chain of launches through device memory (the .cu file's
 header lists the kernels):
@@ -29,12 +31,13 @@ header lists the kernels):
   gradients as per-split partials over positions; all partials summed in a
   fixed order once every group has run.
 * Attention forward: norm -> QKV GEMM -> q, k (RoPE), v as ``[R, H, Lp,
-  32]`` -> the core (one thread per query, online softmax) -> out-projection
-  GEMM with the output epilogue.  The stash for the backward: q, k, v, o
+  32]`` -> the core (``attn_fp32.cu``: 3xTF32 scores and products, the
+  softmax in the exp2 domain with a lazy max) -> out-projection GEMM with
+  the output epilogue.  The stash for the backward: q, k, v, o
   and the log-sum-exp.
 * Attention backward: the projection mask on g, do = dproj W_out, the core's
-  dq and dk/dv kernels (RoPE undone), dxn = dqkv W_qkv, the norm's backward,
-  the weight gradients as per-split partials.
+  dq and dk/dv kernels (``attn_fp32.cu``, RoPE undone), dxn = dqkv W_qkv,
+  the norm's backward, the weight gradients as per-split partials.
 
 Each step counts one launch per call on its own function (:func:`ffn_forward`,
 :func:`ffn_backward`, :func:`attention_forward`, :func:`attention_backward`),
@@ -57,7 +60,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import dropout as D
 from . import SMEM_OPTIN, cached_panels, check, load, ptr, stream_handle
 
-__all__ = ["Win", "launch_bytes", "compiled_launch_bytes", "supports_ffn",
+__all__ = ["Win", "attn_launch_bytes", "compiled_attn_launch_bytes", "launch_bytes",
+           "compiled_launch_bytes", "supports_ffn",
            "supports_attention", "ffn_rows", "ffn_forward", "ffn_backward",
            "attention_forward", "attention_backward", "ffn_panels", "SCRATCH_CAP",
            "EPI_STORE", "EPI_SWIGLU", "EPI_SWIGLU_BWD", "EPI_OUT"]
@@ -65,8 +69,9 @@ __all__ = ["Win", "launch_bytes", "compiled_launch_bytes", "supports_ffn",
 CHANNELS = (32, 64, 96, 128)    # the step widths the gates admit, as for bf16 rows
 BM, BN = 128, 64                # GEMM tile (8 x 4 outputs a thread)
 BK = 8                          # GEMM stage depth (two stages in flight)
-QT = 64                         # queries (keys) per attention block
+QT = 64                         # rows of q, k, v padded to a multiple of this
 DP = 32                         # head dims, zero-padded
+ATTN_STAGES, ATTN_CHUNK = 3, 64   # the attention core's cp.async ring of 64-row chunks
 NP = 64                         # positions per norm-backward block
 SCRATCH_CAP = 1 << 30           # bytes of fp32 scratch per FFN row group
 _SMS = 132
@@ -82,15 +87,33 @@ def _dense(t: torch.Tensor, rows: int, width: int) -> Win:
     return Win(t, 0, rows, width, 0, rows * width)
 
 
+def attn_launch_bytes(dp: int) -> dict:
+    """Shared memory of the attention core's launches (``csrc/attn_fp32.cu``)
+    at a padded head width ``dp``: ``attn`` (the forward and the dq kernel)
+    three stages of 64 rows of k and v, ``dp + 4`` floats a row; ``dkdv``
+    three of q and dO with their log-sum-exps and deltas."""
+    ring = ATTN_STAGES * 2 * ATTN_CHUNK
+    return {"attn": ring * (dp + 4) * 4, "dkdv": ring * (dp + 4) * 4 + ring * 4}
+
+
+def compiled_attn_launch_bytes(dp: int) -> dict:
+    """:func:`attn_launch_bytes` as the compiled kernels count them."""
+    fn = load("attn_fp32").f32_attn_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 2
+    return {"attn": fn(0, dp), "dkdv": fn(1, dp)}
+
+
 def launch_bytes(c: int, training: bool = False) -> dict:
-    """Shared memory of each launch (csrc/step_fp32.cu): the GEMMs' two
-    buffers of an 8-deep stage of A (128 + 4 floats a row) and B (64 + 4),
-    the attention core's k and v tiles of 64 x 32, the
-    dk/dv kernel's q and do tiles with their log-sum-exp and delta, and (in
-    training) the norm backward's 64 positions of C floats."""
-    out = {"gemm": 2 * BK * (BM + 4 + BN + 4) * 4, "attn": 2 * 64 * DP * 4}
+    """Shared memory of each launch: the GEMMs' two buffers of an 8-deep
+    stage of A (128 + 4 floats a row) and B (64 + 4) (csrc/step_fp32.cu),
+    the attention core's at DP 32 (:func:`attn_launch_bytes`; the dk/dv
+    kernel's only in training), and (in training) the norm backward's 64
+    positions of C floats."""
+    attn = attn_launch_bytes(DP)
+    out = {"gemm": 2 * BK * (BM + 4 + BN + 4) * 4, "attn": attn["attn"]}
     if training:
-        out.update(dkdv=2 * 64 * DP * 4 + 2 * 64 * 4, norm_bwd=NP * c * 4)
+        out.update(dkdv=attn["dkdv"], norm_bwd=NP * c * 4)
     return out
 
 
@@ -99,8 +122,11 @@ def compiled_launch_bytes(c: int, training: bool = False) -> dict:
     fn = load("step_fp32").step_fp32_smem_bytes
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int] * 2
-    names = ("gemm", "attn", "dkdv", "norm_bwd")
-    return {n: fn(i, c) for i, n in enumerate(names[:4 if training else 2])}
+    attn = compiled_attn_launch_bytes(DP)
+    out = {"gemm": fn(0, c), "attn": attn["attn"]}
+    if training:
+        out.update(dkdv=attn["dkdv"], norm_bwd=fn(1, c))
+    return out
 
 
 def supports_ffn(c: int, inner: int, k: int, training: bool, num_groups: int = 1) -> bool:
@@ -196,11 +222,12 @@ def _opt(t):
 
 
 class CudaPrims:
-    """The kernels of ``csrc/step_fp32.cu``, launched on the current stream.
-    Every tensor is fp32, contiguous and 16-byte aligned."""
+    """The kernels of ``csrc/step_fp32.cu`` and the attention core of
+    ``csrc/attn_fp32.cu`` (``attn_fwd``, ``attn_bwd``), launched on the
+    current stream.  Every tensor is fp32, contiguous and 16-byte aligned."""
 
     def __init__(self):
-        lib = load("step_fp32")
+        libs = {"step_fp32": load("step_fp32"), "attn_fp32": load("attn_fp32")}
         u, i, ll, f, vp = (ctypes.c_uint32, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                            ctypes.c_void_p)
         self._fn = {}
@@ -216,7 +243,7 @@ class CudaPrims:
                 ("f32_qkv_split", [vp] * 6 + [i] * 6 + [vp]),
                 ("f32_attn_fwd", [vp] * 5 + [i] * 6 + [f] + [u] * 3 + [f, i, vp]),
                 ("f32_attn_bwd", [vp] * 11 + [i] * 6 + [f] + [u] * 3 + [f, i, vp])):
-            fn = getattr(lib, name)
+            fn = getattr(libs["attn_fp32" if name.startswith("f32_attn") else "step_fp32"], name)
             fn.restype, fn.argtypes = ctypes.c_int, args
             self._fn[name] = fn
 
@@ -251,7 +278,8 @@ class CudaPrims:
                    device=dz.device)
 
     # The attention kernels take the padded head width from q's last axis
-    # (their instantiations: 16, 32 and 64).
+    # (their instantiations: 16, 32 and 64); attn_fwd and attn_bwd are
+    # attn_fp32.cu's (attn_bwd: its dq kernel, then its dk/dv kernel).
     def qkv_split(self, qkv, cos, sin, q, k, v, r, seq, lp, h, d):
         self._call("f32_qkv_split", ptr(qkv), ptr(cos), ptr(sin), ptr(q), ptr(k), ptr(v),
                    r, seq, lp, h, d, q.shape[-1], device=q.device)

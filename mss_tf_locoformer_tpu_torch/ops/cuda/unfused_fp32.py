@@ -1,5 +1,6 @@
-"""fp32 rows of the unfused route's kernels: flash attention (#6, #7) on the
-kernels of ``csrc/step_fp32.cu``, and the FFN core (#8, #9) on the 3xTF32
+"""fp32 rows of the unfused route's kernels: flash attention (#6, #7) on
+``csrc/step_fp32.cu``'s RoPE split and the 3xTF32 tensor-core attention
+core of ``csrc/attn_fp32.cu``, and the FFN core (#8, #9) on the 3xTF32
 tensor-core GEMMs of ``csrc/ffn_core_fp32.cu``.
 
 The JAX package runs its Pallas flash-attention and FFN-core kernels in the
@@ -10,13 +11,13 @@ small and LayerNorm configs run them at fp32.  The bf16 kernels
 (``flash_attention.cu``, ``swiglu_ffn.cu``) keep bf16 rows; an fp32 CUDA
 tensor given to ``flash_attention`` or ``swiglu_conv_deconv`` comes here,
 and nothing casts it to bf16.  Same contracts as the bf16 kernels, with fp32
-operands and fp32 sums throughout.  Flash attention runs fp32 FFMA.  The
-FFN core's products run on the tensor cores in three TF32 passes: each
-operand split into TF32 hi and lo halves, rounded to nearest, and lo hi' +
-hi lo' + hi hi' summed in fp32, each 32-deep stage's total added into an
-fp32 sum (the tensor cores truncate as they add), as accurate as FFMA (one
-TF32 pass would round every operand to 11 bits: ~3e-4 of the output's
-peak).
+operands and fp32 sums throughout.  Every product runs on the tensor cores
+in three TF32 passes: each operand split into TF32 hi and lo halves,
+rounded to nearest, and lo hi' + hi lo' + hi hi' summed in fp32, each
+stage's (the FFN core's 32-deep k stages, attention's 16-key tiles) total
+added into an fp32 sum (the tensor cores truncate as they add), as
+accurate as FFMA (one TF32 pass would round every operand to 11 bits:
+~3e-4 of the output's peak).
 
 Each kernel is a chain of launches through device memory:
 
@@ -24,14 +25,15 @@ Each kernel is a chain of launches through device memory:
   product that the ``[B, H, L, D]`` views of q, k and v come from (a copy
   is made only for other views) and writes q and k rotated by RoPE, and v,
   as ``[B, H, Lp, DP]`` (D zero-padded to DP = 16, 32 or 64; Lp a multiple
-  of 64); ``attn_fwd`` (one thread per query, 16-key steps of an online
-  softmax in expf) writes o ``[B, L, H, D]`` and, with a gradient, the
-  natural log-sum-exp ``[B, H, L]``.
+  of 64); ``attn_fwd`` (``csrc/attn_fp32.cu``: a warp's 16 or 32 queries
+  in registers, 3xTF32 scores and P V, the softmax in the exp2 domain with
+  a lazy max) writes o ``[B, L, H, D]`` and, with a gradient, the natural
+  log-sum-exp ``[B, H, L]``.
 * Flash backward (#7): ``qkv_split`` again (nothing rotated is kept), then
-  ``attn_dq`` (delta = do . o and dq, one thread per query) and
-  ``attn_dkdv`` (one thread per key), P recomputed from the log-sum-exp, dq
-  and dk rotated back in their epilogues, into one ``[B, L, 3, H, D]``
-  buffer whose ``[B, H, L, D]`` views are the gradients.
+  ``attn_bwd``: the dq kernel (delta = do . o and dq, a warp's 16 queries)
+  and the dk/dv kernel (a warp's 16 keys), P recomputed from the log-sum-
+  exp, dq and dk rotated back in their epilogues, into one ``[B, L, 3, H,
+  D]`` buffer whose ``[B, H, L, D]`` views are the gradients.
 * FFN core forward (#8), per row group: the conv as ``core_nn`` (wgmma) on
   windows of ``k C`` consecutive floats of the pre-padded rows with the
   SwiGLU epilogue (the inner mask at ``inner_mask``'s coordinates), then
@@ -93,20 +95,16 @@ def head_pad(d: int) -> int:
 
 
 def flash_launch_bytes(d: int) -> dict:
-    """Shared memory of the flash launches at head_dim ``d`` (csrc/
-    step_fp32.cu): ``attn_fwd`` / ``attn_dq`` stage 64 keys of k and v,
-    ``attn_dkdv`` 64 queries of q and do with their log-sum-exp and delta,
-    ``DP`` floats a row."""
-    dp = head_pad(d)
-    return {"attn": 2 * S.QT * dp * 4, "dkdv": 2 * S.QT * dp * 4 + 2 * S.QT * 4}
+    """Shared memory of the flash launches at head_dim ``d`` (``csrc/
+    attn_fp32.cu`` at ``DP`` = :func:`head_pad`: ``step_fp32.
+    attn_launch_bytes``): the forward and dq kernels' ring of k and v, the
+    dk/dv kernel's of q and dO with their log-sum-exps and deltas."""
+    return S.attn_launch_bytes(head_pad(d))
 
 
 def compiled_flash_launch_bytes(d: int) -> dict:
     """:func:`flash_launch_bytes` as the compiled kernels count them."""
-    fn = load("step_fp32").f32_attn_smem_bytes
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 2
-    return {"attn": fn(0, head_pad(d)), "dkdv": fn(1, head_pad(d))}
+    return S.compiled_attn_launch_bytes(head_pad(d))
 
 
 def core_launch_bytes() -> dict:

@@ -938,6 +938,93 @@ def test_fp32_unfused_kernels_give_the_same_bits_twice(dev):
     assert all(_rel_l2(a, b) < 1e-5 for a, b in zip(first[1:], whole[1:]))
 
 
+# The 3xTF32 attention core of csrc/attn_fp32.cu (the core of #3/#4 and #6/#7
+# at fp32) alone, through step_fp32.CudaPrims on operands laid out as
+# qkv_split writes them ([R, H, Lp, DP], rows past L and dims past D zero),
+# against autograd in float64 on the same values: head dims 12 (a k8 and a
+# k4 step), 16, 24 (3 of DP 32's 4 steps), 32 and 64; L 1, the 65- and
+# 129-position tails, 2049 (xlarge freq's); the probability mask at rows
+# offset by row0 against probability_mask's (the plain version's) at
+# dropout 0.1; the tolerances of the fp32 rows above.
+FP32_CORE_SHAPES = [(2, 3, 1, 12, 0.0), (1, 4, 65, 16, 0.0), (2, 2, 129, 24, 0.0),
+                    (1, 2, 200, 32, 0.0), (1, 2, 130, 64, 0.0), (1, 1, 2049, 16, 0.0),
+                    (3, 2, 517, 12, 0.0), (2, 2, 65, 12, 0.1), (2, 3, 129, 16, 0.1),
+                    (1, 4, 300, 24, 0.1), (2, 2, 70, 32, 0.1), (1, 2, 129, 64, 0.1),
+                    (1, 1, 2049, 16, 0.1)]
+
+
+def _fp32_core_case(dev, r, h, seq, d, p, seed=15):
+    """Operands, the kernels' outputs and the float64 reference's of one
+    core case; RoPE's tables at the identity (the step and flash tests above
+    hold the rotation)."""
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    g = torch.Generator().manual_seed(seed)
+    dp, lp, a, row0 = U.head_pad(d), -(-seq // 64) * 64, h * d, 5
+    q, k, v = (torch.zeros(r, h, lp, dp) for _ in range(3))
+    for t in (q, k, v):
+        t[:, :, :seq, :d] = 1.5 * torch.randn(r, h, seq, d, generator=g)
+    dout = torch.randn(r, seq, a, generator=g)
+    q, k, v, dout = (t.to(dev) for t in (q, k, v, dout))
+    scale, drop = d ** -0.5, D.kernel_args(p, 4321, row0)
+    P = S.CudaPrims()
+
+    def run():
+        o = torch.empty(r, seq, a, device=dev)
+        lse = torch.empty(r, h, seq, device=dev)
+        P.attn_fwd(q, k, v, o, lse, r, h, seq, lp, d, scale, drop)
+        dop, delta = torch.empty(r, h, lp, dp, device=dev), torch.empty(r, h, seq, device=dev)
+        dqkv = torch.empty(r, seq, 3 * a, device=dev)
+        cos, sin = torch.ones(seq, d // 2, device=dev), torch.zeros(seq, d // 2, device=dev)
+        P.attn_bwd(q, k, v, o, dout, lse, dop, delta, dqkv, cos, sin, r, h, seq, lp, d, scale,
+                   drop)
+        torch.cuda.synchronize()
+        return o, lse, dqkv.view(r, seq, 3, h, d).permute(2, 0, 3, 1, 4)
+
+    leaves = [t[:, :, :seq, :d].double().requires_grad_(True) for t in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) * scale
+    lse = torch.logsumexp(s, -1)
+    pr = torch.exp(s - lse[..., None])
+    if p > 0:
+        keep = AB.probability_mask(4321, torch.arange(r, device=dev) + row0, h, seq, p, dev)
+        pr = torch.where(keep, pr / (1 - p), torch.zeros((), dtype=pr.dtype, device=dev))
+    o = pr @ leaves[2]
+    grads = torch.autograd.grad(o, leaves, dout.double().view(r, seq, h, d).transpose(1, 2))
+    return run, (o.detach().transpose(1, 2).reshape(r, seq, a), lse.detach(), grads)
+
+
+@pytest.mark.parametrize("r,h,seq,d,p", FP32_CORE_SHAPES)
+def test_fp32_attention_core_kernels(dev, r, h, seq, d, p):
+    """The core's forward (o and the natural log-sum-exp) and backward (dq,
+    dk, dv) against float64 autograd; a second run gives the same bits."""
+    run, (ref_o, ref_lse, ref_g) = _fp32_core_case(dev, r, h, seq, d, p)
+    o, lse, dg = run()
+    _close(o, ref_o, FP32_TOL)
+    _close(lse, ref_lse, FP32_TOL)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert torch.isfinite(dg[i]).all(), name
+        if seq == 1 and i < 2:   # softmax over one key: no gradient reaches q or k
+            assert dg[i].abs().max() < 1e-6, name
+        else:
+            assert _rel_l2(dg[i], ref_g[i]) <= FP32_REL_L2, (name, _rel_l2(dg[i], ref_g[i]))
+    again = run()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip((o, lse, dg), again))
+
+
+def test_fp32_attention_core_refuses_other_layouts(dev):
+    """The core's entry points refuse what the layout does not hold: a head
+    dim above the padded width, an odd one, a padded length that is no
+    multiple of 64 or shorter than L."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    P = S.CudaPrims()
+    q = torch.zeros(1, 1, 64, 16, device=dev)
+    o = torch.empty(1, 8, 16, device=dev)
+    for seq, lp, d in ((8, 64, 18), (8, 64, 7), (8, 48, 16), (70, 64, 16)):
+        with pytest.raises(RuntimeError):
+            P.attn_fwd(q, q, q, o, None, 1, 1, seq, lp, d, 0.25, (0, 0, 0, 1.0, 0))
+
+
 def test_unfused_kernels_refuse_fp16(dev):
     """bf16 and fp32 take the unfused route's kernels; fp16 neither (no cast)."""
     q = torch.randn(1, 2, 8, 16, device=dev, dtype=torch.float16)

@@ -188,9 +188,10 @@ def test_fp32_gates_admit_what_the_bf16_gates_admit():
                     assert fp >= bf and fp == (2 <= k <= 8), (c, inner, k, training)
                     assert not SF.supports_shape(c, inner, k, training, torch.float16)
     assert [U.head_pad(d) for d in (2, 12, 16, 18, 32, 34, 64)] == [16, 16, 16, 32, 32, 64, 64]
-    assert U.flash_launch_bytes(12) == U.flash_launch_bytes(16) == {"attn": 8192, "dkdv": 8704}
-    assert U.flash_launch_bytes(24) == {"attn": 16384, "dkdv": 16896}
-    assert U.flash_launch_bytes(64) == {"attn": 32768, "dkdv": 33280}
+    assert U.flash_launch_bytes(12) == U.flash_launch_bytes(16) == {"attn": 30720,
+                                                                      "dkdv": 32256}
+    assert U.flash_launch_bytes(24) == {"attn": 55296, "dkdv": 56832}
+    assert U.flash_launch_bytes(64) == {"attn": 104448, "dkdv": 105984}
     assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448}
     # the small config's freq path at its training micro-batch: 16 row
     # groups of <= 1 GiB of fp32 scratch
