@@ -179,19 +179,21 @@ each of which raises on failure (exit code != 0, no result line):
      launches per rank, step time), the 2-rank evaluation CLI's
      ``results.json`` against one rank's, and the training CLI under a
      world-1 NCCL process group;
- 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``, #3/#4's attention core on
-     the 3xTF32 kernels of ``csrc/attn_fp32.cu``; run with the speech
-     phases): the fp32 gates at the base, BS and speech widths (the
-     layouts' bytes against the compiled kernels' count; no FFMA attention
-     kernel left in ``step_fp32.cu``'s library); #2 and #3 against their
-     fp32 plain versions at the speech serving shapes (wsj0-2mix and DNS),
-     with the stash and #5 and #4 at the wsj0-2mix training shapes (dropout
-     0), the base training shapes (dropout 0.1, keep rates printed) and
-     shard 0 of mp 2 in the partial-sum mode; exact fp32 launches, two
-     backward runs bit-equal, #3/#4's launches by CUDA events (the 3xTF32
-     core among them), timed beside the bf16 kernels and the fp32 bounds
-     (FFMA; for #3/#4 also 3xTF32); the wsj0-2mix separator at fp32 against its plain
-     path (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
+ 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``; #2/#5's GEMMs on the
+     3xTF32 kernels of ``csrc/ffn_core_fp32.cu``, #3/#4's attention core
+     on those of ``csrc/attn_fp32.cu``; run with the speech phases): the
+     fp32 gates at the base, BS and speech widths (the layouts' bytes
+     against the compiled kernels' count; no FFMA attention kernel left in
+     ``step_fp32.cu``'s library); #2 and #3 against their fp32 plain
+     versions (#2/#5 within 1e-5) at the speech serving shapes (wsj0-2mix
+     and DNS), with the stash and #5 and #4 at the wsj0-2mix training
+     shapes (dropout 0), the base training shapes (dropout 0.1, keep rates
+     printed) and shard 0 of mp 2 in the partial-sum mode; exact fp32
+     launches, two backward runs bit-equal, each call's launches by CUDA
+     events (#2/#5: 3xTF32 GEMMs, no FFMA GEMM; #3/#4: the 3xTF32 core
+     among them), timed beside the bf16 kernels and the bounds (3xTF32,
+     FFMA beside); the wsj0-2mix separator at fp32 against its plain path
+     (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
      configs, kernel path against plain path (loss and grad_norm within
      1e-4), and timed at the full batch;
  28. fp32 rows of #6-#9 (``ops/cuda/unfused_fp32.py``: flash attention on
@@ -924,10 +926,10 @@ def phase_xlarge_kernels(results):
 # H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds of the
 # kernels: bf16 tensor cores, fp32 outside them, device memory.
 PEAK_BF16, PEAK_FP32, HBM_RATE = 989e12, 67e12, 3.35e12
-# TF32 tensor cores (dense): the fp32 rows of #8/#9 and of the attention
-# core (#6/#7, and #3/#4 whose projections stay FFMA) run their products
-# there in three passes (3xTF32), so their bound is 3 x FLOP at this rate
-# (0.41x the FFMA bound at PEAK_FP32, which #2/#5's fp32 rows are held to)
+# TF32 tensor cores (dense): the fp32 rows of #2/#5 and #8/#9 and of the
+# attention core (#6/#7, and #3/#4 whose projections stay FFMA) run their
+# products there in three passes (3xTF32), so their bound is 3 x FLOP at
+# this rate (0.41x the FFMA bound at PEAK_FP32, printed beside it)
 PEAK_TF32 = 494.7e12
 TF32_PASSES = 3
 # Exponentials on the special-function units: 16 per SM per clock x 132 SMs
@@ -3101,14 +3103,22 @@ def phase_bs_train(workdir):
 # stems within FP32_TOL of max|ref| -- against the 1.1-1.2e-2 the bf16
 # blocks give (PERF.md section 6)
 FP32_TOL, FP32_GRAD_REL_L2, FP32_LOSS_REL = 1e-4, 1e-4, 1e-4
+# #2/#5 at fp32 (3xTF32 GEMMs, FFMA norms) against the plain version run in
+# float64: outputs and dx within 1e-5 of max|ref|, the other gradients
+# within 1e-5 relative L2.  The fp32 plain version is no oracle at this
+# bound: its conv weight gradient (cuDNN's fp32 sums over 532k positions)
+# is 1.24e-5 (relative L2) off the float64 one at base training, the
+# kernels' 5.1e-7 (tools/ffn_step_errors.py on an H100)
+FP32_STEP_TOL = 1e-5
 SPEECH_FORWARD_FP32 = {"ffn_step_fp32": 24, "attention_step_fp32": 12}
 
 
 def phase_fp32_gates():
     """The fp32 gates (``step_fp32.supports_ffn`` / ``supports_attention``)
     at the base, BS-Locoformer and speech configs' widths, in eval and in
-    training, from the layouts' bytes, which the compiled kernels count the
-    same."""
+    training, from the layouts' bytes (the FFN step's: ``core_nn`` at each
+    GEMM's tile, ``core_tn``, the norm backward), which the compiled kernels
+    count the same."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import load
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
     cfgs = [("base", base_model_config()), ("bs", bs_model_config())] + [
@@ -3129,12 +3139,18 @@ def phase_fp32_gates():
     for tag, cfg in cfgs:
         c, k = cfg.emb_dim, cfg.conv1d_kernel
         for training in (False, True):
+            for i in _inner_dims(cfg):
+                want = S32.ffn_launch_bytes(c, i, training)
+                got = S32.compiled_ffn_launch_bytes(c, i, training)
+                if want != got:
+                    raise AssertionError(f"fp32 FFN gate: layouts {want} != compiled {got}")
             routes = ([S32.supports_ffn(c, i, k, training, cfg.num_groups)
                        for i in _inner_dims(cfg)]
                       + [S32.supports_attention(c, cfg.attention_dim, cfg.n_heads, training)])
             print(f"[fp32-gates] {tag} (C {c}, I {_inner_dims(cfg)[0]}, k {k}), "
-                  f"{'training' if training else 'eval'}: launches "
-                  f"{S32.launch_bytes(c, training)} B: fused steps {routes}")
+                  f"{'training' if training else 'eval'}: FFN step (3xTF32) launches "
+                  f"{S32.ffn_launch_bytes(c, _inner_dims(cfg)[0], training)} B, attention "
+                  f"step {S32.launch_bytes(c, training)} B: fused steps {routes}")
             if not all(routes):
                 raise AssertionError(f"fp32 gates: {tag} should take the fused steps")
 
@@ -3143,12 +3159,14 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
     """#2 and #3 on fp32 rows at one shape of ``cfg``'s blocks (with
     ``training``: their stash, and #5 and #4, against autograd through the
     plain versions in fp32 at dropout ``drop``; with ``mp`` > 1, shard 0 in
-    the partial-sum mode) against the fp32 plain versions: one counted fp32
-    launch each way and none of the bf16 kernels; two backward runs
-    bit-equal; the kernels timed beside the plain versions, the bf16 kernels
-    on the same values and the fp32 bound (#3/#4, whose core runs 3xTF32:
-    the 3xTF32 bound, the FFMA bound beside it, and each launch of the
-    chain by CUDA events)."""
+    the partial-sum mode) against the plain versions (#2/#5 in float64
+    within ``FP32_STEP_TOL``, #3/#4 in fp32 within ``FP32_TOL``): one
+    counted fp32 launch
+    each way and none of the bf16 kernels; two backward runs bit-equal; the
+    kernels timed beside the plain versions, the bf16 kernels on the same
+    values, the 3xTF32 bound (the FFN GEMMs and the attention core run
+    3xTF32) with the FFMA bound beside it, and each launch of the chain by
+    CUDA events (an FFN step raises if an FFMA GEMM runs in it)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
@@ -3179,14 +3197,20 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         wk = [t for t in w if t is not None]
         pad = [None] * (len(w) - len(wk))   # the partial-sum FFN's absent bias
         attn = name == "attention_step"
+        tol, rel_bound = (FP32_TOL, FP32_GRAD_REL_L2) if attn else (FP32_STEP_TOL,
+                                                                     FP32_STEP_TOL)
+        ref_dt = torch.float32 if attn else torch.float64   # the oracle's dtype
 
-        def bounds(flop, nbytes, _attn=attn, _exps=exps):
-            """{bound (3xTF32 for the attention step), its FFMA bound}"""
-            out = {"bound": _bound(flop, nbytes, _exps, PEAK_FP32)}
+        def bounds(flop, nbytes, _exps=exps):
+            """{3xTF32 bound, the FFMA bound}"""
+            return {"bound": _bound(flop, nbytes, _exps, PEAK_TF32, TF32_PASSES),
+                    "ffma_bound": _bound(flop, nbytes, _exps, PEAK_FP32)}
+
+        def launches(fn, backward, _attn=attn, _label=label):
+            """each launch of the chain ``fn`` runs, by CUDA events"""
             if _attn:
-                out = {"bound": _bound(flop, nbytes, _exps, PEAK_TF32, TF32_PASSES),
-                       "ffma_bound": out["bound"]}
-            return out
+                return _fp32_attn_launches(_label, fn, backward)
+            return _fp32_core_kernels(_label, fn, backward, tag="fp32-kernels")
 
         def call(fn, _pad=pad, _args=args):
             return lambda x_, g_, *p: fn(x_, g_, *p, *_pad, *_args)
@@ -3198,7 +3222,8 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
                 torch.cuda.synchronize()
                 _check_launches(f"{label} launches", {n: fn.launches for n, fn in
                                                       counters.items()}, {key: 1}, quiet=True)
-                err = _compare(label, got, call(pfn)(x, gamma, *wk), FP32_TOL,
+                err = _compare(label, got, call(pfn)(x.to(ref_dt), gamma.to(ref_dt),
+                                                     *[t.to(ref_dt) for t in wk]), tol,
                                null=x if residual else None)
             del got
             r = results.setdefault(key, dict(err=0.0))
@@ -3208,9 +3233,7 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
                 plain_ms=_time_ms(lambda: call(pfn)(x, gamma, *wk), iters=3),
                 bf16_ms=_time_ms(lambda: call(kfn)(x16, gamma, *wk)),
                 **bounds(fflop, fbytes))
-            if attn:
-                r[f"{tag} {path}"]["kernels"] = _fp32_attn_launches(
-                    label, lambda: call(kfn)(x, gamma, *wk), False)
+            r[f"{tag} {path}"]["kernels"] = launches(lambda: call(kfn)(x, gamma, *wk), False)
             continue
         params = [gamma, *wk]
         out, got = _autograd(call(kfn), x, params, g)
@@ -3224,11 +3247,12 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         if not same:
             raise AssertionError(f"{label}: two backward runs differ")
         del again
-        ref_out, ref = _autograd(call(pfn), x, params, g)
-        ferr = _compare(f"{label} forward (training)", out, ref_out, FP32_TOL,
+        ref_out, ref = _autograd(call(pfn), x.to(ref_dt), [t.to(ref_dt) for t in params],
+                                 g.to(ref_dt))
+        ferr = _compare(f"{label} forward (training)", out, ref_out, tol,
                         null=x if residual else None)
         gerr, grel = _check_grads(f"{label} backward", got, ref, g if residual else None,
-                                  FP32_TOL, FP32_GRAD_REL_L2)
+                                  tol, rel_bound)
         del out, got, ref_out, ref
         kf, kb = _timed_grad(call(kfn), x, params, g)
         pf, pb = _timed_grad(call(pfn), x, params, g, iters=1)
@@ -3242,12 +3266,17 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
             rows=rows, seq=seq, c=c, drop=drop, mp=mp, fwd_ms=kf, ms=kb, plain_fwd_ms=pf,
             plain_ms=pb, bf16_fwd_ms=bf, bf16_ms=bb, **bounds(bflop, bbytes),
             **{f"fwd_{k}": v for k, v in fb_.items()})
-        if attn:   # each launch of the chain, forward (with its stash) and backward
+        # each launch of the chain, forward (with its stash) and backward
+        if attn:
             _, stash = S32.attention_forward(x, gamma, *wk, *args, stash=True)
-            rb[f"{tag} {path}"]["fwd_kernels"] = _fp32_attn_launches(
-                label, lambda: S32.attention_forward(x, gamma, *wk, *args, stash=True), False)
-            rb[f"{tag} {path}"]["kernels"] = _fp32_attn_launches(
-                label, lambda: S32.attention_backward(g, x, gamma, *wk, stash, *args), True)
+            fwd = lambda: S32.attention_forward(x, gamma, *wk, *args, stash=True)
+            bwd = lambda: S32.attention_backward(g, x, gamma, *wk, stash, *args)
+        else:
+            fwd = lambda: S32.ffn_forward(x, gamma, *wk, *pad, *args)
+            bwd = lambda: S32.ffn_backward(g, x, gamma, *w[:3], *args)
+        rb[f"{tag} {path}"]["fwd_kernels"] = launches(fwd, False)
+        rb[f"{tag} {path}"]["kernels"] = launches(bwd, True)
+        if attn:
             del stash
         torch.cuda.empty_cache()
     del x, x16, g, ffn, attn
@@ -3670,31 +3699,40 @@ def _fp32_attn_launches(label, fn, backward, reps=2, prims=None) -> dict:
     return out
 
 
-def _fp32_core_kernels(label, fn, backward, reps=2) -> dict:
-    """The launches of one #8 (or with ``backward`` one #9) fp32 call ``fn``,
-    caught on the prims: the 3xTF32 kernels of ``csrc/ffn_core_fp32.cu``
-    (``core_nn`` by epilogue, ``core_tn``, ``core_colsum``) and those of
-    ``csrc/step_fp32.cu``; per kernel ``[launches, device ms]`` a call, the
-    device time from CUDA events around each launch (mean of ``reps``
-    calls; a ``torch.profiler`` trace loses its kernels late in this
-    process).  Raises when an FFMA GEMM (``gemm_nn``, ``gemm_tn``) ran or a
-    3xTF32 GEMM did not."""
+def _fp32_core_kernels(label, fn, backward, reps=2, S=None, U=None, check=True,
+                       tag="fp32-unfused") -> dict:
+    """The launches of one fp32 FFN call ``fn`` (#8 or #2, or with
+    ``backward`` #9 or #5), caught on the prims: the 3xTF32 kernels of
+    ``csrc/ffn_core_fp32.cu`` (``core_nn`` by epilogue, ``core_tn``,
+    ``core_colsum``) and those of ``csrc/step_fp32.cu`` (the norms, the
+    outer mask, the reductions, and the FFMA GEMMs); per kernel
+    ``[launches, device ms]`` a call, the device time from CUDA events
+    around each launch (mean of ``reps`` calls; a ``torch.profiler`` trace
+    loses its kernels late in this process).  ``S`` / ``U`` are the
+    ``step_fp32`` / ``unfused_fp32`` modules whose prims are caught (this
+    tree's by default; a benchmark passes another checkout's, with ``U``
+    None where it has no ``CorePrims``).  With ``check``, raises when an
+    FFMA GEMM (``gemm_nn``, ``gemm_tn``) ran or a 3xTF32 GEMM did not."""
     import torch
-    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
-    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U32
-    epi = {S.EPI_STORE: "store", S.EPI_SWIGLU: "swiglu", S.EPI_SWIGLU_BWD: "swiglu_bwd"}
+    if S is None:
+        from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+        from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    epi = {S.EPI_STORE: "store", S.EPI_SWIGLU: "swiglu", S.EPI_SWIGLU_BWD: "swiglu_bwd",
+           S.EPI_OUT: "out"}
+    core = {"gemm_nn": "core_nn", "gemm_tn": "core_tn", "colsum": "core_colsum"}
     events = []
     saved = []
-    for cls, names, lib in ((S.CudaPrims, ("gemm_nn", "gemm_tn", "colsum", "reduce"),
-                             "step_fp32"),
-                            (U32.CorePrims, ("gemm_nn", "gemm_tn", "colsum"), "ffn_core_fp32")):
+    for cls, names, lib in ((S.CudaPrims, ("gemm_nn", "gemm_tn", "colsum", "reduce", "norm_fwd",
+                                           "norm_bwd", "mask_rows"), "step_fp32"),
+                            (getattr(U, "CorePrims", None), tuple(core), "ffn_core_fp32")):
         for name in names:
-            real = getattr(cls, name)
-            kernel = {"gemm_nn": "core_nn", "gemm_tn": "core_tn",
-                      "colsum": "core_colsum"}[name] if lib == "ffn_core_fp32" else name
+            real = getattr(cls, name, None)
+            if real is None:
+                continue
+            kernel = core[name] if lib == "ffn_core_fp32" else name
 
             def timed(self, *a, _real=real, _key=f"{lib} {kernel}", **kw):
-                key = _key + (f" {epi[a[0]]}" if _key.endswith("core_nn") else "")
+                key = _key + (f" {epi[a[0]]}" if _key.endswith(("core_nn", "gemm_nn")) else "")
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
                 out = _real(self, *a, **kw)
@@ -3715,13 +3753,13 @@ def _fp32_core_kernels(label, fn, backward, reps=2) -> dict:
         n, ms = out.get(key, (0, 0.0))
         out[key] = (n + 1, ms + start.elapsed_time(end))
     out = {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
-    print(f"[fp32-unfused] {label} {'backward' if backward else 'forward'}: per kernel "
+    print(f"[{tag}] {label} {'backward' if backward else 'forward'}: per kernel "
           f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
                                                         for k, (n, ms) in out.items()))
-    ffma = [k for k in out if k in ("step_fp32 gemm_nn", "step_fp32 gemm_tn")]
+    ffma = [k for k in out if k.startswith(("step_fp32 gemm_nn", "step_fp32 gemm_tn"))]
     need = ("core_nn", "core_tn") if backward else ("core_nn",)
     missing = [n for n in need if not any(k.startswith(f"ffn_core_fp32 {n}") for k in out)]
-    if ffma or missing:
+    if check and (ffma or missing):
         raise AssertionError(f"{label}: FFMA GEMMs {ffma} ran, 3xTF32 GEMMs {missing} did not")
     return out
 
@@ -4715,7 +4753,7 @@ def main():
     print(f"[timing] the speech and BS-training phases took {t_speech:.1f} s")
     def fp32_bound(r, pre=""):
         """The fp32 row's bound as printed: 3xTF32's with the FFMA bound
-        beside it (the attention core's rows), else the FFMA bound."""
+        beside it, else the FFMA bound."""
         b = r[f"{pre}bound"]
         if f"{pre}ffma_bound" not in r:
             return f"fp32 bound {b[0]:.3f} ms, {b[1]}"
@@ -4822,10 +4860,12 @@ def main():
         "attention_step_backward_partial": ("csrc/attention_block.cu",
                                             "ops/pallas/attention_block.py:621", None, None),
         # fp32 rows of #2-#5: speech serving's and use_amp false training's
-        "ffn_step_fp32": ("csrc/step_fp32.cu", "ops/pallas/swiglu_block.py:279", None, None),
+        # (#2/#5: the 3xTF32 GEMMs, with step_fp32.cu's norms, mask, sums)
+        "ffn_step_fp32": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_block.py:279", None,
+                          None),
         "attention_step_fp32": ("csrc/step_fp32.cu", "ops/pallas/attention_block.py:393",
                                 None, None),
-        "ffn_step_fp32_backward": ("csrc/step_fp32.cu", "ops/pallas/swiglu_block.py:456",
+        "ffn_step_fp32_backward": ("csrc/ffn_core_fp32.cu", "ops/pallas/swiglu_block.py:456",
                                    None, None),
         "attention_step_fp32_backward": ("csrc/step_fp32.cu",
                                          "ops/pallas/attention_block.py:626", None, None),
@@ -4950,7 +4990,8 @@ def main():
             entry["launches_bs_training"] = bs_train[0][0][k]
         if "_fp32" in k:
             entry["bf16_ms"] = f["bf16_ms"]   # the bf16 kernel on the same values
-        if k.startswith(("swiglu_ffn_fp32", "flash_attention_fp32", "attention_step_fp32")):
+        if k.startswith(("swiglu_ffn_fp32", "flash_attention_fp32", "attention_step_fp32",
+                         "ffn_step_fp32")):
             # bound_ms is 3xTF32's (the design's products); the FFMA bound
             # beside it, and the device ms of each kernel a call launches
             entry["ffma_bound_ms"] = f["ffma_bound"][0]
@@ -4958,6 +4999,9 @@ def main():
         if k.startswith("attention_step_fp32"):
             # the chain's attention core (csrc/attn_fp32.cu) among its launches
             entry["core_source"] = "mss_tf_locoformer_tpu_torch/csrc/attn_fp32.cu"
+        if k.startswith("ffn_step_fp32"):
+            # the norms, the outer mask and the reductions around the GEMMs
+            entry["chain_source"] = "mss_tf_locoformer_tpu_torch/csrc/step_fp32.cu"
         if k.startswith(("ffn_step_fp32", "attention_step_fp32")):
             entry["launches_speech_evaluation"] = speech_eval[1].get(k, 0)
             entry["launches_use_amp_false_speech_step"] = \

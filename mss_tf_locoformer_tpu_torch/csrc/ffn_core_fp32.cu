@@ -1,16 +1,18 @@
-// fp32 rows of the unfused route's FFN core: the GEMMs of #8 (forward) and
-// #9 (backward) on the tensor cores in 3xTF32 (tf32x3.cuh).
+// fp32 rows of the FFN GEMMs on the tensor cores in 3xTF32 (tf32x3.cuh):
+// those of the unfused route's FFN core, #8 (forward) and #9 (backward), and
+// those of the fused FFN step, #2 (forward) and #5 (backward).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_ffn.py:221 _forward (pallas_call :244, body _kernel :153),
 //   ops/pallas/swiglu_ffn.py:363 _backward_pallas (pallas_call :398, body
-//   _bwd_kernel :286)
-// at their fp32 itemsize.  ops/cuda/unfused_fp32.py chains them per row
-// group as before (the conv with the SwiGLU epilogue and the deconv; in the
-// backward the conv again, dh, dx, the two weight products and the bias
-// gradients' column sums), with step_fp32.cu's fixed-order reductions after
-// the groups; the FFMA GEMMs of step_fp32.cu (gemm_nn, gemm_tn) no longer run
-// here.
+//   _bwd_kernel :286),
+//   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward
+// at their fp32 itemsize.  ops/cuda/unfused_fp32.py (#8, #9) and
+// ops/cuda/step_fp32.py (#2, #5) chain them per row group (the conv with the
+// SwiGLU epilogue and the deconv; in the backward the conv again, dh, dx,
+// the two weight products and the bias gradients' column sums), with
+// step_fp32.cu's norms, outer mask and fixed-order reductions around them;
+// the FFMA GEMMs of step_fp32.cu (gemm_nn, gemm_tn) run in no FFN.
 //
 // Design: every product is fp32 to within FFMA's error but runs on the tensor
 // cores: each operand splits into TF32 hi and lo halves (rounded to nearest)
@@ -34,14 +36,17 @@
 //              shared memory (no transpose) and A from shared memory or from
 //              registers: A is read into registers as the fragments (one
 //              read and one split per element, no hi/lo tiles), B's hi and lo
-//              tiles by descriptor.  128 x BN tiles (BN 128, or 64 where N is
-//              narrow), two consumer warpgroups of 64 rows, a 4-stage
-//              cp.async ring (three stages in flight), 128-byte swizzled rows.
+//              tiles by descriptor.  128 x BN tiles (BN 128; 96 at N 96, the
+//              base config's width; 64 where N is narrow), two consumer
+//              warpgroups of 64 rows, a 4-stage cp.async ring (three stages
+//              in flight), 128-byte swizzled rows.
 //              Epilogues: store (+ bias); SwiGLU with the inner dropout site
 //              at (row, conv position, inner channel), the pre-activation kept
-//              for the backward; the SwiGLU backward (dh -> dy).  Value and
-//              gate columns stay interleaved (2i, 2i + 1), so a pair is one
-//              thread's.
+//              for the backward; the SwiGLU backward (dh -> dy); the FFN
+//              step's output, res + drop_outer(acc + bias) with the outer site
+//              at (row, position, channel), or with no residual the partial
+//              sum alone.  Value and gate columns stay interleaved (2i,
+//              2i + 1), so a pair is one thread's.
 //   core_tn    weight gradients, part[s] = A^T B over the positions of
 //              split s: both operands are position-major (the positions are
 //              the sum), so neither is K-major, and the products run on
@@ -84,13 +89,14 @@ constexpr int TN_STAGE = 2 * BK * TN_LD * 4;
 
 // core_nn's shared memory at tile width BN: per stage the A tile (128 rows)
 // and the B hi and lo tiles (BN rows) of 128-byte rows, four stages, and
-// 1 KB to align the ring to the swizzle's atoms.
+// 1 KB to align the ring to the swizzle's atoms (at BN 64, 96 and 128 every
+// tile starts on a 1 KB boundary).
 constexpr int NN_STAGES = 4;
 __host__ __device__ constexpr int nn_stage(int bn) { return BM * ROWB + 2 * bn * ROWB; }
 __host__ __device__ constexpr int nn_smem(int bn) { return NN_STAGES * nn_stage(bn) + 1024; }
 constexpr int TN_SMEM = STAGES * TN_STAGE;
 
-enum { EPI_STORE = 0, EPI_SWIGLU = 1, EPI_SWIGLU_BWD = 2 };
+enum { EPI_STORE = 0, EPI_SWIGLU = 1, EPI_SWIGLU_BWD = 2, EPI_OUT = 3 };
 
 // A matrix whose row m = (r, p), r = m / P, is the window of the per-row
 // buffer p_ + r * rs starting at offset p * ps + shift; an element whose
@@ -107,6 +113,7 @@ struct Epi {
   long long ldo;
   const float* bias;  // [N] or null
   float* y;           // SwiGLU: the pre-activation out (null: not kept); its backward: y in
+  const float* res;   // EPI_OUT: the residual [M, N] (null: the partial sum alone)
   long long P;        // positions per row, for the mask coordinates
   uint32_t site;
   DropParams dp;
@@ -116,6 +123,64 @@ __device__ __forceinline__ float sigmoidf_(float g) { return 1.f / (1.f + expf(-
 
 // Byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile.
 __device__ __forceinline__ uint32_t sw(int r, int c) { return r * ROWB + ((c ^ (r & 7)) << 4); }
+
+// Dropout words of core_nn's epilogues.  A quad of lanes (c = lane % 4)
+// holds columns 8j + 2c, 8j + 2c + 1 of each 8-column slab j at two rows
+// (h = 0, 1: the row's (absolute row, position) in row[h], pos[h]); a
+// Philox group covers 4 consecutive mask channels, so a quad needs four
+// groups for a slab pair (SwiGLU: one channel a lane) or for one slab (the
+// other epilogues: a channel pair a lane).  Each lane draws one of them and
+// the quad exchanges words, so no group is drawn twice.  Every lane of the
+// warp must call (the shuffles).
+__device__ __forceinline__ uint32_t sel4(const Philox4& d, int i) {
+  return (i & 2) ? ((i & 1) ? d.w[3] : d.w[2]) : ((i & 1) ? d.w[1] : d.w[0]);
+}
+
+// SwiGLU: lane c's channel in slab j0 + s is 4 (b0 + s) + c.  Lane c draws
+// group b0 + (c >> 1) at row c & 1; w[s][h] = word c of group b0 + s at
+// row h (in round t lane c reads lane c ^ t's draw, which sends the word
+// its reader needs).
+__device__ __forceinline__ void quad_channel_words(uint32_t seed, uint32_t site,
+                                                   const uint32_t (&row)[2],
+                                                   const uint32_t (&pos)[2], uint32_t b0, int c,
+                                                   uint32_t (&w)[2][2]) {
+  const Philox4 d = dropout_words(seed, site, (c & 1) ? row[1] : row[0],
+                                  (c & 1) ? pos[1] : pos[0], b0 + (c >> 1), 0u);
+  uint32_t got[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint32_t mine = sel4(d, c ^ t);
+    got[t] = t ? __shfl_xor_sync(0xffffffffu, mine, t) : mine;
+  }
+  // the draw of (slab s, row h) came from lane 2s + h, in round (2s + h) ^ c
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = (2 * s + h) ^ c;
+      w[s][h] = (t & 2) ? ((t & 1) ? got[3] : got[2]) : ((t & 1) ? got[1] : got[0]);
+    }
+}
+
+// Channel pairs: lane c's pair 8j + 2c, + 1 lies in group b0 + (c >> 1),
+// words 2 (c & 1) and 2 (c & 1) + 1.  Lane c draws that group at row c & 1
+// and swaps the other row's two words with lane c ^ 1; w[h] = this lane's
+// two words at row h.
+__device__ __forceinline__ void quad_pair_words(uint32_t seed, uint32_t site,
+                                                const uint32_t (&row)[2],
+                                                const uint32_t (&pos)[2], uint32_t b0, int c,
+                                                uint32_t (&w)[2][2]) {
+  const bool odd = c & 1;
+  const Philox4 d = dropout_words(seed, site, odd ? row[1] : row[0], odd ? pos[1] : pos[0],
+                                  b0 + (c >> 1), 0u);
+  const uint32_t own0 = odd ? d.w[2] : d.w[0], own1 = odd ? d.w[3] : d.w[1];
+  const uint32_t oth0 = __shfl_xor_sync(0xffffffffu, odd ? d.w[0] : d.w[2], 1);
+  const uint32_t oth1 = __shfl_xor_sync(0xffffffffu, odd ? d.w[1] : d.w[3], 1);
+  w[0][0] = odd ? oth0 : own0;
+  w[0][1] = odd ? oth1 : own1;
+  w[1][0] = odd ? own0 : oth0;
+  w[1][1] = odd ? own1 : oth1;
+}
 
 // out[m, n] = epilogue(sum_k A(m, k) B[n, k]) for m < M, n < N; K and N
 // multiples of 4.  Block b: N tile b % ntn (the fastest, so the blocks of one
@@ -215,38 +280,61 @@ __global__ void __launch_bounds__(NT, 1)
   }
   // sum[4j + 2h + e] = D[16 warp + g + 8h][8j + 2c + e] of this warpgroup's rows
   const int g = lane >> 2, c = lane & 3;
+  long long mr[2];
+  uint32_t row[2], pos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const long long m = m0 + wg * 64 + warp * 16 + g + 8 * h;
-    if (m >= M) continue;
-    const long long r = m / e.P, p = m - r * e.P;
-    const uint32_t row = e.dp.row0 + (uint32_t)r;
+    mr[h] = m0 + wg * 64 + warp * 16 + g + 8 * h;
+    const long long r = mr[h] / e.P;
+    row[h] = e.dp.row0 + (uint32_t)r;
+    pos[h] = (uint32_t)(mr[h] - r * e.P);
+  }
+  // a mask is drawn by every lane or by none (the quads exchange words)
+  const bool drop = EPI != EPI_STORE && e.dp.on && (EPI != EPI_OUT || e.res);
+  uint32_t wch[2][2] = {}, wpr[2][2] = {};   // quad_channel_words' and quad_pair_words'
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * c;
-      if (n >= N) continue;
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * c;
+    if (drop && EPI == EPI_SWIGLU && j % 2 == 0)
+      quad_channel_words(e.dp.seed, e.site, row, pos, (uint32_t)((n0 >> 3) + j), c, wch);
+    if (drop && EPI != EPI_SWIGLU)
+      quad_pair_words(e.dp.seed, e.site, row, pos, (uint32_t)((n0 + 8 * j) >> 2), c, wpr);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = mr[h];
+      if (m >= M || n >= N) continue;
       const float a0 = sum[4 * j + 2 * h], a1 = sum[4 * j + 2 * h + 1];
       if (EPI == EPI_STORE) {
         const float b0 = e.bias ? e.bias[n] : 0.f, b1 = e.bias ? e.bias[n + 1] : 0.f;
         *reinterpret_cast<float2*>(e.out + m * e.ldo + n) = make_float2(a0 + b0, a1 + b1);
+      } else if (EPI == EPI_OUT) {
+        // out = res + drop_outer(acc + bias) at (row, position, channel)
+        float v0 = a0, v1 = a1;
+        if (e.res) {
+          if (e.bias) v0 += e.bias[n], v1 += e.bias[n + 1];
+          if (drop) {
+            v0 = wpr[h][0] < e.dp.thr ? v0 * e.dp.scale : 0.f;
+            v1 = wpr[h][1] < e.dp.thr ? v1 * e.dp.scale : 0.f;
+          }
+          const float2 rv = *reinterpret_cast<const float2*>(e.res + m * N + n);
+          v0 += rv.x;
+          v1 += rv.y;
+        }
+        *reinterpret_cast<float2*>(e.out + m * e.ldo + n) = make_float2(v0, v1);
       } else if (EPI == EPI_SWIGLU) {
         // columns interleave (value, gate): n = 2i, n + 1 of inner channel i
         const float v = a0 + e.bias[n], gt = a1 + e.bias[n + 1];
         if (e.y) *reinterpret_cast<float2*>(e.y + m * N + n) = make_float2(v, gt);
         float hv = v * (gt * sigmoidf_(gt));
-        if (e.dp.on)
-          hv = dropout_keep(e.dp.seed, e.site, row, (uint32_t)p, (uint32_t)(n >> 1), 0u,
-                            e.dp.thr) ? hv * e.dp.scale : 0.f;
+        if (drop) hv = wch[j % 2][h] < e.dp.thr ? hv * e.dp.scale : 0.f;
         e.out[m * e.ldo + (n >> 1)] = hv;
-      } else {   // EPI_SWIGLU_BWD: column i of dh -> dy's pair (2i, 2i + 1)
+      } else {   // EPI_SWIGLU_BWD: columns i = n, n + 1 of dh -> dy's pairs (2i, 2i + 1)
         const float dhs[2] = {a0, a1};
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int i = n + q;
           float dh = dhs[q];
-          if (e.dp.on)
-            dh = dropout_keep(e.dp.seed, e.site, row, (uint32_t)p, (uint32_t)i, 0u, e.dp.thr)
-                     ? dh * e.dp.scale : 0.f;
+          if (drop) dh = wpr[h][q] < e.dp.thr ? dh * e.dp.scale : 0.f;
           const float2 vg = *reinterpret_cast<const float2*>(e.y + m * 2 * N + 2 * i);
           const float sg = sigmoidf_(vg.y);
           *reinterpret_cast<float2*>(e.out + m * e.ldo + 2 * i) =
@@ -417,10 +505,12 @@ inline Win win(const void* p, long long rs, long long P, long long ps, long long
   return w;
 }
 
-// The tile width of core_nn at N: 64 where it pads fewer columns than 128
-// (N = 48, 192), else 128.  A function of N alone, so a row's outputs do not
-// depend on the row group it runs in.
+// The tile width of core_nn at N: 96 at N 96 (no padded column), 64 where
+// it pads fewer columns than 128 (N = 32, 48, 192), else 128.  A function of
+// N alone, so a row's outputs do not depend on the row group it runs in (nor
+// on the tile: each output's sum runs over K in the same stages).
 inline int nn_tile(int N) {
+  if (N == 96) return 96;
   const int p128 = (N + 127) / 128 * 128, p64 = (N + 63) / 64 * 64;
   return p64 < p128 ? 64 : 128;
 }
@@ -442,8 +532,11 @@ int launch_nn(const Win& a, long long M, int K, const float* bhi, const float* b
 template <int EPI>
 int launch_nn_bn(const Win& a, long long M, int K, const float* bhi, const float* blo, int N,
                  const Epi& e, cudaStream_t st) {
-  return nn_tile(N) == 64 ? launch_nn<EPI, 64>(a, M, K, bhi, blo, N, e, st)
-                          : launch_nn<EPI, 128>(a, M, K, bhi, blo, N, e, st);
+  switch (nn_tile(N)) {
+    case 64: return launch_nn<EPI, 64>(a, M, K, bhi, blo, N, e, st);
+    case 96: return launch_nn<EPI, 96>(a, M, K, bhi, blo, N, e, st);
+  }
+  return launch_nn<EPI, 128>(a, M, K, bhi, blo, N, e, st);
 }
 
 }  // namespace
@@ -452,12 +545,13 @@ int launch_nn_bn(const Win& a, long long M, int K, const float* bhi, const float
 using namespace fc32;
 
 // Shared memory of each launch (bytes): 0 core_nn at tile width 128, 1 at
-// 64, 2 core_tn.
+// 64, 2 core_tn, 3 core_nn at 96.
 extern "C" long long core_fp32_smem_bytes(int which) {
   switch (which) {
     case 0: return nn_smem(128);
     case 1: return nn_smem(64);
     case 2: return TN_SMEM;
+    case 3: return nn_smem(96);
   }
   return -1;
 }
@@ -468,7 +562,7 @@ extern "C" long long core_fp32_smem_bytes(int which) {
 
 extern "C" int core_fp32_nn(int epi, WIN_ARGS(a), long long M, int K, const void* bhi,
                             const void* blo, int N, void* out, long long ldo, const void* bias,
-                            void* y, long long P, unsigned site, unsigned seed, unsigned thr,
+                            void* y, const void* res, long long P, unsigned site, unsigned seed, unsigned thr,
                             unsigned row0, float scale, int on, void* stream) {
   if (K % 4 || N % 4 || K < 4 || N < 4 || M < 1 || P < 1) return (int)cudaErrorInvalidValue;
   Epi e;
@@ -476,6 +570,7 @@ extern "C" int core_fp32_nn(int epi, WIN_ARGS(a), long long M, int K, const void
   e.ldo = ldo;
   e.bias = (const float*)bias;
   e.y = (float*)y;
+  e.res = (const float*)res;
   e.P = P;
   e.site = site;
   e.dp.seed = seed;
@@ -490,6 +585,7 @@ extern "C" int core_fp32_nn(int epi, WIN_ARGS(a), long long M, int K, const void
     case EPI_STORE: return launch_nn_bn<EPI_STORE>(a, M, K, hi, lo, N, e, st);
     case EPI_SWIGLU: return launch_nn_bn<EPI_SWIGLU>(a, M, K, hi, lo, N, e, st);
     case EPI_SWIGLU_BWD: return launch_nn_bn<EPI_SWIGLU_BWD>(a, M, K, hi, lo, N, e, st);
+    case EPI_OUT: return launch_nn_bn<EPI_OUT>(a, M, K, hi, lo, N, e, st);
   }
   return (int)cudaErrorInvalidValue;
 }

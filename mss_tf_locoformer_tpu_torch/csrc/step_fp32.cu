@@ -1,36 +1,32 @@
-// fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4),
-// and the RoPE split of the unfused route's flash attention (#6, #7); the
-// fixed-order reductions of the unfused route's FFN core (#8, #9), whose
-// GEMMs and column sums run in ffn_core_fp32.cu.  The attention core of #3,
-// #4, #6 and #7 runs in attn_fp32.cu (3xTF32 on the tensor cores).
+// fp32 rows of the fused attention step (#3, #4) and the fused FFN step's
+// norms, outer mask and reductions (#2, #5); the RoPE split of the unfused
+// route's flash attention (#6, #7); the fixed-order reductions of the
+// unfused route's FFN core (#8, #9).  The FFN GEMMs (#2, #5, #8, #9) run in
+// ffn_core_fp32.cu, the attention core of #3, #4, #6 and #7 in attn_fp32.cu
+// (both 3xTF32 on the tensor cores).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
 //   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas
-// at their fp32 itemsize (the attention steps' core in attn_fp32.cu):
-// fp32 operands and fp32 sums, no rounding to a narrower type anywhere.  The
-// bf16 kernels (swiglu_block.cu, attention_block.cu, flash_attention.cu)
-// stay as they are; ops/cuda/step_fp32.py chains the kernels below and
-// attn_fp32.cu's into the four steps, ops/cuda/unfused_fp32.py qkv_split
-// and attn_fp32.cu's into the flash forward and backward, and lends reduce
-// to the FFN core's chain.
+// at their fp32 itemsize (with ffn_core_fp32.cu's GEMMs and attn_fp32.cu's
+// core): fp32 operands and fp32 sums, no rounding to a narrower type
+// anywhere.  The bf16 kernels (swiglu_block.cu, attention_block.cu,
+// flash_attention.cu) stay as they are; ops/cuda/step_fp32.py chains the
+// kernels below with the other two files' into the four steps,
+// ops/cuda/unfused_fp32.py qkv_split and attn_fp32.cu's into the flash
+// forward and backward, and lends reduce to the FFN GEMMs' chains.
 //
-// Design: fp32 FFMA, no tensor cores (one TF32 pass would round every
-// operand to 11 bits; the 3xTF32 kernels of ffn_core_fp32.cu and
-// attn_fp32.cu keep fp32's accuracy on the tensor cores, and could take
-// these GEMMs too).  Each step is a short chain of launches through device
-// memory rather than one fused kernel:
-//   gemm_nn    out = epilogue(A @ B): A's rows are windows of a per-row
-//              buffer (Win: the conv's k taps of C channels are k*C
-//              consecutive floats of the row, zero outside the row), B a
-//              dense weight panel; 128 x 64 tiles, 8-deep stages double-
-//              buffered (the next stage loaded into registers while the
-//              current one is multiplied), 8 x 4 outputs a thread.  Epilogues: store (+ bias); SwiGLU with the inner
-//              dropout site (the conv); its backward (dh -> dy); the step's
-//              output (bias, outer dropout site, residual).
+// Design: fp32 FFMA, no tensor cores, a short chain of launches through
+// device memory rather than one fused kernel:
+//   gemm_nn    out = epilogue(A @ B), the attention step's QKV product, its
+//              out-projection and their transposes: A's rows are windows of
+//              a per-row buffer (Win), B a dense weight panel; 128 x 64
+//              tiles, 8-deep stages double-buffered (the next stage loaded
+//              into registers while the current one is multiplied), 8 x 4
+//              outputs a thread.  Epilogues: store (+ bias); the step's
+//              output (bias, projection dropout site, residual).
 //   gemm_tn    weight gradients: A^T B summed over positions, one fp32
 //              partial per position split (no atomics), summed by reduce.
-//   colsum     bias gradients: column sums per position split.
 //   reduce     partials summed in a fixed order (the same bits every run).
 //   norm_fwd / norm_bwd   RMSGroupNorm per (position, group); the backward
 //              writes dx and per-block dgamma partials.
@@ -38,15 +34,15 @@
 //   qkv_split  q, k (RoPE) and v into [R, H, Lp, DP] (head dims zero-padded
 //              to DP: 32 for the steps; 16, 32 or 64 for flash attention),
 //              the layout attn_fp32.cu's kernels read.
-// Bound: FLOP at the fp32 rate (67 TFLOP/s) for every shipped shape.  What
-// the design gives up: the intermediates (the SwiGLU output, the projected
-// rows) pass through device memory, and no kernel overlaps loads with
-// products.
+// Bound: FLOP at the fp32 rate (67 TFLOP/s); the norms and masks move bytes.
+// What the design gives up: the intermediates (the projected rows) pass
+// through device memory, and no kernel overlaps loads with products (the
+// 3xTF32 kernels of ffn_core_fp32.cu could take these GEMMs too).
 //
 // Dropout masks come from philox.cuh at the bf16 kernels' coordinates
-// (ops/dropout.py): the inner site at (row, conv position, inner channel),
-// the outer and projection sites at (row, position, channel); the
-// probability site, at (row, head, key, query), is attn_fp32.cu's.
+// (ops/dropout.py): the outer and projection sites at (row, position,
+// channel); the inner site is ffn_core_fp32.cu's, the probability site
+// attn_fp32.cu's.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,7 +58,9 @@ constexpr int GEMM_SMEM = 2 * BK * (LDA + LDB) * 4;
 constexpr int KT = 64;                   // qkv_split's Lp: a multiple of 64 rows
 constexpr int NP = 64;                   // positions per norm_bwd block
 
-enum { EPI_STORE = 0, EPI_SWIGLU = 1, EPI_SWIGLU_BWD = 2, EPI_OUT = 3 };
+// The epilogues' numbers are ffn_core_fp32.cu's (1 and 2, SwiGLU and its
+// backward, run there only).
+enum { EPI_STORE = 0, EPI_OUT = 3 };
 
 // A matrix whose row m = (r, p), r = m / P, is the window of the per-row
 // buffer p_ + r * rs starting at offset p * ps + shift; an element whose
@@ -90,14 +88,11 @@ struct Epi {
   float* out;
   long long ldo;
   const float* bias;  // [N] or null
-  float* y;           // SwiGLU: the pre-activation out (null: not kept); its backward: y in
   const float* res;   // EPI_OUT: the residual [M, N] (null: partial-sum mode)
   long long P;        // positions per row, for the mask coordinates
   uint32_t site;
   DropParams dp;
 };
-
-__device__ __forceinline__ float sigmoidf_(float g) { return 1.f / (1.f + expf(-g)); }
 
 __device__ __forceinline__ void mma_tile(const float* As, const float* Bs, int ty, int tx,
                                          float (&acc)[TM][TN]) {
@@ -193,35 +188,6 @@ __global__ void __launch_bounds__(NT) gemm_nn(Win a, long long M, int K,
         if (e.res) v += e.res[m * N + nb + j];
         e.out[m * e.ldo + nb + j] = v;
       }
-    } else if (EPI == EPI_SWIGLU) {
-      // columns interleave (value, gate) pairs: n = 2c + {0, 1}, inner channel c
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        const int n = nb + j, c = n >> 1;
-        const float v = acc[i][j] + e.bias[n], g = acc[i][j + 1] + e.bias[n + 1];
-        if (e.y) {
-          e.y[m * N + n] = v;
-          e.y[m * N + n + 1] = g;
-        }
-        float h = v * (g * sigmoidf_(g));
-        if (e.dp.on)
-          h = dropout_keep(e.dp.seed, e.site, row, (uint32_t)p, (uint32_t)c, 0u, e.dp.thr)
-                  ? h * e.dp.scale : 0.f;
-        e.out[m * e.ldo + c] = h;
-      }
-    } else {  // EPI_SWIGLU_BWD: column c of dh -> dy's pair (2c, 2c + 1)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = nb + j;
-        float dh = acc[i][j];
-        if (e.dp.on)
-          dh = dropout_keep(e.dp.seed, e.site, row, (uint32_t)p, (uint32_t)c, 0u, e.dp.thr)
-                   ? dh * e.dp.scale : 0.f;
-        const float v = e.y[m * 2 * N + 2 * c], g = e.y[m * 2 * N + 2 * c + 1];
-        const float s = sigmoidf_(g);
-        e.out[m * e.ldo + 2 * c] = dh * (g * s);
-        e.out[m * e.ldo + 2 * c + 1] = dh * v * (s * (1.f + g * (1.f - s)));
-      }
     }
   }
 }
@@ -287,22 +253,6 @@ __global__ void __launch_bounds__(NT) gemm_tn(Win a, int M, Win b, int N, long l
     if (m < M)
 #pragma unroll
       for (int j = 0; j < TN; ++j) out[(long long)m * N + nb + j] = acc[i][j];
-  }
-}
-
-// part[s][c] = sum over positions q of split s of A(q, c), c < W.
-__global__ void colsum(Win a, int W, long long total, long long per, float* __restrict__ part) {
-  const long long q0 = (long long)blockIdx.x * per;
-  const long long q1 = total < q0 + per ? total : q0 + per;
-  for (int c = threadIdx.x; c < W; c += blockDim.x) {
-    float acc = 0.f;
-    for (long long q = q0; q < q1; ++q) {
-      long long off;
-      const float* row = win_row(a, q, off);
-      off += c;
-      if (off >= 0 && off < a.lim) acc += row[off];
-    }
-    part[(long long)blockIdx.x * W + c] = acc;
   }
 }
 
@@ -466,7 +416,7 @@ extern "C" long long step_fp32_smem_bytes(int which, int C) {
 #define WIN(n) win(n##_p, n##_rs, n##_P, n##_ps, n##_shift, n##_lim)
 
 extern "C" int f32_gemm_nn(int epi, WIN_ARGS(a), long long M, int K, const void* B, int N,
-                           void* out, long long ldo, const void* bias, void* y, const void* res,
+                           void* out, long long ldo, const void* bias, const void* res,
                            long long P, unsigned site, unsigned seed, unsigned thr,
                            unsigned row0, float scale, int on, void* stream) {
   if (K % 4 || N % 4 || M < 1) return (int)cudaErrorInvalidValue;
@@ -474,7 +424,6 @@ extern "C" int f32_gemm_nn(int epi, WIN_ARGS(a), long long M, int K, const void*
   e.out = (float*)out;
   e.ldo = ldo;
   e.bias = (const float*)bias;
-  e.y = (float*)y;
   e.res = (const float*)res;
   e.P = P;
   e.site = site;
@@ -484,10 +433,6 @@ extern "C" int f32_gemm_nn(int epi, WIN_ARGS(a), long long M, int K, const void*
   const Win a = WIN(a);
   switch (epi) {
     case EPI_STORE: gemm_nn<EPI_STORE><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e); break;
-    case EPI_SWIGLU: gemm_nn<EPI_SWIGLU><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e); break;
-    case EPI_SWIGLU_BWD:
-      gemm_nn<EPI_SWIGLU_BWD><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e);
-      break;
     case EPI_OUT: gemm_nn<EPI_OUT><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e); break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -500,13 +445,6 @@ extern "C" int f32_gemm_tn(WIN_ARGS(a), int M, WIN_ARGS(b), int N, long long tot
   const long long per = (total + S - 1) / S;
   gemm_tn<<<dim3(blocks(M, BM), blocks(N, BN), S), NT, 0, (cudaStream_t)stream>>>(
       WIN(a), M, WIN(b), N, total, per, (float*)part);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int f32_colsum(WIN_ARGS(a), int W, long long total, int S, void* part, void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
-  const long long per = (total + S - 1) / S;
-  colsum<<<S, 256, 0, (cudaStream_t)stream>>>(WIN(a), W, total, per, (float*)part);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // fp32 products on the tensor cores in three TF32 passes (3xTF32).
 //
 // An fp32 operand a splits as a = hi + lo, hi = tf32(a) and lo = tf32(a - hi),
-// each rounded to nearest (cvt.rna: a TF32 instruction given raw fp32 bits
-// ignores their low 13 bits, which truncates).  hi keeps 11 significant
+// each rounded to nearest, ties away from zero (cvt.rna's rounding, done on
+// the bit pattern: a TF32 instruction given raw fp32 bits ignores their low
+// 13 bits, which truncates).  hi keeps 11 significant
 // bits, lo the next 11, so hi + lo is a to within 2^-21 of |a|.  A product
 // a b is then lo_a hi_b + hi_a lo_b + hi_a hi_b accumulated in fp32, the
 // small terms first; the lo_a lo_b term (2^-22 of |a b|) is dropped.  Over
@@ -22,11 +23,13 @@
 
 namespace tf32x3 {
 
-// a rounded to nearest TF32 (ties away from zero), as fp32 bits.
+// a rounded to nearest TF32 (ties away from zero), as fp32 bits: half the
+// weight of the 13 dropped bits added to the bit pattern, then dropped.  For
+// finite operands these are cvt.rna.tf32.f32's bits, in two integer
+// instructions where cvt.rna compiles to four or more (the kernels that split
+// their operands in registers issue more splits than products).
 __device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
 }
 
 struct Split {
@@ -109,6 +112,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 96] (+)= A[64 x 8] B[8 x 96], A from registers (lane l of warp w
+// of the warpgroup: a = {A[16w + g][c], A[16w + g + 8][c], A[16w + g][c + 4],
+// A[16w + g + 8][c + 4]}, g = l / 4, c = l % 4), B K-major in shared memory;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t (&a)[4], uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // d[64 x 64] (+)= A[64 x 8] B[8 x 64], A from registers (lane l of warp w
 // of the warpgroup: a = {A[16w + g][c], A[16w + g + 8][c], A[16w + g][c + 4],
 // A[16w + g + 8][c + 4]}, g = l / 4, c = l % 4), B K-major in shared memory;
@@ -138,6 +164,10 @@ __device__ __forceinline__ void wgmma_rs_3x(float* d, const uint32_t (&ahi)[4],
     wgmma_rs_n128(d, alo, bhi, accumulate);
     wgmma_rs_n128(d, ahi, blo, 1);
     wgmma_rs_n128(d, ahi, bhi, 1);
+  } else if constexpr (BN == 96) {
+    wgmma_rs_n96(d, alo, bhi, accumulate);
+    wgmma_rs_n96(d, ahi, blo, 1);
+    wgmma_rs_n96(d, ahi, bhi, 1);
   } else {
     wgmma_rs_n64(d, alo, bhi, accumulate);
     wgmma_rs_n64(d, ahi, blo, 1);

@@ -1,5 +1,6 @@
 """fp32 rows of the fused FFN step (#2, #5) and attention step (#3, #4):
-the kernels of ``csrc/step_fp32.cu`` chained into the four steps.
+the kernels of ``csrc/step_fp32.cu``, ``csrc/ffn_core_fp32.cu`` and
+``csrc/attn_fp32.cu`` chained into the four steps.
 
 The JAX package's Pallas step kernels take fp32 rows with fp32 products
 (their gates take an ``itemsize``: ``nn/ffn.py:42-66``,
@@ -10,26 +11,31 @@ fp32 by default.  The bf16 kernels (``swiglu_block.cu``,
 nothing casts it to bf16.  Same contracts as the bf16 kernels (the
 RMSGroupNorm prologue, both dropout sites of each step at the same Philox
 coordinates, ``row0``, the partial-sum mode ``residual=False``), with fp32
-operands and fp32 sums throughout: the norms and GEMMs in fp32 FFMA, no
-tensor cores (one TF32 pass rounds operands to 11 significant bits); the
-attention core on the tensor cores in three TF32 passes
-(``csrc/attn_fp32.cu``, as accurate as FFMA), as are the unfused FFN
-core's GEMMs (``unfused_fp32.CorePrims``).
+operands and fp32 sums throughout.  The FFN step's GEMMs run on the
+tensor cores in three TF32 passes (``csrc/ffn_core_fp32.cu``, as accurate
+as FFMA: one TF32 pass would round operands to 11 significant bits), the
+unfused FFN core's kernels (``unfused_fp32.CorePrims``), as does the
+attention core (``csrc/attn_fp32.cu``); the attention step's QKV and
+out-projection GEMMs and weight products, and the norms, run in fp32 FFMA
+(``csrc/step_fp32.cu``).
 
-Each step is a chain of launches through device memory (the .cu file's
-header lists the kernels):
+Each step is a chain of launches through device memory (the .cu files'
+headers list the kernels):
 
-* FFN forward, per row group: norm -> conv GEMM with the SwiGLU epilogue
-  (the inner mask) -> deconv GEMM with the output epilogue (bias, outer
-  mask, residual).  The conv reads the normed rows as windows of ``k C``
-  consecutive floats, so no padded copy is made; weight panels interleave
-  each inner channel's value and gate columns.
+* FFN forward, per row group: norm -> conv (``core_nn``) with the SwiGLU
+  epilogue (the inner mask) -> deconv (``core_nn``) with the output
+  epilogue (bias, outer mask, residual).  The conv reads the normed rows
+  as windows of ``k C`` consecutive floats that start ``k - 1`` positions
+  early (zero outside the row), so no padded copy is made; weight panels
+  interleave each inner channel's value and gate columns, K-major and
+  split into TF32 halves once (``unfused_fp32.core_panels``).
 * FFN backward, per row group: the forward's norm and conv again (keeping
-  the pre-activation), the outer mask on g, dh by the transposed deconv
-  with the SwiGLU backward in its epilogue, dxn by the transposed conv, the
-  norm's backward (dx and dgamma partials), and the weight and bias
-  gradients as per-split partials over positions; all partials summed in a
-  fixed order once every group has run.
+  the pre-activation), the outer mask on g (``mask_rows``), dh by the
+  transposed deconv with the SwiGLU backward in its epilogue, dxn by the
+  transposed conv (both ``core_nn``), the norm's backward (dx and dgamma
+  partials), and the weight gradients (``core_tn``) and bias gradients
+  (``core_colsum``) as per-split partials over positions; all partials
+  summed in a fixed order (``reduce``) once every group has run.
 * Attention forward: norm -> QKV GEMM -> q, k (RoPE), v as ``[R, H, Lp,
   32]`` -> the core (``attn_fp32.cu``: 3xTF32 scores and products, the
   softmax in the exp2 domain with a lazy max) -> out-projection GEMM with
@@ -45,7 +51,8 @@ beside the bf16 kernels' counts.  The chain runs on ``prims`` (the CUDA
 kernels by default); a test hands it the kernels' arithmetic in plain torch.
 
 :func:`supports_ffn` and :func:`supports_attention` are the fp32 gates, from
-the kernels' shared-memory layouts (:func:`launch_bytes`).
+the kernels' shared-memory layouts (:func:`ffn_launch_bytes`,
+:func:`launch_bytes`).
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ from .. import dropout as D
 from . import SMEM_OPTIN, cached_panels, check, load, ptr, stream_handle
 
 __all__ = ["Win", "attn_launch_bytes", "compiled_attn_launch_bytes", "launch_bytes",
-           "compiled_launch_bytes", "supports_ffn",
+           "compiled_launch_bytes", "ffn_launch_bytes", "compiled_ffn_launch_bytes",
+           "supports_ffn",
            "supports_attention", "ffn_rows", "ffn_forward", "ffn_backward",
            "attention_forward", "attention_backward", "ffn_panels", "SCRATCH_CAP",
            "EPI_STORE", "EPI_SWIGLU", "EPI_SWIGLU_BWD", "EPI_OUT"]
@@ -105,11 +113,11 @@ def compiled_attn_launch_bytes(dp: int) -> dict:
 
 
 def launch_bytes(c: int, training: bool = False) -> dict:
-    """Shared memory of each launch: the GEMMs' two buffers of an 8-deep
-    stage of A (128 + 4 floats a row) and B (64 + 4) (csrc/step_fp32.cu),
-    the attention core's at DP 32 (:func:`attn_launch_bytes`; the dk/dv
-    kernel's only in training), and (in training) the norm backward's 64
-    positions of C floats."""
+    """Shared memory of each launch of the attention step: the FFMA GEMMs'
+    two buffers of an 8-deep stage of A (128 + 4 floats a row) and B (64 +
+    4) (csrc/step_fp32.cu), the attention core's at DP 32
+    (:func:`attn_launch_bytes`; the dk/dv kernel's only in training), and
+    (in training) the norm backward's 64 positions of C floats."""
     attn = attn_launch_bytes(DP)
     out = {"gemm": 2 * BK * (BM + 4 + BN + 4) * 4, "attn": attn["attn"]}
     if training:
@@ -129,13 +137,45 @@ def compiled_launch_bytes(c: int, training: bool = False) -> dict:
     return out
 
 
+def _core():
+    """``unfused_fp32``, whose 3xTF32 GEMMs and split panels the FFN step
+    runs on (imported at first use: it imports this module)."""
+    from . import unfused_fp32
+    return unfused_fp32
+
+
+def _ffn_layouts(nn: dict, norm_bwd, c: int, inner: int, training: bool) -> dict:
+    U = _core()
+    tile = lambda n: nn[U.NN_KEY[U.core_tile(n)]]
+    out = {"conv": tile(2 * inner), "deconv": tile(c)}
+    if training:
+        out.update(dh=tile(inner), dx=tile(c), tn=nn["tn"], norm_bwd=norm_bwd)
+    return out
+
+
+def ffn_launch_bytes(c: int, inner: int, training: bool = False) -> dict:
+    """Shared memory of each launch of the FFN step: ``core_nn`` at the tile
+    width (``unfused_fp32.core_tile``) of the conv (N = 2I) and the deconv
+    (N = C); in training also of dh (N = I) and dx (N = C), ``core_tn``,
+    and the norm backward's 64 positions of C floats."""
+    return _ffn_layouts(_core().core_launch_bytes(), NP * c * 4, c, inner, training)
+
+
+def compiled_ffn_launch_bytes(c: int, inner: int, training: bool = False) -> dict:
+    """:func:`ffn_launch_bytes` as the compiled kernels count them."""
+    fn = load("step_fp32").step_fp32_smem_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 2
+    return _ffn_layouts(_core().compiled_core_launch_bytes(), fn(1, c), c, inner, training)
+
+
 def supports_ffn(c: int, inner: int, k: int, training: bool, num_groups: int = 1) -> bool:
     """The fp32 FFN-step gate: a step width of :data:`CHANNELS`, an inner
     width of whole float4s, 2 <= k <= 8, whole norm groups, and layouts
     within :data:`SMEM_OPTIN`."""
     return (c in CHANNELS and inner > 0 and inner % 4 == 0 and 2 <= k <= 8
             and c % num_groups == 0
-            and max(launch_bytes(c, training).values()) <= SMEM_OPTIN)
+            and max(ffn_launch_bytes(c, inner, training).values()) <= SMEM_OPTIN)
 
 
 def supports_attention(c: int, a: int, h: int, training: bool) -> bool:
@@ -158,8 +198,8 @@ def ffn_rows(rows: int, seq: int, c: int, inner: int, k: int, training: bool,
 
 
 def _splits(m: int, n: int, total: int) -> int:
-    """Position splits of a weight-gradient product: about four blocks an SM,
-    at least 64 positions a split."""
+    """Position splits of an FFMA weight-gradient product (the attention
+    step's): about four blocks an SM, at least 64 positions a split."""
     tiles = -(-m // BM) * -(-n // BN)
     return max(1, min(-(-4 * _SMS // tiles), total // 64, 65535))
 
@@ -171,7 +211,7 @@ def _col_splits(total: int) -> int:
 # --------------------------------------------------------------- panels
 
 def ffn_panels(conv_w, conv_b, deconv_w):
-    """fp32 weight panels of the FFN step (k taps, inner I, width C; value
+    """fp32 weight panels of the FFN GEMMs (k taps, inner I, width C; value
     and gate columns interleaved, ``2i`` the value and ``2i + 1`` the gate of
     inner channel i):
 
@@ -203,7 +243,8 @@ def _unpack_ffn_grads(dwc, dbc, dwd, inner, c, k):
     return dcw.contiguous(), dcb.contiguous(), ddw.contiguous()
 
 
-# The panels of the weights they were laid out from (``cached_panels``)
+# The attention step's panels of the weights they were laid out from
+# (``cached_panels``)
 _PANELS = WeakIdKeyDictionary()
 
 
@@ -224,7 +265,10 @@ def _opt(t):
 class CudaPrims:
     """The kernels of ``csrc/step_fp32.cu`` and the attention core of
     ``csrc/attn_fp32.cu`` (``attn_fwd``, ``attn_bwd``), launched on the
-    current stream.  Every tensor is fp32, contiguous and 16-byte aligned."""
+    current stream: the FFMA ``gemm_nn`` (store and output epilogues) and
+    ``gemm_tn`` are the attention step's; the FFN GEMMs are
+    ``unfused_fp32.CorePrims``'.  Every tensor is fp32, contiguous and
+    16-byte aligned."""
 
     def __init__(self):
         libs = {"step_fp32": load("step_fp32"), "attn_fp32": load("attn_fp32")}
@@ -232,10 +276,9 @@ class CudaPrims:
                            ctypes.c_void_p)
         self._fn = {}
         for name, args in (
-                ("f32_gemm_nn", [i] + _win_types() + [ll, i, vp, i, vp, ll, vp, vp, vp, ll]
+                ("f32_gemm_nn", [i] + _win_types() + [ll, i, vp, i, vp, ll, vp, vp, ll]
                  + [u] * 4 + [f, i, vp]),
                 ("f32_gemm_tn", _win_types() + [i] + _win_types() + [i, ll, i, vp, vp]),
-                ("f32_colsum", _win_types() + [i, ll, i, vp, vp]),
                 ("f32_reduce", [vp, ll, ll, ll, vp, vp]),
                 ("f32_norm_fwd", [vp, vp, vp, ll, i, i, f, vp]),
                 ("f32_norm_bwd", [vp] * 6 + [ll, i, i, f, vp]),
@@ -250,17 +293,17 @@ class CudaPrims:
     def _call(self, name, *args, device):
         check(self._fn[name](*args, stream_handle(device)), name)
 
-    def gemm_nn(self, epi, a: Win, m, k, b, n, out, ldo, bias=None, y=None, res=None, p=1,
-                site=0, drop=(0, 0, 0, 1.0, 0)):
+    def gemm_nn(self, epi, a: Win, m, k, b, n, out, ldo, bias=None, res=None, p=1, site=0,
+                drop=(0, 0, 0, 1.0, 0)):
+        if epi not in (EPI_STORE, EPI_OUT):
+            raise ValueError("f32_gemm_nn: store and output epilogues only (the FFN's "
+                             "run on unfused_fp32.CorePrims)")
         self._call("f32_gemm_nn", epi, *_win_args(a), m, k, ptr(b), n, ptr(out), ldo,
-                   _opt(bias), _opt(y), _opt(res), p, site, *drop, device=out.device)
+                   _opt(bias), _opt(res), p, site, *drop, device=out.device)
 
     def gemm_tn(self, a: Win, m, b: Win, n, total, splits, part):
         self._call("f32_gemm_tn", *_win_args(a), m, *_win_args(b), n, total, splits, ptr(part),
                    device=part.device)
-
-    def colsum(self, a: Win, w, total, splits, part):
-        self._call("f32_colsum", *_win_args(a), w, total, splits, ptr(part), device=part.device)
 
     def reduce(self, part, s, n, seg, out):
         self._call("f32_reduce", ptr(part), s, n, seg, ptr(out), device=out.device)
@@ -328,13 +371,14 @@ def ffn_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups
     ``x + drop(Deconv(drop(SwiGLU(Conv(RMSGroupNorm(x))))))``, or with
     ``residual=False`` the deconv alone (no bias, no outer mask)."""
     P = _prims(prims)
+    U = _core()
+    G = U._core_gemms(P)
     r, seq, c = x.shape
     inner, k = deconv_w.shape[0], kernel
     diff, lc = kernel - 1, seq + kernel - 1
     f32 = dict(dtype=torch.float32, device=x.device)
-    wc, bc, wdf, _, _ = cached_panels(_PANELS, conv_w, (conv_b, deconv_w),
-                                lambda: ffn_panels(conv_w, conv_b, deconv_w))
-    bd = (torch.zeros(c, **f32) if deconv_b is None or not residual
+    wc, bc, wdf, _, _ = U._panels(conv_w, conv_b, deconv_w)
+    bd = (None if deconv_b is None or not residual
           else deconv_b.detach().to(torch.float32).contiguous())
     g32 = gamma.detach().to(torch.float32).contiguous()
     rg = ffn_rows(r, seq, c, inner, k, False, scratch_cap)
@@ -345,9 +389,9 @@ def ffn_forward(x, gamma, conv_w, conv_b, deconv_w, deconv_b, kernel, num_groups
         drop = D.kernel_args(drop_rate, seed, row0 + g0)
         xg = x[g0:g0 + n]
         P.norm_fwd(xg, g32, xn, n * seq, c, num_groups, eps)
-        P.gemm_nn(EPI_SWIGLU, Win(xn, seq * c, lc, c, -diff * c, seq * c), n * lc, k * c, wc,
+        G.gemm_nn(EPI_SWIGLU, Win(xn, seq * c, lc, c, -diff * c, seq * c), n * lc, k * c, wc,
                   2 * inner, h, inner, bias=bc, p=lc, site=D.SITE_FFN_INNER, drop=drop)
-        P.gemm_nn(EPI_OUT, Win(h, lc * inner, seq, inner, 0, lc * inner), n * seq, k * inner,
+        G.gemm_nn(EPI_OUT, Win(h, lc * inner, seq, inner, 0, lc * inner), n * seq, k * inner,
                   wdf, c, out[g0:g0 + n], c, bias=bd, res=xg if residual else None, p=seq,
                   site=D.SITE_FFN_OUTER, drop=drop)
     ffn_forward.launches += 1
@@ -361,13 +405,14 @@ def ffn_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel, num_groups, eps,
     ddeconv_w, ddeconv_b)`` in torch layouts, ``ddeconv_b`` zero with
     ``residual=False``."""
     P = _prims(prims)
+    U = _core()
+    G = U._core_gemms(P)
     r, seq, c = x.shape
     inner, k = deconv_w.shape[0], kernel
     diff, lc = kernel - 1, seq + kernel - 1
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    wc, bc, _, wd2, w2 = cached_panels(_PANELS, conv_w, (conv_b, deconv_w),
-                                 lambda: ffn_panels(conv_w, conv_b, deconv_w))
+    wc, bc, _, wd2, w2 = U._panels(conv_w, conv_b, deconv_w)
     g = g.to(torch.float32).contiguous()
     g32 = gamma.detach().to(torch.float32).contiguous()
     rg = ffn_rows(r, seq, c, inner, k, True, scratch_cap)
@@ -376,7 +421,7 @@ def ffn_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel, num_groups, eps,
     dzb = torch.empty(rg, seq, c, **f32) if residual and drop_rate > 0.0 else None
     y, dy = torch.empty(rg, lc, 2 * inner, **f32), torch.empty(rg, lc, 2 * inner, **f32)
     h = torch.empty(rg, lc, inner, **f32)
-    s1, s2 = _splits(2 * inner, k * c, rg * lc), _splits(inner, k * c, rg * lc)
+    s1, s2 = U._tn_splits(2 * inner, k * c, rg * lc), U._tn_splits(inner, k * c, rg * lc)
     sb, sdb = _col_splits(rg * lc), _col_splits(rg * seq)
     pw, pd = torch.empty(groups * s1, 2 * inner, k * c, **f32), \
         torch.empty(groups * s2, inner, k * c, **f32)
@@ -390,27 +435,27 @@ def ffn_backward(g, x, gamma, conv_w, conv_b, deconv_w, kernel, num_groups, eps,
         xg, gg = x[g0:g0 + n], g[g0:g0 + n]
         xwin = Win(xn, seq * c, lc, c, -diff * c, seq * c)
         P.norm_fwd(xg, g32, xn, n * seq, c, num_groups, eps)
-        P.gemm_nn(EPI_SWIGLU, xwin, n * lc, k * c, wc, 2 * inner, h, inner, bias=bc, y=y,
+        G.gemm_nn(EPI_SWIGLU, xwin, n * lc, k * c, wc, 2 * inner, h, inner, bias=bc, y=y,
                   p=lc, site=D.SITE_FFN_INNER, drop=drop)
         dz = gg
         if dzb is not None:
             dz = dzb[:n]
             P.mask_rows(gg, dz, n * seq * c, seq, c, D.SITE_FFN_OUTER, drop)
         zwin = Win(dz, seq * c, lc, c, -diff * c, seq * c)
-        P.gemm_nn(EPI_SWIGLU_BWD, zwin, n * lc, k * c, wd2, inner, dy, 2 * inner, y=y, p=lc,
+        G.gemm_nn(EPI_SWIGLU_BWD, zwin, n * lc, k * c, wd2, inner, dy, 2 * inner, y=y, p=lc,
                   site=D.SITE_FFN_INNER, drop=drop)
-        P.gemm_nn(EPI_STORE, Win(dy, lc * 2 * inner, seq, 2 * inner, 0, lc * 2 * inner),
+        G.gemm_nn(EPI_STORE, Win(dy, lc * 2 * inner, seq, 2 * inner, 0, lc * 2 * inner),
                   n * seq, k * 2 * inner, w2, c, dxn, c)
         b0 = sum(blocks[:gi])
         P.norm_bwd(xg, g32, dxn, gg if residual else None, dx[g0:g0 + n],
                    pg[b0:b0 + blocks[gi]], n * seq, c, num_groups, eps)
-        P.gemm_tn(_dense(dy, n * lc, 2 * inner), 2 * inner, xwin, k * c, n * lc, s1,
-                  pw[gi * s1:(gi + 1) * s1])
-        P.colsum(_dense(dy, n * lc, 2 * inner), 2 * inner, n * lc, sb, pb[gi * sb:(gi + 1) * sb])
-        P.gemm_tn(_dense(h, n * lc, inner), inner, zwin, k * c, n * lc, s2,
+        dyd = _dense(dy, n * lc, 2 * inner)
+        G.gemm_tn(dyd, 2 * inner, xwin, k * c, n * lc, s1, pw[gi * s1:(gi + 1) * s1])
+        G.colsum(dyd, 2 * inner, n * lc, sb, pb[gi * sb:(gi + 1) * sb])
+        G.gemm_tn(_dense(h, n * lc, inner), inner, zwin, k * c, n * lc, s2,
                   pd[gi * s2:(gi + 1) * s2])
         if residual:
-            P.colsum(_dense(dz, n * seq, c), c, n * seq, sdb, pdb[gi * sdb:(gi + 1) * sdb])
+            G.colsum(_dense(dz, n * seq, c), c, n * seq, sdb, pdb[gi * sdb:(gi + 1) * sdb])
     red = lambda part, *shape: _reduce(P, part.reshape(part.shape[0], -1),
                                        torch.empty(*shape, **f32))
     dcw, dcb, ddw = _unpack_ffn_grads(red(pw, 2 * inner, k * c), red(pb, 2 * inner),

@@ -50,7 +50,9 @@ Each kernel is a chain of launches through device memory:
 The weight panels are laid out K-major and split into TF32 halves once,
 when they are made (:func:`core_panels`, cached per weight version); the
 inner width is zero-padded to whole float4s in them, so every inner width
-runs.  Each kernel counts one launch per call on its own function
+runs.  The fused FFN step's fp32 rows (#2, #5: ``step_fp32.ffn_forward`` /
+``ffn_backward``) run on the same GEMMs and panels, ``core_nn`` with the
+step's output epilogue (bias, outer mask, residual).  Each kernel counts one launch per call on its own function
 (:func:`flash_forward_fp32`, :func:`flash_backward_fp32`,
 :func:`ffn_core_fp32`, :func:`ffn_core_fp32_backward`), not on the bf16
 kernels' counts.  The chains run on ``prims`` (``step_fp32.CudaPrims`` by
@@ -76,8 +78,8 @@ from . import SMEM_OPTIN, cached_panels, check, load, ptr, stream_handle
 from . import step_fp32 as S
 
 __all__ = ["MAX_HEAD_DIM", "SCRATCH_CAP", "head_pad", "flash_launch_bytes",
-           "compiled_flash_launch_bytes", "core_launch_bytes", "compiled_core_launch_bytes",
-           "supports_flash", "supports_core", "core_rows", "tf32_split", "split_panel",
+           "compiled_flash_launch_bytes", "core_tile", "core_launch_bytes",
+           "compiled_core_launch_bytes", "supports_flash", "supports_core", "core_rows", "tf32_split", "split_panel",
            "panel_halves", "core_panels", "CorePrims", "flash_forward_fp32",
            "flash_backward_fp32", "ffn_core_fp32", "ffn_core_fp32_backward"]
 
@@ -107,17 +109,30 @@ def compiled_flash_launch_bytes(d: int) -> dict:
     return S.compiled_attn_launch_bytes(head_pad(d))
 
 
+def core_tile(n: int) -> int:
+    """``core_nn``'s tile width at an output width ``n`` (the .cu's
+    ``nn_tile``): 96 at ``n`` 96, 64 where it pads fewer columns than 128,
+    else 128."""
+    if n == 96:
+        return 96
+    return 64 if -(-n // 64) * 64 < -(-n // 128) * 128 else 128
+
+
+# core_launch_bytes' key of core_nn at each tile width
+NN_KEY = {128: "nn", 64: "nn64", 96: "nn96"}
+
+
 def core_launch_bytes() -> dict:
-    """Shared memory of the FFN core's launches (``csrc/ffn_core_fp32.cu``):
+    """Shared memory of the FFN GEMMs' launches (``csrc/ffn_core_fp32.cu``):
     ``core_nn``'s four stages of the A tile and the B hi and lo tiles in rows
-    of 32 floats (128 rows of A; 128 of B, or 64 at a narrow N: ``nn64``)
-    and 1 KB to align them to the swizzle's atoms; ``core_tn``'s three
-    stages of 32 positions of A and B, 128 + 8 floats each (the column sums'
-    4 KB and ``reduce``'s none are no limit)."""
+    of 32 floats (128 rows of A; 128 of B, 96 at N 96: ``nn96``, or 64 at a
+    narrow N: ``nn64``) and 1 KB to align them to the swizzle's atoms;
+    ``core_tn``'s three stages of 32 positions of A and B, 128 + 8 floats
+    each (the column sums' 4 KB and ``reduce``'s none are no limit)."""
     row = CORE_BK * 4
     nn = lambda bn: CORE_NN_STAGES * (CORE_BM + 2 * bn) * row + 1024
     return {"nn": nn(128), "nn64": nn(64),
-            "tn": CORE_STAGES * 2 * CORE_BK * (CORE_BM + 8) * 4}
+            "tn": CORE_STAGES * 2 * CORE_BK * (CORE_BM + 8) * 4, "nn96": nn(96)}
 
 
 def compiled_core_launch_bytes() -> dict:
@@ -125,7 +140,7 @@ def compiled_core_launch_bytes() -> dict:
     fn = load("ffn_core_fp32").core_fp32_smem_bytes
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int]
-    return {name: fn(i) for i, name in enumerate(("nn", "nn64", "tn"))}
+    return {name: fn(i) for i, name in enumerate(("nn", "nn64", "tn", "nn96"))}
 
 
 def supports_flash(d: int) -> bool:
@@ -287,11 +302,12 @@ def _panels(conv_w, conv_b, deconv_w):
 class CorePrims:
     """The kernels of ``csrc/ffn_core_fp32.cu`` with ``step_fp32.CudaPrims``'
     ``gemm_nn`` / ``gemm_tn`` / ``colsum`` conventions, launched on the
-    current stream: ``core_nn`` (wgmma, 3xTF32) takes the FFN core's
-    epilogues (store, SwiGLU, its backward) and, as ``b``, a
-    :func:`split_panel` view, whose halves it reads; ``core_tn`` (mma.sync,
-    3xTF32) the weight products; ``core_colsum`` the bias gradients'
-    column sums.  Every tensor is fp32, contiguous and 16-byte aligned."""
+    current stream: ``core_nn`` (wgmma, 3xTF32) takes every FFN epilogue
+    (store, SwiGLU, its backward, the FFN step's output with its residual
+    ``res``) and, as ``b``, a :func:`split_panel` view, whose halves it
+    reads; ``core_tn`` (mma.sync, 3xTF32) the weight products;
+    ``core_colsum`` the bias gradients' column sums.  Every tensor is fp32,
+    contiguous and 16-byte aligned."""
 
     def __init__(self):
         lib = load("ffn_core_fp32")
@@ -302,20 +318,19 @@ class CorePrims:
         self._colsum = lib.core_fp32_colsum
         for fn in (self._nn, self._tn, self._colsum):
             fn.restype = ctypes.c_int
-        self._nn.argtypes = ([i] + win + [ll, i, vp, vp, i, vp, ll, vp, vp, ll] + [u] * 4
+        self._nn.argtypes = ([i] + win + [ll, i, vp, vp, i, vp, ll, vp, vp, vp, ll] + [u] * 4
                              + [f, i, vp])
         self._tn.argtypes = win + [i] + win + [i, ll, i, vp, vp]
         self._colsum.argtypes = win + [i, ll, i, vp, vp]
 
     def gemm_nn(self, epi, a: S.Win, m, k, b, n, out, ldo, bias=None, y=None, res=None, p=1,
                 site=0, drop=(0, 0, 0, 1.0, 0)):
-        if res is not None or epi not in (S.EPI_STORE, S.EPI_SWIGLU, S.EPI_SWIGLU_BWD):
-            raise ValueError("core_nn: the FFN core's epilogues (store, SwiGLU, its "
-                             "backward) take no residual")
+        if res is not None and epi != S.EPI_OUT:
+            raise ValueError("core_nn: only the output epilogue takes a residual")
         hi, lo = panel_halves(b, k, n)
         check(self._nn(epi, *S._win_args(a), m, k, ptr(hi), ptr(lo), n, ptr(out), ldo,
-                       S._opt(bias), S._opt(y), p, site, *drop, stream_handle(out.device)),
-              "core_nn")
+                       S._opt(bias), S._opt(y), S._opt(res), p, site, *drop,
+                       stream_handle(out.device)), "core_nn")
 
     def gemm_tn(self, a: S.Win, m, b: S.Win, n, total, splits, part):
         check(self._tn(*S._win_args(a), m, *S._win_args(b), n, total, splits, ptr(part),

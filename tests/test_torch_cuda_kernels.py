@@ -1049,14 +1049,8 @@ def test_fp32_swiglu_ffn_kernels_odd_shapes(dev, monkeypatch, r, seq, c, inner, 
     """#8 and #9 on fp32 rows against autograd through the plain version in
     fp32: one counted launch each way, and no FFMA GEMM of step_fp32.cu
     (``gemm_nn``, ``gemm_tn``) inside either call."""
-    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
     from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
-    ffma = []
-    for name in ("gemm_nn", "gemm_tn"):
-        real = getattr(S.CudaPrims, name)
-        monkeypatch.setattr(S.CudaPrims, name,
-                            lambda self, *a, _n=name, _f=real, **kw: ffma.append(_n) or _f(
-                                self, *a, **kw))
+    ffma = _no_ffma(monkeypatch)
     x, w = _core_inputs(dev, r, seq, c, inner, k)
     x = x.float()
     go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(14)).to(dev)
@@ -1081,3 +1075,110 @@ def test_fp32_core_layouts_match_the_compiled_kernels(dev):
     with pytest.raises(ValueError):
         U.CorePrims().gemm_nn(S.EPI_STORE, S.Win(x, 64, 8, 8, 0, 64), 8, 8,
                               torch.zeros(8, 8, device=dev), 8, torch.empty(8, 8, device=dev), 8)
+
+
+# fp32 #2/#5 on the 3xTF32 GEMMs of csrc/ffn_core_fp32.cu (core_nn with the
+# step's output epilogue, core_tn, core_colsum) and step_fp32.cu's norms,
+# outer mask and reductions: C 32 / 64 (tile 64), 96 (tile 96), 128 (tile
+# 128), k 4 and 8, L 1 to 2049 (the conv's window starts k - 1 positions
+# before the row), the partial-sum mode; FP32_TOL / FP32_REL_L2 as above.
+FP32_STEP_3X = [(2, 1, 32, 64, 4), (3, 17, 64, 128, 8), (2, 65, 96, 384, 4),
+                (1, 2049, 96, 384, 4), (2, 130, 128, 256, 8), (1, 2049, 128, 384, 8)]
+
+
+def _no_ffma(monkeypatch):
+    """The names of step_fp32.cu's FFMA GEMMs called from here on."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    ffma = []
+    for name in ("gemm_nn", "gemm_tn"):
+        real = getattr(S.CudaPrims, name)
+        monkeypatch.setattr(S.CudaPrims, name,
+                            lambda self, *a, _n=name, _f=real, **kw: ffma.append(_n) or _f(
+                                self, *a, **kw))
+    return ffma
+
+
+@pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
+@pytest.mark.parametrize("r,seq,c,inner,k", FP32_STEP_3X)
+def test_fp32_ffn_step_on_tensor_cores(dev, monkeypatch, r, seq, c, inner, k, drop, residual):
+    """#2 and #5 on fp32 rows against autograd through the plain version in
+    fp32: one counted launch each way, and no FFMA GEMM of step_fp32.cu
+    inside either call."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    ffma = _no_ffma(monkeypatch)
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k, seed=11)
+    x, g = x.float(), g.float()
+    if not residual:
+        params = params[:4] + [None]
+    args = (k, 4, 1e-5, drop, 4321, 9, residual)
+    grad_params = [p for p in params if p is not None]
+    fn = lambda kern: lambda x_, *p: kern(x_, *p, *([None] if not residual else []), *args)
+    counts = (S.ffn_forward.launches, S.ffn_backward.launches)
+    out, got = _grads(fn(FB.fused_norm_ffn_residual), x, grad_params, g)
+    torch.cuda.synchronize()
+    assert (S.ffn_forward.launches, S.ffn_backward.launches) == (counts[0] + 1, counts[1] + 1)
+    assert ffma == []
+    ref_out, ref = _grads(fn(FB.reference_norm_ffn_residual), x, grad_params, g)
+    _check_fp32(out, ref_out, got, ref,
+                ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
+
+
+@pytest.mark.parametrize("c", [32, 64, 96, 128])
+def test_fp32_output_epilogue_mask_is_keep_mask(dev, c):
+    """``core_nn``'s output epilogue at dropout 0.1 on zero products with a
+    bias of ones: every output is the outer site's keep bit times 1 / (1 -
+    p), bit for bit ``keep_mask`` at (row0 + row, position, channel); with
+    no residual the products alone (no bias, no mask)."""
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    r, seq, kk, p, row0 = 3, 301, 8 * c, 0.1, 5
+    a = torch.randn(r, seq, kk, device=dev)
+    b = U.split_panel(torch.zeros(kk, c, device=dev))
+    bias, res = torch.ones(c, device=dev), torch.zeros(r, seq, c, device=dev)
+    drop = D.kernel_args(p, 77, row0)
+    P = U.CorePrims()
+    out = torch.empty(r, seq, c, device=dev)
+    P.gemm_nn(S.EPI_OUT, S.Win(a, seq * kk, seq, kk, 0, seq * kk), r * seq, kk, b, c, out, c,
+              bias=bias, res=res, p=seq, site=D.SITE_FFN_OUTER, drop=drop)
+    keep = D.row_mask(77, D.SITE_FFN_OUTER, out, row0, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(out[keep], torch.full_like(out[keep], drop[3]))
+    P.gemm_nn(S.EPI_OUT, S.Win(a, seq * kk, seq, kk, 0, seq * kk), r * seq, kk, b, c, out, c,
+              bias=bias, p=seq, site=D.SITE_FFN_OUTER, drop=drop)
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.parametrize("c,inner,k", [(96, 384, 4), (32, 64, 8)])
+def test_fp32_ffn_step_reruns_bit_equal(dev, monkeypatch, c, inner, k):
+    """Two #5 runs at dropout 0.1 in 3 row groups give the same bits (no
+    atomics: per-split partials summed in a fixed order); a one-group run
+    differs only by the order of its sums; no FFMA GEMM runs."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    ffma = _no_ffma(monkeypatch)
+    r, seq = 5, 257
+    x, params, g = _ffn_inputs(dev, r, seq, c, inner, k, seed=12)
+    x, g = x.float(), g.float()
+    cap = 2 * 4 * (3 * seq * c + 5 * (seq + k - 1) * inner)
+    assert S.ffn_rows(r, seq, c, inner, k, True, cap) == 2
+    args = (g, x, *params[:4], k, 4, 1e-5, 0.1, 1234, 7)
+    first = FB.ffn_step_backward(*args, scratch_cap=cap)
+    again = FB.ffn_step_backward(*args, scratch_cap=cap)
+    whole = FB.ffn_step_backward(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(_rel_l2(a, b) < 1e-5 for a, b in zip(first[1:], whole[1:]))
+    assert ffma == []
+
+
+def test_fp32_ffn_step_layouts_match_the_compiled_kernels(dev):
+    """The fp32 FFN-step gate's layout bytes (``core_nn`` at each GEMM's tile,
+    ``core_tn``, the norm backward) are the compiled kernels' own."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    for c in S.CHANNELS:
+        for inner in (64, 96, 192, 384, 1024):
+            for training in (False, True):
+                assert S.ffn_launch_bytes(c, inner, training) == \
+                    S.compiled_ffn_launch_bytes(c, inner, training)

@@ -269,7 +269,8 @@ def test_fp32_core_gate_and_layouts():
     """The gate admits every shape it admitted with the FFMA GEMMs (C of
     whole float4s, any inner width, 2 <= k <= 8), in training too; the
     layouts' bytes (pinned; the compiled kernels' own count on the card)."""
-    assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448}
+    assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448,
+                                     "nn96": 164864}
     for c in range(1, 300):
         for inner in (1, 30, 192, 1024):
             for k in range(1, 10):

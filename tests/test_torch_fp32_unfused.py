@@ -192,7 +192,8 @@ def test_fp32_gates_admit_what_the_bf16_gates_admit():
                                                                       "dkdv": 32256}
     assert U.flash_launch_bytes(24) == {"attn": 55296, "dkdv": 56832}
     assert U.flash_launch_bytes(64) == {"attn": 104448, "dkdv": 105984}
-    assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448}
+    assert U.core_launch_bytes() == {"nn": 197632, "nn64": 132096, "tn": 104448,
+                                     "nn96": 164864}
     # the small config's freq path at its training micro-batch: 16 row
     # groups of <= 1 GiB of fp32 scratch
     assert U.core_rows(8272, 519, 48, 192, 4, True) == 541

@@ -3,6 +3,7 @@
 the tensor-core and copy instructions in their SASS.
 
     python3 tools/ffn_step_bench.py [--parent DIR] [--reps N] [--only TAG]
+    python3 tools/ffn_step_bench.py --fp32 [--parent DIR] [--reps N] [--only TAG]
 
 Builds ``csrc/swiglu_block.cu`` of this tree and, with ``--parent``, the
 same file of another checkout unpacked at ``DIR`` (into
@@ -24,6 +25,25 @@ weight-gradient kernels once per row group, the reductions).  Then
 ``cuobjdump -sass`` of each library: per kernel the count of ``HGMMA``,
 ``UTMALDG`` / ``UBLKCP``, ``HMMA`` and ``LDGSTS`` instructions.  The last
 line is one JSON object with every number.
+
+With ``--fp32`` it times the fp32 rows instead, on fp32 inputs
+(``step_fp32.ffn_forward`` / ``ffn_backward``): #2 and #5 at base training
+(micro-batch 2 x 3 s, dropout 0.1) and wsj0-2mix training (4 x 4 s,
+dropout 0), #2 at wsj0-2mix and DNS serving (8 s), each launch of the
+chain by CUDA events (``chip_smoke._fp32_core_kernels``: the GEMMs by
+kernel and epilogue, the norms, the outer mask, the reductions), beside
+both bounds (3xTF32: 3 x FLOP at 494.7 TFLOP/s; FFMA: FLOP at 67 TFLOP/s;
+bytes at 3.35 TB/s); then one ``use_amp: false`` optimizer step of the
+base config (2 x 3 s) and of the wsj0-2mix config (4 x 4 s), the whole
+model's.  With ``--parent`` the other checkout's ``ops/cuda/step_fp32.py``
+(and ``unfused_fp32.py``) drive its own ``csrc/step_fp32.cu`` (and
+``csrc/ffn_core_fp32.cu``), built into ``build/flash_parent/``
+(``tools/flash_bench.py``'s loader), in turns with this tree's: parent,
+tree, tree, parent, each call and each whole step (the steps' FFN layers
+switched to the other checkout's chain; everything else is this tree's).
+``git archive HEAD | tar -x -C build/parent`` first, then ``python3
+tools/ffn_step_bench.py --fp32 --parent build/parent`` through the chip
+tool with a 900 s limit.
 """
 
 from __future__ import annotations
@@ -140,11 +160,155 @@ def l2_read_rate(mib: int = 16, iters: int = 50) -> float:
     return (mib << 20) / (ms * 1e-3)
 
 
+# ------------------------------------------------------------------ fp32
+
+def fp32_shapes():
+    """(tag, model config, rows, sequence, dropout, backward) of the fp32
+    timings."""
+    import chip_smoke as cs
+    base, sp = cs.base_model_config(), cs.speech_config("wsj0_2mix")
+    dns = cs.speech_config("dns")
+    out = [(f"base training {p}", base, r, s, 0.1, True) for p, r, s in cs._train_steps(base)]
+    out += [(f"wsj0-2mix serving {p}", sp.separator, r, s, 0.0, False)
+            for p, r, s in cs._speech_steps(sp, 1, 8.0)]
+    out += [(f"wsj0-2mix training {p}", sp.separator, r, s, 0.0, True)
+            for p, r, s in cs._speech_steps(sp, cs.SPEECH_BATCH, cs.SPEECH_SEGMENT_S)]
+    out += [(f"dns serving {p}", dns.separator, r, s, 0.0, False)
+            for p, r, s in cs._speech_steps(dns, 1, 8.0)]
+    return out
+
+
+def fp32_bounds(cfg, rows, seq) -> dict:
+    """{forward / backward: {tf32x3, ffma}: (ms, what bounds it)} of one
+    fp32 FFN step."""
+    import chip_smoke as cs
+    inner = cs._inner_dims(cfg)[0]
+    ff, fb, bf, bb = cs.ffn_work(rows, seq, cfg.emb_dim, inner, cfg.conv1d_kernel, row_bytes=4)
+    both = lambda f, b: {"tf32x3": cs._bound(f, b, peak=cs.PEAK_TF32, passes=cs.TF32_PASSES),
+                         "ffma": cs._bound(f, b, peak=cs.PEAK_FP32)}
+    return {"fwd": both(ff, fb), "bwd": both(bf, bb)}
+
+
+def time_fp32(label, S, U, tag, cfg, rows, seq, drop, backward, reps) -> dict:
+    """#2 (and #5) of the fp32 chain of ``S`` / ``U`` at one shape: ms a
+    call and each launch's device ms (CUDA events)."""
+    import torch
+    import chip_smoke as cs
+    c, k, inner = cfg.emb_dim, cfg.conv1d_kernel, cs._inner_dims(cfg)[0]
+    gen = torch.Generator().manual_seed(18)
+    x, gamma, w, _ = cs._step_inputs(gen, rows, seq, "cuda", c, inner, k)
+    x = x.float()
+    args = (k, cfg.num_groups, cfg.eps, drop, SEED, 0)
+    fwd = lambda: S.ffn_forward(x, gamma, *w, *args)
+    kern = lambda fn, bwd: cs._fp32_core_kernels(f"{label} {tag}", fn, bwd, reps, S, U,
+                                                 check=label == "tree", tag="fp32-bench")
+    out = {"fwd_ms": cs._time_ms(fwd, iters=reps), "fwd_kernels": kern(fwd, False)}
+    if backward:
+        g = torch.randn(rows, seq, c, generator=gen).to("cuda")
+        bwd = lambda: S.ffn_backward(g, x, gamma, *w[:3], *args)
+        out.update(bwd_ms=cs._time_ms(bwd, iters=reps), bwd_kernels=kern(bwd, True))
+        del g
+    del x, w
+    torch.cuda.empty_cache()
+    print(f"[{label}] #2/#5 fp32 {tag}: {json.dumps(out)}")
+    return out
+
+
+def fp32_steps(mods, order, reps) -> dict:
+    """s per ``use_amp: false`` optimizer step of the base config (2 x 3 s,
+    dropout 0.1) and the wsj0-2mix config (4 x 4 s), the FFN steps on each
+    label's chain in turn (``swiglu_block``'s ``step_fp32``), after one
+    warm-up step each."""
+    import time
+
+    import torch
+    import chip_smoke as cs
+    from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
+    from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
+    from mss_tf_locoformer_tpu_torch.train.speech import speech_train_step
+    from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
+    from mss_tf_locoformer_tpu_torch.train.step import train_step
+    tree = FB.step_fp32
+    base = cs.base_model_config()
+    model = cs._train_models(base, FP32)[0]
+    opt = make_optimizer(model.parameters(), TrainingConfig())
+    batch = cs._batch(torch.Generator().manual_seed(cs.SEED + 5), cs.TRAIN_MB, cs.SEGMENT, "cuda")
+    sp = cs.speech_config("wsj0_2mix")
+    smodel = cs._speech_pair(sp, FP32)[0].train()
+    sopt = make_optimizer(smodel.parameters(), sp.training)
+    n = int(cs.SPEECH_SEGMENT_S * sp.dataset.sample_rate)
+    src = cs._rand(torch.Generator().manual_seed(cs.SEED + 22), (cs.SPEECH_BATCH, 2, n),
+                   0.1).to("cuda")
+    steps = {
+        "base": lambda: train_step(model, opt, *batch, 5e-4, torch.Generator().manual_seed(11),
+                                   LossConfig(), accum=1, gradient_clip=5.0),
+        "wsj0-2mix": lambda: speech_train_step(smodel, sopt, src.sum(1), src, 1e-4,
+                                               torch.Generator().manual_seed(1), sp)}
+    out = {}
+    try:
+        for tag, step in steps.items():
+            out[tag] = []
+            for label in order:
+                FB.step_fp32 = mods[label][0]
+                step()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    step()
+                torch.cuda.synchronize()
+                sec = (time.perf_counter() - t0) / reps
+                print(f"[{label}] use_amp false train step, {tag}: {sec:.4f} s/step")
+                out[tag].append({"label": label, "sec": sec})
+    finally:
+        FB.step_fp32 = tree
+    del model, opt, smodel, sopt, batch, src
+    torch.cuda.empty_cache()
+    return out
+
+
+def main_fp32(args, smi):
+    import torch
+    from flash_bench import _parent_fp32
+    from mss_tf_locoformer_tpu_torch.ops import cuda as kernels
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    stale = os.path.join(kernels.BUILD_DIR, "libffn_core_fp32.so")
+    if os.path.exists(stale):   # build here, so that ptxas's report is printed
+        os.remove(stale)
+    kernels.load("ffn_core_fp32")
+    for line in kernels.BUILD_LOG.get("ffn_core_fp32", "").splitlines():
+        if any(w in line for w in ("Compiling entry", "Used", "spill")):
+            print(f"[build] {line.strip()}")
+    kernels.load("step_fp32")
+    mods = {"tree": (S, U)}
+    if args.parent:
+        mods["parent"] = _parent_fp32(args.parent)[:2]
+    order = ["parent", "tree", "tree", "parent"] if args.parent else ["tree"]
+    result = {"card": smi, "fp32": True, "shapes": {}}
+    for tag, cfg, rows, seq, drop, backward in fp32_shapes():
+        if args.only not in tag:
+            continue
+        entry = {"shape": [rows, seq, cfg.emb_dim], "inner": cfg.ffn_hidden_dim,
+                 "dropout": drop, "bounds": fp32_bounds(cfg, rows, seq), "runs": []}
+        for label in order:
+            entry["runs"].append({"label": label, **time_fp32(
+                label, *mods[label], tag, cfg, rows, seq, drop, backward, args.reps)})
+        result["shapes"][tag] = entry
+        b = entry["bounds"]
+        print(f"[bound] {tag}: forward 3xTF32 {b['fwd']['tf32x3']}, FFMA {b['fwd']['ffma']}; "
+              f"backward 3xTF32 {b['bwd']['tf32x3']}, FFMA {b['bwd']['ffma']}")
+    if not args.only:
+        result["steps"] = fp32_steps(mods, order, max(1, args.reps // 2))
+    print(json.dumps(result))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an unpacked checkout to compare with")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="time only the shapes whose tag holds this")
+    ap.add_argument("--fp32", action="store_true", help="time the fp32 rows (#2/#5) instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -153,6 +317,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
+    if args.fp32:
+        return main_fp32(args, smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs

@@ -330,6 +330,9 @@ def _parent_fp32(root: str):
         spec.loader.exec_module(mods[name])
         mods[name].load = lambda n: handles[n]
     mods["unfused_fp32"].S = mods["step_fp32"]
+    # a checkout whose fused steps run on unfused_fp32's GEMMs imports it
+    # lazily (``step_fp32._core``): give it its own
+    mods["step_fp32"]._core = lambda: mods["unfused_fp32"]
     return mods["step_fp32"], mods["unfused_fp32"], paths
 
 
