@@ -179,20 +179,22 @@ each of which raises on failure (exit code != 0, no result line):
      launches per rank, step time), the 2-rank evaluation CLI's
      ``results.json`` against one rank's, and the training CLI under a
      world-1 NCCL process group;
- 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``; #2/#5's GEMMs on the
-     3xTF32 kernels of ``csrc/ffn_core_fp32.cu``, #3/#4's attention core
-     on those of ``csrc/attn_fp32.cu``; run with the speech phases): the
-     fp32 gates at the base, BS and speech widths (the layouts' bytes
-     against the compiled kernels' count; no FFMA attention kernel left in
-     ``step_fp32.cu``'s library); #2 and #3 against their fp32 plain
-     versions (#2/#5 within 1e-5) at the speech serving shapes (wsj0-2mix
-     and DNS), with the stash and #5 and #4 at the wsj0-2mix training
-     shapes (dropout 0), the base training shapes (dropout 0.1, keep rates
-     printed) and shard 0 of mp 2 in the partial-sum mode; exact fp32
-     launches, two backward runs bit-equal, each call's launches by CUDA
-     events (#2/#5: 3xTF32 GEMMs, no FFMA GEMM; #3/#4: the 3xTF32 core
-     among them), timed beside the bf16 kernels and the bounds (3xTF32,
-     FFMA beside); the wsj0-2mix separator at fp32 against its plain path
+ 27. fp32 rows of #2-#5 (``csrc/step_fp32.cu``'s norms, masks and sums;
+     every GEMM on the 3xTF32 kernels of ``csrc/ffn_core_fp32.cu``,
+     #3/#4's attention core on those of ``csrc/attn_fp32.cu``; run with
+     the speech phases): the fp32 gates at the base, BS and speech widths
+     (the layouts' bytes against the compiled kernels' count; no FFMA GEMM
+     or attention kernel left in ``step_fp32.cu``'s library); #2 and #3
+     against their plain versions in float64 (within 1e-5) at the speech
+     serving shapes (wsj0-2mix and DNS), with the stash and #5 and #4 at
+     the wsj0-2mix training shapes (dropout 0), the base training shapes
+     (dropout 0.1, keep rates printed) and shard 0 of mp 2 in the
+     partial-sum mode; exact fp32 launches, two backward runs bit-equal,
+     each call's launches by CUDA events (3xTF32 GEMMs and no FFMA GEMM;
+     #3/#4's by role: QKV, out-projection, do, dxn, the weight products;
+     the norm and its backward; the 3xTF32 core), timed beside the bf16
+     kernels and the bounds (3xTF32, FFMA beside); the wsj0-2mix separator
+     at fp32 against its plain path
      (1e-4); a ``use_amp: false`` step of the base and the wsj0-2mix
      configs, kernel path against plain path (loss and grad_norm within
      1e-4), and timed at the full batch;
@@ -3103,12 +3105,13 @@ def phase_bs_train(workdir):
 # stems within FP32_TOL of max|ref| -- against the 1.1-1.2e-2 the bf16
 # blocks give (PERF.md section 6)
 FP32_TOL, FP32_GRAD_REL_L2, FP32_LOSS_REL = 1e-4, 1e-4, 1e-4
-# #2/#5 at fp32 (3xTF32 GEMMs, FFMA norms) against the plain version run in
-# float64: outputs and dx within 1e-5 of max|ref|, the other gradients
-# within 1e-5 relative L2.  The fp32 plain version is no oracle at this
-# bound: its conv weight gradient (cuDNN's fp32 sums over 532k positions)
-# is 1.24e-5 (relative L2) off the float64 one at base training, the
-# kernels' 5.1e-7 (tools/ffn_step_errors.py on an H100)
+# #2-#5 at fp32 (3xTF32 GEMMs and attention core, the norms a warp per
+# position) against the plain versions run in float64: outputs and dx
+# within 1e-5 of max|ref|, the other gradients within 1e-5 relative L2.
+# The fp32 plain version is no oracle at this bound: its conv weight
+# gradient (cuDNN's fp32 sums over 532k positions) is 1.24e-5 (relative
+# L2) off the float64 one at base training, the kernels' 5.1e-7
+# (tools/ffn_step_errors.py on an H100)
 FP32_STEP_TOL = 1e-5
 SPEECH_FORWARD_FP32 = {"ffn_step_fp32": 24, "attention_step_fp32": 12}
 
@@ -3116,29 +3119,33 @@ SPEECH_FORWARD_FP32 = {"ffn_step_fp32": 24, "attention_step_fp32": 12}
 def phase_fp32_gates():
     """The fp32 gates (``step_fp32.supports_ffn`` / ``supports_attention``)
     at the base, BS-Locoformer and speech configs' widths, in eval and in
-    training, from the layouts' bytes (the FFN step's: ``core_nn`` at each
-    GEMM's tile, ``core_tn``, the norm backward), which the compiled kernels
-    count the same."""
+    training, from the layouts' bytes (both steps': ``core_nn`` at each
+    GEMM's tile, ``core_tn``, the norm backward; the attention step's also
+    the core's), which the compiled kernels count the same; no FFMA GEMM
+    and no attention kernel left in ``step_fp32.cu``'s library."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import load
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
     cfgs = [("base", base_model_config()), ("bs", bs_model_config())] + [
         (f"speech {n}", speech_config(n).separator) for n in ("wsj0_2mix", "whamr", "dns")]
-    # the attention core is csrc/attn_fp32.cu's alone: no FFMA attention
-    # kernel is left in step_fp32.cu's library
-    left = [n for n in ("f32_attn_fwd", "f32_attn_bwd", "f32_attn_smem_bytes")
-            if hasattr(load("step_fp32"), n)]
+    # the attention core is csrc/attn_fp32.cu's alone and every GEMM
+    # ffn_core_fp32.cu's: no FFMA attention kernel or GEMM is left in
+    # step_fp32.cu's library
+    left = [n for n in ("f32_attn_fwd", "f32_attn_bwd", "f32_attn_smem_bytes", "f32_gemm_nn",
+                        "f32_gemm_tn") if hasattr(load("step_fp32"), n)]
     if left or not all(hasattr(load("attn_fp32"), n) for n in ("f32_attn_fwd", "f32_attn_bwd")):
         raise AssertionError(f"fp32 gates: step_fp32.cu still exports {left}")
-    print("[fp32-gates] the attention core: csrc/attn_fp32.cu (3xTF32); step_fp32.cu exports "
-          "no attention kernel")
-    for training in (False, True):
-        for c in (96, 128):
-            want, got = S32.launch_bytes(c, training), S32.compiled_launch_bytes(c, training)
+    if S32.compiled_norm_positions() != S32.NP:
+        raise AssertionError(f"fp32 gates: a norm block sums {S32.compiled_norm_positions()} "
+                             f"positions, not {S32.NP}")
+    print("[fp32-gates] the attention core: csrc/attn_fp32.cu (3xTF32); every GEMM: "
+          "csrc/ffn_core_fp32.cu (3xTF32); step_fp32.cu exports no attention kernel and no "
+          "GEMM")
+    for tag, cfg in cfgs:
+        c, k, a = cfg.emb_dim, cfg.conv1d_kernel, cfg.attention_dim
+        for training in (False, True):
+            want, got = S32.launch_bytes(c, a, training), S32.compiled_launch_bytes(c, a, training)
             if want != got:
                 raise AssertionError(f"fp32 gates: layouts {want} != compiled {got}")
-    for tag, cfg in cfgs:
-        c, k = cfg.emb_dim, cfg.conv1d_kernel
-        for training in (False, True):
             for i in _inner_dims(cfg):
                 want = S32.ffn_launch_bytes(c, i, training)
                 got = S32.compiled_ffn_launch_bytes(c, i, training)
@@ -3150,7 +3157,7 @@ def phase_fp32_gates():
             print(f"[fp32-gates] {tag} (C {c}, I {_inner_dims(cfg)[0]}, k {k}), "
                   f"{'training' if training else 'eval'}: FFN step (3xTF32) launches "
                   f"{S32.ffn_launch_bytes(c, _inner_dims(cfg)[0], training)} B, attention "
-                  f"step {S32.launch_bytes(c, training)} B: fused steps {routes}")
+                  f"step {S32.launch_bytes(c, a, training)} B: fused steps {routes}")
             if not all(routes):
                 raise AssertionError(f"fp32 gates: {tag} should take the fused steps")
 
@@ -3158,15 +3165,17 @@ def phase_fp32_gates():
 def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1):
     """#2 and #3 on fp32 rows at one shape of ``cfg``'s blocks (with
     ``training``: their stash, and #5 and #4, against autograd through the
-    plain versions in fp32 at dropout ``drop``; with ``mp`` > 1, shard 0 in
-    the partial-sum mode) against the plain versions (#2/#5 in float64
-    within ``FP32_STEP_TOL``, #3/#4 in fp32 within ``FP32_TOL``): one
-    counted fp32 launch
-    each way and none of the bf16 kernels; two backward runs bit-equal; the
-    kernels timed beside the plain versions, the bf16 kernels on the same
-    values, the 3xTF32 bound (the FFN GEMMs and the attention core run
-    3xTF32) with the FFMA bound beside it, and each launch of the chain by
-    CUDA events (an FFN step raises if an FFMA GEMM runs in it)."""
+    plain versions at dropout ``drop``; with ``mp`` > 1, shard 0 in the
+    partial-sum mode) against the plain versions in float64 within
+    ``FP32_STEP_TOL``: one counted fp32 launch each way and none of the
+    bf16 kernels; two backward runs bit-equal; the kernels timed beside the
+    plain versions, the bf16 kernels on the same values, the 3xTF32 bound
+    (every GEMM and the attention core run 3xTF32) with the FFMA bound
+    beside it, and each launch of the chain by CUDA events (the GEMMs by
+    kernel and epilogue, the attention step's also by K x N: QKV,
+    out-projection, do, dxn, the weight products; the norms, the masks, the
+    sums; a step raises if an FFMA GEMM runs in it or a 3xTF32 GEMM
+    does not)."""
     import torch
     from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S32
@@ -3197,9 +3206,8 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         wk = [t for t in w if t is not None]
         pad = [None] * (len(w) - len(wk))   # the partial-sum FFN's absent bias
         attn = name == "attention_step"
-        tol, rel_bound = (FP32_TOL, FP32_GRAD_REL_L2) if attn else (FP32_STEP_TOL,
-                                                                     FP32_STEP_TOL)
-        ref_dt = torch.float32 if attn else torch.float64   # the oracle's dtype
+        tol = rel_bound = FP32_STEP_TOL
+        ref_dt = torch.float64   # the oracle's dtype
 
         def bounds(flop, nbytes, _exps=exps):
             """{3xTF32 bound, the FFMA bound}"""
@@ -3209,7 +3217,7 @@ def _fp32_case(results, tag, path, rows, seq, cfg, gen, training, drop=0.0, mp=1
         def launches(fn, backward, _attn=attn, _label=label):
             """each launch of the chain ``fn`` runs, by CUDA events"""
             if _attn:
-                return _fp32_attn_launches(_label, fn, backward)
+                return _fp32_attn_launches(_label, fn, backward, gemms=True)
             return _fp32_core_kernels(_label, fn, backward, tag="fp32-kernels")
 
         def call(fn, _pad=pad, _args=args):
@@ -3652,87 +3660,38 @@ def _fp32_flash_case(results, tag, rows, h, seq, d, gen, training):
     torch.cuda.empty_cache()
 
 
-def _fp32_attn_launches(label, fn, backward, reps=2, prims=None) -> dict:
-    """The launches of one fp32 attention call ``fn`` (#3 or #6, or with
-    ``backward`` #4 or #7), caught on ``prims`` (``step_fp32.CudaPrims`` by
-    default; a benchmark passes another checkout's): per launch
-    ``[launches, device ms]`` a call from CUDA events around each (mean of
-    ``reps`` calls; ``attn_bwd`` is the core's dq and dk/dv kernels in one
-    call).  Raises when the attention core (``attn_fwd`` / ``attn_bwd``)
-    did not run once a call."""
+def _caught_launches(fn, reps, S, U, shapes=False) -> dict:
+    """Per launch of the fp32 chain ``fn`` runs, caught on ``S.CudaPrims``
+    (``csrc/step_fp32.cu``'s kernels and ``csrc/attn_fp32.cu``'s core) and
+    ``U.CorePrims`` (the 3xTF32 GEMMs of ``csrc/ffn_core_fp32.cu``, where the
+    checkout has them): ``{key: [launches, device ms]}`` a call, the device
+    time from CUDA events around each launch (mean of ``reps`` calls; a
+    ``torch.profiler`` trace loses its kernels late in this process).  A key
+    is the library and the kernel, ``core_nn`` / ``gemm_nn`` with its
+    epilogue and, with ``shapes``, every GEMM with its K x N (``core_tn``:
+    M x N)."""
     import torch
-    if prims is None:
-        from mss_tf_locoformer_tpu_torch.ops.cuda.step_fp32 import CudaPrims as prims
-    events, saved = [], []
-    for name in ("gemm_nn", "gemm_tn", "reduce", "norm_fwd", "norm_bwd", "mask_rows",
-                 "qkv_split", "attn_fwd", "attn_bwd"):
-        real = getattr(prims, name)
-
-        def timed(self, *a, _real=real, _name=name, **kw):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = _real(self, *a, **kw)
-            ev[1].record()
-            events.append((_name, ev))
-            return out
-        saved.append((name, real))
-        setattr(prims, name, timed)
-    try:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    finally:
-        for name, real in saved:
-            setattr(prims, name, real)
-    out = {}
-    for key, (start, end) in events:
-        n, ms = out.get(key, (0, 0.0))
-        out[key] = (n + 1, ms + start.elapsed_time(end))
-    out = {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
-    core = "attn_bwd" if backward else "attn_fwd"
-    print(f"[fp32-kernels] {label} {'backward' if backward else 'forward'}: per launch "
-          f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
-                                                        for k, (n, ms) in out.items()))
-    if out.get(core, [0])[0] != 1:
-        raise AssertionError(f"{label}: the 3xTF32 core {core} ran {out.get(core, [0])[0]} "
-                             f"times a call, not once")
-    return out
-
-
-def _fp32_core_kernels(label, fn, backward, reps=2, S=None, U=None, check=True,
-                       tag="fp32-unfused") -> dict:
-    """The launches of one fp32 FFN call ``fn`` (#8 or #2, or with
-    ``backward`` #9 or #5), caught on the prims: the 3xTF32 kernels of
-    ``csrc/ffn_core_fp32.cu`` (``core_nn`` by epilogue, ``core_tn``,
-    ``core_colsum``) and those of ``csrc/step_fp32.cu`` (the norms, the
-    outer mask, the reductions, and the FFMA GEMMs); per kernel
-    ``[launches, device ms]`` a call, the device time from CUDA events
-    around each launch (mean of ``reps`` calls; a ``torch.profiler`` trace
-    loses its kernels late in this process).  ``S`` / ``U`` are the
-    ``step_fp32`` / ``unfused_fp32`` modules whose prims are caught (this
-    tree's by default; a benchmark passes another checkout's, with ``U``
-    None where it has no ``CorePrims``).  With ``check``, raises when an
-    FFMA GEMM (``gemm_nn``, ``gemm_tn``) ran or a 3xTF32 GEMM did not."""
-    import torch
-    if S is None:
-        from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
-        from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
     epi = {S.EPI_STORE: "store", S.EPI_SWIGLU: "swiglu", S.EPI_SWIGLU_BWD: "swiglu_bwd",
            S.EPI_OUT: "out"}
     core = {"gemm_nn": "core_nn", "gemm_tn": "core_tn", "colsum": "core_colsum"}
-    events = []
-    saved = []
-    for cls, names, lib in ((S.CudaPrims, ("gemm_nn", "gemm_tn", "colsum", "reduce", "norm_fwd",
-                                           "norm_bwd", "mask_rows"), "step_fp32"),
+    attn = ("qkv_split", "attn_fwd", "attn_bwd")
+    events, saved = [], []
+    for cls, names, lib in ((S.CudaPrims, ("gemm_nn", "gemm_tn", "reduce", "norm_fwd",
+                                           "norm_bwd", "mask_rows") + attn, "step_fp32"),
                             (getattr(U, "CorePrims", None), tuple(core), "ffn_core_fp32")):
         for name in names:
             real = getattr(cls, name, None)
             if real is None:
                 continue
             kernel = core[name] if lib == "ffn_core_fp32" else name
+            where = "attn_fp32" if name in ("attn_fwd", "attn_bwd") else lib
 
-            def timed(self, *a, _real=real, _key=f"{lib} {kernel}", **kw):
-                key = _key + (f" {epi[a[0]]}" if _key.endswith(("core_nn", "gemm_nn")) else "")
+            def timed(self, *a, _real=real, _key=f"{where} {kernel}", **kw):
+                key = _key
+                if _key.endswith(("core_nn", "gemm_nn")):
+                    key += f" {epi[a[0]]}" + (f" {a[3]}x{a[5]}" if shapes else "")
+                elif shapes and _key.endswith(("core_tn", "gemm_tn")):
+                    key += f" {a[1]}x{a[3]}"
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
                 out = _real(self, *a, **kw)
@@ -3752,15 +3711,66 @@ def _fp32_core_kernels(label, fn, backward, reps=2, S=None, U=None, check=True,
     for key, (start, end) in events:
         n, ms = out.get(key, (0, 0.0))
         out[key] = (n + 1, ms + start.elapsed_time(end))
-    out = {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
+    return {k: [n / reps, ms / reps] for k, (n, ms) in out.items()}
+
+
+def _modules(S, U):
+    if S is None:
+        from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+        from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    return S, U
+
+
+def _fp32_attn_launches(label, fn, backward, reps=2, S=None, U=None, check=True,
+                        gemms=False) -> dict:
+    """The launches of one fp32 attention call ``fn`` (#3 or #6, or with
+    ``backward`` #4 or #7; :func:`_caught_launches` with the GEMMs' K x N,
+    so that #3's QKV and out-projection and #4's do, dxn and weight products
+    stand apart; ``attn_fp32 attn_bwd`` is the core's dq and dk/dv kernels
+    in one call).  ``S`` / ``U``: the ``step_fp32`` / ``unfused_fp32``
+    modules whose prims are caught (this tree's by default; a benchmark
+    passes another checkout's).  Raises when the attention core did not run
+    once a call and, with ``check``, when an FFMA GEMM ran or, with
+    ``gemms`` (the attention step), a 3xTF32 GEMM did not."""
+    S, U = _modules(S, U)
+    out = _caught_launches(fn, reps, S, U, shapes=True)
+    print(f"[fp32-kernels] {label} {'backward' if backward else 'forward'}: per launch "
+          f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
+                                                        for k, (n, ms) in out.items()))
+    core = f"attn_fp32 {'attn_bwd' if backward else 'attn_fwd'}"
+    if out.get(core, [0])[0] != 1:
+        raise AssertionError(f"{label}: the 3xTF32 core {core} ran {out.get(core, [0])[0]} "
+                             f"times a call, not once")
+    _no_ffma_left(label, out, check, ("core_nn", "core_tn") if backward else ("core_nn",),
+                  gemms)
+    return out
+
+
+def _no_ffma_left(label, out, check, need, gemms=True):
+    """Raise (with ``check``) when an FFMA GEMM of ``step_fp32.cu`` ran in a
+    call's launches ``out``, or (with ``gemms``) a 3xTF32 GEMM of ``need``
+    did not."""
+    ffma = [k for k in out if k.startswith(("step_fp32 gemm_nn", "step_fp32 gemm_tn"))]
+    missing = [n for n in need if gemms and not any(k.startswith(f"ffn_core_fp32 {n}")
+                                                    for k in out)]
+    if check and (ffma or missing):
+        raise AssertionError(f"{label}: FFMA GEMMs {ffma} ran, 3xTF32 GEMMs {missing} did not")
+
+
+def _fp32_core_kernels(label, fn, backward, reps=2, S=None, U=None, check=True,
+                       tag="fp32-unfused") -> dict:
+    """The launches of one fp32 FFN call ``fn`` (#8 or #2, or with
+    ``backward`` #9 or #5; :func:`_caught_launches`: the 3xTF32 GEMMs by
+    kernel and epilogue, the norms, the outer mask, the reductions).  ``S`` /
+    ``U`` as :func:`_fp32_attn_launches` (``U`` None where a checkout has no
+    ``CorePrims``).  With ``check``, raises when an FFMA GEMM ran or a
+    3xTF32 GEMM did not."""
+    S, U = _modules(S, U)
+    out = _caught_launches(fn, reps, S, U)
     print(f"[{tag}] {label} {'backward' if backward else 'forward'}: per kernel "
           f"[launches, device ms] a call: " + ", ".join(f"{k} [{n:g}, {ms:.3f}]"
                                                         for k, (n, ms) in out.items()))
-    ffma = [k for k in out if k.startswith(("step_fp32 gemm_nn", "step_fp32 gemm_tn"))]
-    need = ("core_nn", "core_tn") if backward else ("core_nn",)
-    missing = [n for n in need if not any(k.startswith(f"ffn_core_fp32 {n}") for k in out)]
-    if check and (ffma or missing):
-        raise AssertionError(f"{label}: FFMA GEMMs {ffma} ran, 3xTF32 GEMMs {missing} did not")
+    _no_ffma_left(label, out, check, ("core_nn", "core_tn") if backward else ("core_nn",))
     return out
 
 
@@ -4997,8 +5007,11 @@ def main():
             entry["ffma_bound_ms"] = f["ffma_bound"][0]
             entry["kernels"] = f["kernels"]
         if k.startswith("attention_step_fp32"):
-            # the chain's attention core (csrc/attn_fp32.cu) among its launches
+            # the chain's attention core (csrc/attn_fp32.cu) and GEMMs
+            # (csrc/ffn_core_fp32.cu) among its launches, around the norms,
+            # mask and sums of its source
             entry["core_source"] = "mss_tf_locoformer_tpu_torch/csrc/attn_fp32.cu"
+            entry["gemm_source"] = "mss_tf_locoformer_tpu_torch/csrc/ffn_core_fp32.cu"
         if k.startswith("ffn_step_fp32"):
             # the norms, the outer mask and the reductions around the GEMMs
             entry["chain_source"] = "mss_tf_locoformer_tpu_torch/csrc/step_fp32.cu"

@@ -1,18 +1,22 @@
-// fp32 rows of the FFN GEMMs on the tensor cores in 3xTF32 (tf32x3.cuh):
-// those of the unfused route's FFN core, #8 (forward) and #9 (backward), and
-// those of the fused FFN step, #2 (forward) and #5 (backward).
+// fp32 rows of the GEMMs on the tensor cores in 3xTF32 (tf32x3.cuh): those
+// of the unfused route's FFN core, #8 (forward) and #9 (backward), of the
+// fused FFN step, #2 (forward) and #5 (backward), and of the fused attention
+// step, #3 (forward) and #4 (backward).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_ffn.py:221 _forward (pallas_call :244, body _kernel :153),
 //   ops/pallas/swiglu_ffn.py:363 _backward_pallas (pallas_call :398, body
 //   _bwd_kernel :286),
-//   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward
+//   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
+//   ops/pallas/attention_block.py:393 _attn_forward, :626 _attn_backward_pallas
 // at their fp32 itemsize.  ops/cuda/unfused_fp32.py (#8, #9) and
 // ops/cuda/step_fp32.py (#2, #5) chain them per row group (the conv with the
 // SwiGLU epilogue and the deconv; in the backward the conv again, dh, dx,
-// the two weight products and the bias gradients' column sums), with
-// step_fp32.cu's norms, outer mask and fixed-order reductions around them;
-// the FFMA GEMMs of step_fp32.cu (gemm_nn, gemm_tn) run in no FFN.
+// the two weight products and the bias gradients' column sums), and
+// ops/cuda/step_fp32.py (#3, #4) around attn_fp32.cu's core (the QKV
+// product, the out-projection with the output epilogue at the projection
+// site; in the backward do, dxn and the two weight products), with
+// step_fp32.cu's norms, masks and fixed-order reductions around them.
 //
 // Design: every product is fp32 to within FFMA's error but runs on the tensor
 // cores: each operand splits into TF32 hi and lo halves (rounded to nearest)
@@ -43,9 +47,10 @@
 //              Epilogues: store (+ bias); SwiGLU with the inner dropout site
 //              at (row, conv position, inner channel), the pre-activation kept
 //              for the backward; the SwiGLU backward (dh -> dy); the FFN
-//              step's output, res + drop_outer(acc + bias) with the outer site
-//              at (row, position, channel), or with no residual the partial
-//              sum alone.  Value and gate columns stay interleaved (2i,
+//              step's output, res + drop(acc + bias) with the step's site
+//              (the FFN's outer, the attention's projection) at (row,
+//              position, channel), or with no residual the partial sum
+//              alone.  Value and gate columns stay interleaved (2i,
 //              2i + 1), so a pair is one thread's.
 //   core_tn    weight gradients, part[s] = A^T B over the positions of
 //              split s: both operands are position-major (the positions are
@@ -308,7 +313,7 @@ __global__ void __launch_bounds__(NT, 1)
         const float b0 = e.bias ? e.bias[n] : 0.f, b1 = e.bias ? e.bias[n + 1] : 0.f;
         *reinterpret_cast<float2*>(e.out + m * e.ldo + n) = make_float2(a0 + b0, a1 + b1);
       } else if (EPI == EPI_OUT) {
-        // out = res + drop_outer(acc + bias) at (row, position, channel)
+        // out = res + drop(acc + bias) at (row, position, channel)
         float v0 = a0, v1 = a1;
         if (e.res) {
           if (e.bias) v0 += e.bias[n], v1 += e.bias[n + 1];

@@ -1,9 +1,9 @@
-// fp32 rows of the fused attention step (#3, #4) and the fused FFN step's
-// norms, outer mask and reductions (#2, #5); the RoPE split of the unfused
-// route's flash attention (#6, #7); the fixed-order reductions of the
-// unfused route's FFN core (#8, #9).  The FFN GEMMs (#2, #5, #8, #9) run in
-// ffn_core_fp32.cu, the attention core of #3, #4, #6 and #7 in attn_fp32.cu
-// (both 3xTF32 on the tensor cores).
+// fp32 rows of the fused steps (#2-#5): the RMSGroupNorm pair, the dropout
+// mask on an upstream gradient, the RoPE split and the fixed-order
+// reductions around the GEMMs of ffn_core_fp32.cu and the attention core of
+// attn_fp32.cu (both 3xTF32 on the tensor cores); the RoPE split of the
+// unfused route's flash attention (#6, #7); the fixed-order reductions of
+// the unfused route's FFN core (#8, #9).
 //
 // Replace, for fp32 rows, the JAX package's Pallas kernels
 //   ops/pallas/swiglu_block.py:279 _blk_forward, :456 _blk_backward,
@@ -12,32 +12,35 @@
 // core): fp32 operands and fp32 sums, no rounding to a narrower type
 // anywhere.  The bf16 kernels (swiglu_block.cu, attention_block.cu,
 // flash_attention.cu) stay as they are; ops/cuda/step_fp32.py chains the
-// kernels below with the other two files' into the four steps,
+// kernels below with the other two files' into the four steps (every GEMM
+// of #2-#5 on ffn_core_fp32.cu's core_nn / core_tn),
 // ops/cuda/unfused_fp32.py qkv_split and attn_fp32.cu's into the flash
 // forward and backward, and lends reduce to the FFN GEMMs' chains.
 //
-// Design: fp32 FFMA, no tensor cores, a short chain of launches through
-// device memory rather than one fused kernel:
-//   gemm_nn    out = epilogue(A @ B), the attention step's QKV product, its
-//              out-projection and their transposes: A's rows are windows of
-//              a per-row buffer (Win), B a dense weight panel; 128 x 64
-//              tiles, 8-deep stages double-buffered (the next stage loaded
-//              into registers while the current one is multiplied), 8 x 4
-//              outputs a thread.  Epilogues: store (+ bias); the step's
-//              output (bias, projection dropout site, residual).
-//   gemm_tn    weight gradients: A^T B summed over positions, one fp32
-//              partial per position split (no atomics), summed by reduce.
+//   norm_fwd / norm_bwd   RMSGroupNorm, a warp per position: lane l holds
+//              channels 4l .. 4l + 3 as one float4 (C <= 128), so a warp
+//              reads a position's row in one coalesced pass; each group's
+//              sum of squares (and in the backward its dot product) is the
+//              lanes' partials (fmaf in channel order) summed by shuffles:
+//              a tree over the group's lanes where groups are whole float4s
+//              (C / G 24 or 32 at the shipped widths: 6 or 8 lanes), else a
+//              butterfly over the warp per group (a float4 straddles two
+//              groups).  The reciprocal and the square root once a group,
+//              as the Pallas kernels' norm.  Four positions a warp, their
+//              loads issued together.  The backward writes dx (+ gres, the
+//              residual's gradient) and per-block dgamma partials: each
+//              lane sums its channels over its warp's positions in order,
+//              the block's eight warps are summed in order (no atomics).
 //   reduce     partials summed in a fixed order (the same bits every run).
-//   norm_fwd / norm_bwd   RMSGroupNorm per (position, group); the backward
-//              writes dx and per-block dgamma partials.
 //   mask_rows  the outer / projection dropout site on the upstream gradient.
 //   qkv_split  q, k (RoPE) and v into [R, H, Lp, DP] (head dims zero-padded
 //              to DP: 32 for the steps; 16, 32 or 64 for flash attention),
 //              the layout attn_fp32.cu's kernels read.
-// Bound: FLOP at the fp32 rate (67 TFLOP/s); the norms and masks move bytes.
-// What the design gives up: the intermediates (the projected rows) pass
-// through device memory, and no kernel overlaps loads with products (the
-// 3xTF32 kernels of ffn_core_fp32.cu could take these GEMMs too).
+// Bound: the bytes each kernel moves at 3.35 TB/s (norm_fwd reads x and
+// writes xn; norm_bwd reads x, dxn and gres and writes dx).  What the
+// design gives up: the normed rows pass through device memory between the
+// norm and the GEMM that reads them (the norm applied as core_nn loads A
+// would save a read and a write of them).
 //
 // Dropout masks come from philox.cuh at the bf16 kernels' coordinates
 // (ops/dropout.py): the outer and projection sites at (row, position,
@@ -47,214 +50,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "philox.cuh"
 
 namespace f32 {
 
-constexpr int BM = 128, BN = 64, BK = 8, NT = 256;   // GEMM tile, 8 x 4 a thread
-constexpr int TM = 8, TN = 4;
-constexpr int LDA = BM + 4, LDB = BN + 4;    // staged rows (k-major), 16-byte aligned
-constexpr int GEMM_SMEM = 2 * BK * (LDA + LDB) * 4;
 constexpr int KT = 64;                   // qkv_split's Lp: a multiple of 64 rows
-constexpr int NP = 64;                   // positions per norm_bwd block
-
-// The epilogues' numbers are ffn_core_fp32.cu's (1 and 2, SwiGLU and its
-// backward, run there only).
-enum { EPI_STORE = 0, EPI_OUT = 3 };
-
-// A matrix whose row m = (r, p), r = m / P, is the window of the per-row
-// buffer p_ + r * rs starting at offset p * ps + shift; an element whose
-// offset lies outside [0, lim) is zero.  Strides, shifts and limits are
-// multiples of 4 floats and the buffer is 16-byte aligned (the wrapper
-// checks), so a group of 4 columns is all in or all out and loads as one
-// float4.
-struct Win {
-  const float* p_;
-  long long rs, P, ps, shift, lim;
-};
-
-__device__ __forceinline__ const float* win_row(const Win& w, long long m, long long& off) {
-  const long long r = m / w.P, p = m - r * w.P;
-  off = p * w.ps + w.shift;
-  return w.p_ + r * w.rs;
-}
-
-__device__ __forceinline__ float4 load4(const float* row, long long off, long long lim) {
-  if (off < 0 || off >= lim) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return *reinterpret_cast<const float4*>(row + off);
-}
-
-struct Epi {
-  float* out;
-  long long ldo;
-  const float* bias;  // [N] or null
-  const float* res;   // EPI_OUT: the residual [M, N] (null: partial-sum mode)
-  long long P;        // positions per row, for the mask coordinates
-  uint32_t site;
-  DropParams dp;
-};
-
-__device__ __forceinline__ void mma_tile(const float* As, const float* Bs, int ty, int tx,
-                                         float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(As + kk * LDA + ty * TM);
-    const float4 a1 = *reinterpret_cast<const float4*>(As + kk * LDA + ty * TM + 4);
-    const float4 b4 = *reinterpret_cast<const float4*>(Bs + kk * LDB + tx * TN);
-    const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[TN] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[m, n] = epilogue(sum_k A(m, k) B[k, n]); K and N multiples of 4.  The
-// next 8-deep stage is loaded into registers while the current one is
-// multiplied from shared memory (two buffers, one barrier a stage).
-template <int EPI>
-__global__ void __launch_bounds__(NT) gemm_nn(Win a, long long M, int K,
-                                              const float* __restrict__ B, int N, Epi e) {
-  __shared__ __align__(16) float As[2][BK * LDA];
-  __shared__ __align__(16) float Bs[2][BK * LDB];
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int la_r = t >> 1, la_c = (t & 1) * 4;    // A: 128 rows x 8 columns
-  const int lb_r = t >> 4, lb_c = (t & 15) * 4;   // B: 8 rows x 64 columns (t < 128)
-  const bool lb = t < 128;
-  const long long am = m0 + la_r;
-  const bool am_ok = am < M;
-  long long aoff = 0;
-  const float* arow = am_ok ? win_row(a, am, aoff) : a.p_;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load_a = [&](int k0) {
-    return am_ok && k0 + la_c < K ? load4(arow, aoff + k0 + la_c, a.lim) : zero;
-  };
-  auto load_b = [&](int k0) {
-    return lb && k0 + lb_r < K && n0 + lb_c < N
-               ? *reinterpret_cast<const float4*>(B + (long long)(k0 + lb_r) * N + n0 + lb_c)
-               : zero;
-  };
-  auto stage = [&](int buf, float4 va, float4 vb) {
-    float* as = As[buf];
-    as[(la_c + 0) * LDA + la_r] = va.x;
-    as[(la_c + 1) * LDA + la_r] = va.y;
-    as[(la_c + 2) * LDA + la_r] = va.z;
-    as[(la_c + 3) * LDA + la_r] = va.w;
-    if (lb) *reinterpret_cast<float4*>(Bs[buf] + lb_r * LDB + lb_c) = vb;
-  };
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  stage(0, load_a(0), load_b(0));
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    float4 va = zero, vb = zero;
-    if (more) {
-      va = load_a(k0 + BK);
-      vb = load_b(k0 + BK);
-    }
-    mma_tile(As[buf], Bs[buf], ty, tx, acc);
-    if (more) stage(buf ^ 1, va, vb);
-    __syncthreads();
-    buf ^= 1;
-  }
-  const int nb = n0 + tx * TN;
-  if (nb >= N) return;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    const long long r = m / e.P, p = m - r * e.P;
-    const uint32_t row = e.dp.row0 + (uint32_t)r;
-    if (EPI == EPI_STORE) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        e.out[m * e.ldo + nb + j] = acc[i][j] + (e.bias ? e.bias[nb + j] : 0.f);
-    } else if (EPI == EPI_OUT) {
-      Philox4 w;
-      const bool drop = e.res && e.dp.on;
-      if (drop) w = dropout_words(e.dp.seed, e.site, row, (uint32_t)p, (uint32_t)(nb >> 2), 0u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = acc[i][j] + (e.bias ? e.bias[nb + j] : 0.f);
-        if (drop) v = w.w[j] < e.dp.thr ? v * e.dp.scale : 0.f;
-        if (e.res) v += e.res[m * N + nb + j];
-        e.out[m * e.ldo + nb + j] = v;
-      }
-    }
-  }
-}
-
-// part[s][m][n] = sum over positions q of split s of A(q, m) B(q, n); M and
-// N multiples of 4.
-__global__ void __launch_bounds__(NT) gemm_tn(Win a, int M, Win b, int N, long long total,
-                                              long long per, float* __restrict__ part) {
-  __shared__ __align__(16) float As[2][BK * LDA];
-  __shared__ __align__(16) float Bs[2][BK * LDB];
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const long long q0 = (long long)blockIdx.z * per;
-  const long long q1 = total < q0 + per ? total : q0 + per;
-  const int la_r = t >> 5, la_c = (t & 31) * 4;   // A: 8 positions x 128 columns
-  const int lb_r = t >> 4, lb_c = (t & 15) * 4;   // B: 8 positions x 64 columns (t < 128)
-  const bool lb = t < 128;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load_a = [&](long long qc) {
-    const long long q = qc + la_r;
-    if (q >= q1 || m0 + la_c >= M) return zero;
-    long long off;
-    const float* row = win_row(a, q, off);
-    return load4(row, off + m0 + la_c, a.lim);
-  };
-  auto load_b = [&](long long qc) {
-    const long long q = qc + lb_r;
-    if (!lb || q >= q1 || n0 + lb_c >= N) return zero;
-    long long off;
-    const float* row = win_row(b, q, off);
-    return load4(row, off + n0 + lb_c, b.lim);
-  };
-  auto stage = [&](int buf, float4 va, float4 vb) {
-    *reinterpret_cast<float4*>(As[buf] + la_r * LDA + la_c) = va;
-    if (lb) *reinterpret_cast<float4*>(Bs[buf] + lb_r * LDB + lb_c) = vb;
-  };
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  stage(0, load_a(q0), load_b(q0));
-  __syncthreads();
-  int buf = 0;
-  for (long long qc = q0; qc < q1; qc += BK) {
-    const bool more = qc + BK < q1;
-    float4 va = zero, vb = zero;
-    if (more) {
-      va = load_a(qc + BK);
-      vb = load_b(qc + BK);
-    }
-    mma_tile(As[buf], Bs[buf], ty, tx, acc);
-    if (more) stage(buf ^ 1, va, vb);
-    __syncthreads();
-    buf ^= 1;
-  }
-  const int nb = n0 + tx * TN;
-  if (nb >= N) return;
-  float* out = part + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) out[(long long)m * N + nb + j] = acc[i][j];
-  }
-}
+constexpr int NW = 8;                    // warps a norm block
+constexpr int NPW = 4;                   // positions a warp of a norm block
+constexpr int NP = NW * NPW;             // positions a norm block (norm_bwd's partial rows)
+constexpr int MAX_C = 128;               // one float4 a lane
 
 // out[g][i] = sum_{s in [g seg, (g + 1) seg) and < S} part[s][i], in order.
 __global__ void reduce(const float* __restrict__ part, long long S, long long n, long long seg,
@@ -268,64 +74,191 @@ __global__ void reduce(const float* __restrict__ part, long long S, long long n,
   out[(long long)blockIdx.y * n + i] = acc;
 }
 
-// RMSGroupNorm per (position, group): xn = x / (rms + eps) * gamma,
-// rms = sqrt(sum x^2) * dpg^-1/2 (the reference's eps placement).
-__global__ void norm_fwd(const float* __restrict__ x, const float* __restrict__ gamma,
-                         float* __restrict__ xn, long long npos, int C, int G, float eps) {
-  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= npos * G) return;
-  const long long pos = item / G;
-  const int g = (int)(item - pos * G), dpg = C / G;
-  const float* s = x + pos * C + g * dpg;
-  float ss = 0.f;
-  for (int c = 0; c < dpg; ++c) ss = fmaf(s[c], s[c], ss);
-  const float den = sqrtf(ss) * (1.f / sqrtf((float)dpg)) + eps;
-  float* d = xn + pos * C + g * dpg;
-  for (int c = 0; c < dpg; ++c) d[c] = s[c] / den * gamma[g * dpg + c];
+// This lane's channels 4 lane + j of a row of C: their groups (-1 past C).
+// Where groups are whole float4s (dpg % 4 == 0: ``seg``), a lane's channels
+// are one group's, which lanes [base, base + L) hold (i = lane - base); a
+// lane past C is a group of its own.
+struct NormLane {
+  int grp[4], i, L, base;
+  bool on, seg;
+  __device__ NormLane(int C, int dpg) {
+    const int lane = threadIdx.x & 31;
+    on = 4 * lane < C;
+    seg = dpg % 4 == 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) grp[j] = on ? (4 * lane + j) / dpg : -1;
+    L = on && seg ? dpg / 4 : 1;
+    base = on && seg ? grp[0] * L : lane;
+    i = lane - base;
+  }
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// The norm's backward from dxn: dx (+ gres, the residual's gradient, when
-// given) and per-block dgamma partials part[block][c] over NP positions.
-__global__ void norm_bwd(const float* __restrict__ x, const float* __restrict__ gamma,
-                         const float* __restrict__ dxn, const float* __restrict__ gres,
-                         float* __restrict__ dx, float* __restrict__ part, long long npos,
-                         int C, int G, float eps) {
-  extern __shared__ float red[];   // [NP][C]
-  const int dpg = C / G;
+__device__ __forceinline__ void unpack(const float4 v, float (&a)[4]) {
+  a[0] = v.x, a[1] = v.y, a[2] = v.z, a[3] = v.w;
+}
+
+// s[j] = the sum over channel j's group of a[c] b[c] and, with TWO, t[j]
+// that of u[c] b[c] (0 past C), the same bits in every lane of the group.
+// Whole-float4 groups: each lane's partial (fmaf in channel order), a tree
+// into the group's first lane (at distance 16, 8, 4, 2, 1, within the
+// group), broadcast from it.  Other groups: per group, each lane's partial
+// of its channels there, a butterfly over the warp.  Every lane of the
+// warp calls (the shuffles).
+template <bool TWO>
+__device__ __forceinline__ void group_sums(const NormLane& ln, int G, const float (&a)[4],
+                                           const float (&u)[4], const float (&b)[4],
+                                           float (&s)[4], float (&t)[4]) {
+  constexpr unsigned ALL = 0xffffffffu;
+  if (ln.seg) {
+    float ps = 0.f, pt = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ps = fmaf(a[j], b[j], ps);
+      if (TWO) pt = fmaf(u[j], b[j], pt);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float ws = __shfl_down_sync(ALL, ps, o);
+      const float wt = TWO ? __shfl_down_sync(ALL, pt, o) : 0.f;
+      if (ln.i + o < ln.L) {
+        ps += ws;
+        if (TWO) pt += wt;
+      }
+    }
+    ps = __shfl_sync(ALL, ps, ln.base);
+    if (TWO) pt = __shfl_sync(ALL, pt, ln.base);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = ps, t[j] = pt;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = t[j] = 0.f;
+  for (int g = 0; g < G; ++g) {
+    float ps = 0.f, pt = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ln.grp[j] == g) {
+        ps = fmaf(a[j], b[j], ps);
+        if (TWO) pt = fmaf(u[j], b[j], pt);
+      }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      ps += __shfl_xor_sync(ALL, ps, o);
+      if (TWO) pt += __shfl_xor_sync(ALL, pt, o);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ln.grp[j] == g) s[j] = ps, t[j] = pt;
+  }
+}
+
+// Per channel j, of its group's sums: inv = 1 / (rms + eps), rms = sqrt(ss)
+// dpg^-1/2 (the reference's eps placement) and, with BWD, coef = dot inv^2
+// / (dpg rms), 0 at rms 0; once a lane where its channels are one group's.
+template <bool BWD>
+__device__ __forceinline__ void norm_terms(const NormLane& ln, const float (&ss)[4],
+                                           const float (&dot)[4], int dpg, float eps,
+                                           float (&inv)[4], float (&coef)[4]) {
   const float rd = 1.f / sqrtf((float)dpg);
-  const long long p0 = (long long)blockIdx.x * NP;
-  for (int item = threadIdx.x; item < NP * G; item += blockDim.x) {
-    const int pl = item / G, g = item % G;
-    const long long pos = p0 + pl;
-    float* rr = red + pl * C + g * dpg;
-    if (pos >= npos) {
-      for (int c = 0; c < dpg; ++c) rr[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (ln.seg && j > 0) {
+      inv[j] = inv[0], coef[j] = coef[0];
       continue;
     }
-    const long long o = pos * C + g * dpg;
-    const float* xs = x + o;
-    const float* ds = dxn + o;
-    const float* gm = gamma + g * dpg;
-    float ss = 0.f, dot = 0.f;
-    for (int c = 0; c < dpg; ++c) {
-      ss = fmaf(xs[c], xs[c], ss);
-      dot = fmaf(ds[c] * gm[c], xs[c], dot);
-    }
-    const float rms = sqrtf(ss) * rd, den = rms + eps;
-    // d den / d x_c = x_c rd^2 / rms
-    const float coef = rms > 0.f ? dot * rd * rd / (rms * den * den) : 0.f;
-    for (int c = 0; c < dpg; ++c) {
-      float v = ds[c] * gm[c] / den - xs[c] * coef;
-      if (gres) v += gres[o + c];
-      dx[o + c] = v;
-      rr[c] = ds[c] * (xs[c] / den);
-    }
+    const float rms = sqrtf(ss[j]) * rd;
+    inv[j] = 1.f / (rms + eps);
+    coef[j] = BWD && rms > 0.f ? dot[j] * inv[j] * inv[j] / ((float)dpg * rms) : 0.f;
   }
+}
+
+// RMSGroupNorm per (position, group), as the Pallas kernels' _norm_t:
+// xn = x inv gamma.  Warp w of block b takes positions (b NW + w) NPW + t,
+// t < NPW.
+__global__ void __launch_bounds__(NW * 32)
+    norm_fwd(const float* __restrict__ x, const float* __restrict__ gamma,
+             float* __restrict__ xn, long long npos, int C, int G, float eps) {
+  const int lane = threadIdx.x & 31, dpg = C / G;
+  const NormLane ln(C, dpg);
+  const long long p0 = ((long long)blockIdx.x * NW + (threadIdx.x >> 5)) * NPW;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float gm[4];
+  unpack(ln.on ? ld4(gamma + 4 * lane) : zero, gm);
+  float4 v[NPW];
+#pragma unroll
+  for (int t = 0; t < NPW; ++t)
+    v[t] = ln.on && p0 + t < npos ? ld4(x + (p0 + t) * C + 4 * lane) : zero;
+#pragma unroll
+  for (int t = 0; t < NPW; ++t) {
+    if (p0 + t >= npos) break;   // the same for every lane of the warp
+    float a[4], ss[4], none[4], inv[4];
+    unpack(v[t], a);
+    group_sums<false>(ln, G, a, a, a, ss, none);
+    norm_terms<false>(ln, ss, none, dpg, eps, inv, none);
+    if (ln.on)
+      *reinterpret_cast<float4*>(xn + (p0 + t) * C + 4 * lane) = make_float4(
+          a[0] * inv[0] * gm[0], a[1] * inv[1] * gm[1], a[2] * inv[2] * gm[2],
+          a[3] * inv[3] * gm[3]);
+  }
+}
+
+// The norm's backward from dxn, positions as norm_fwd's, as the Pallas
+// kernels': dx = gamma dxn inv - x coef (+ gres, the residual's gradient,
+// when given), coef from the group's dot(gamma dxn, x); dgamma partials
+// part[block][c] = the sum of dxn x inv over the block's NP positions.
+__global__ void __launch_bounds__(NW * 32)
+    norm_bwd(const float* __restrict__ x, const float* __restrict__ gamma,
+             const float* __restrict__ dxn, const float* __restrict__ gres,
+             float* __restrict__ dx, float* __restrict__ part, long long npos, int C, int G,
+             float eps) {
+  extern __shared__ float4 red[];   // [NW][C / 4]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, dpg = C / G;
+  const NormLane ln(C, dpg);
+  const long long p0 = ((long long)blockIdx.x * NW + warp) * NPW;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float gm[4];
+  unpack(ln.on ? ld4(gamma + 4 * lane) : zero, gm);
+  float4 xv[NPW], dv[NPW], rv[NPW];
+#pragma unroll
+  for (int t = 0; t < NPW; ++t) {
+    const bool ok = ln.on && p0 + t < npos;
+    const long long o = (p0 + t) * C + 4 * lane;
+    xv[t] = ok ? ld4(x + o) : zero;
+    dv[t] = ok ? ld4(dxn + o) : zero;
+    rv[t] = ok && gres ? ld4(gres + o) : zero;
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < NPW; ++t) {
+    if (p0 + t >= npos) break;   // the same for every lane of the warp
+    float a[4], d[4], r[4], dg[4], ss[4], dot[4], inv[4], coef[4], o[4];
+    unpack(xv[t], a);
+    unpack(dv[t], d);
+    unpack(rv[t], r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dg[j] = d[j] * gm[j];
+    group_sums<true>(ln, G, a, dg, a, ss, dot);
+    norm_terms<true>(ln, ss, dot, dpg, eps, inv, coef);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = dg[j] * inv[j] - a[j] * coef[j] + r[j];
+      acc[j] += d[j] * a[j] * inv[j];
+    }
+    if (ln.on)
+      *reinterpret_cast<float4*>(dx + (p0 + t) * C + 4 * lane) =
+          make_float4(o[0], o[1], o[2], o[3]);
+  }
+  if (ln.on) red[warp * (C / 4) + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
   __syncthreads();
+  const float* rf = reinterpret_cast<const float*>(red);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float acc = 0.f;
-    for (int pl = 0; pl < NP; ++pl) acc += red[pl * C + c];
-    part[(long long)blockIdx.x * C + c] = acc;
+    float s = 0.f;
+    for (int w = 0; w < NW; ++w) s += rf[w * C + c];
+    part[(long long)blockIdx.x * C + c] = s;
   }
 }
 
@@ -373,18 +306,6 @@ __global__ void qkv_split(const float* __restrict__ qkv, const float* __restrict
   v[o + 1] = s[2 * A + 1];
 }
 
-inline Win win(const void* p, long long rs, long long P, long long ps, long long shift,
-               long long lim) {
-  Win w;
-  w.p_ = (const float*)p;
-  w.rs = rs;
-  w.P = P;
-  w.ps = ps;
-  w.shift = shift;
-  w.lim = lim;
-  return w;
-}
-
 inline DropParams drop(unsigned seed, unsigned thr, unsigned row0, float scale, int on) {
   DropParams dp;
   dp.seed = seed;
@@ -397,56 +318,31 @@ inline DropParams drop(unsigned seed, unsigned thr, unsigned row0, float scale, 
 
 inline unsigned blocks(long long n, int per) { return (unsigned)((n + per - 1) / per); }
 
+// The norms' refusals: C whole float4s up to MAX_C, whole groups, 16-byte
+// aligned rows.
+inline bool norm_ok(int C, int G, std::initializer_list<const void*> ptrs) {
+  if (C < 4 || C > MAX_C || C % 4 || G < 1 || C % G) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
+}
+
 }  // namespace f32
 
 using namespace f32;
 
-// Shared memory of each launch (bytes): 0 gemm_nn / gemm_tn, 1 norm_bwd at
-// width C (the attention core's: attn_fp32.cu's f32_attn_smem_bytes).
+// Shared memory of each launch (bytes): 0 norm_bwd at width C (its warps'
+// dgamma partials; the GEMMs' are ffn_core_fp32.cu's core_fp32_smem_bytes,
+// the attention core's attn_fp32.cu's f32_attn_smem_bytes).
 extern "C" long long step_fp32_smem_bytes(int which, int C) {
   switch (which) {
-    case 0: return GEMM_SMEM;
-    case 1: return (long long)NP * C * 4;
+    case 0: return (long long)NW * C * 4;
   }
   return -1;
 }
 
-#define WIN_ARGS(n) const void *n##_p, long long n##_rs, long long n##_P, long long n##_ps, \
-                    long long n##_shift, long long n##_lim
-#define WIN(n) win(n##_p, n##_rs, n##_P, n##_ps, n##_shift, n##_lim)
-
-extern "C" int f32_gemm_nn(int epi, WIN_ARGS(a), long long M, int K, const void* B, int N,
-                           void* out, long long ldo, const void* bias, const void* res,
-                           long long P, unsigned site, unsigned seed, unsigned thr,
-                           unsigned row0, float scale, int on, void* stream) {
-  if (K % 4 || N % 4 || M < 1) return (int)cudaErrorInvalidValue;
-  Epi e;
-  e.out = (float*)out;
-  e.ldo = ldo;
-  e.bias = (const float*)bias;
-  e.res = (const float*)res;
-  e.P = P;
-  e.site = site;
-  e.dp = drop(seed, thr, row0, scale, on);
-  const dim3 grid(blocks(M, BM), blocks(N, BN));
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Win a = WIN(a);
-  switch (epi) {
-    case EPI_STORE: gemm_nn<EPI_STORE><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e); break;
-    case EPI_OUT: gemm_nn<EPI_OUT><<<grid, NT, 0, st>>>(a, M, K, (const float*)B, N, e); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int f32_gemm_tn(WIN_ARGS(a), int M, WIN_ARGS(b), int N, long long total, int S,
-                           void* part, void* stream) {
-  if (M % 4 || N % 4 || S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
-  const long long per = (total + S - 1) / S;
-  gemm_tn<<<dim3(blocks(M, BM), blocks(N, BN), S), NT, 0, (cudaStream_t)stream>>>(
-      WIN(a), M, WIN(b), N, total, per, (float*)part);
-  return (int)cudaGetLastError();
-}
+// Positions a norm_bwd block sums its dgamma partial over.
+extern "C" int step_fp32_norm_positions() { return NP; }
 
 extern "C" int f32_reduce(const void* part, long long S, long long n, long long seg, void* out,
                           void* stream) {
@@ -458,8 +354,9 @@ extern "C" int f32_reduce(const void* part, long long S, long long n, long long 
 
 extern "C" int f32_norm_fwd(const void* x, const void* gamma, void* xn, long long npos, int C,
                             int G, float eps, void* stream) {
-  if (G < 1 || C % G) return (int)cudaErrorInvalidValue;
-  norm_fwd<<<blocks(npos * G, 256), 256, 0, (cudaStream_t)stream>>>(
+  if (!norm_ok(C, G, {x, gamma, xn})) return (int)cudaErrorInvalidValue;
+  if (npos < 1) return 0;
+  norm_fwd<<<blocks(npos, NP), NW * 32, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)gamma, (float*)xn, npos, C, G, eps);
   return (int)cudaGetLastError();
 }
@@ -467,12 +364,9 @@ extern "C" int f32_norm_fwd(const void* x, const void* gamma, void* xn, long lon
 extern "C" int f32_norm_bwd(const void* x, const void* gamma, const void* dxn, const void* gres,
                             void* dx, void* part, long long npos, int C, int G, float eps,
                             void* stream) {
-  if (G < 1 || C % G) return (int)cudaErrorInvalidValue;
-  const int smem = NP * C * 4;
-  if (smem > 48 * 1024 &&
-      cudaFuncSetAttribute(norm_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
-    return (int)cudaGetLastError();
-  norm_bwd<<<blocks(npos, NP), 256, smem, (cudaStream_t)stream>>>(
+  if (!norm_ok(C, G, {x, gamma, dxn, gres, dx})) return (int)cudaErrorInvalidValue;
+  if (npos < 1) return 0;
+  norm_bwd<<<blocks(npos, NP), NW * 32, NW * C * 4, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)gamma, (const float*)dxn, (const float*)gres, (float*)dx,
       (float*)part, npos, C, G, eps);
   return (int)cudaGetLastError();

@@ -11,13 +11,14 @@ fp32 by default.  The bf16 kernels (``swiglu_block.cu``,
 nothing casts it to bf16.  Same contracts as the bf16 kernels (the
 RMSGroupNorm prologue, both dropout sites of each step at the same Philox
 coordinates, ``row0``, the partial-sum mode ``residual=False``), with fp32
-operands and fp32 sums throughout.  The FFN step's GEMMs run on the
-tensor cores in three TF32 passes (``csrc/ffn_core_fp32.cu``, as accurate
-as FFMA: one TF32 pass would round operands to 11 significant bits), the
-unfused FFN core's kernels (``unfused_fp32.CorePrims``), as does the
-attention core (``csrc/attn_fp32.cu``); the attention step's QKV and
-out-projection GEMMs and weight products, and the norms, run in fp32 FFMA
-(``csrc/step_fp32.cu``).
+operands and fp32 sums throughout.  Every GEMM of the four steps runs on
+the tensor cores in three TF32 passes (``csrc/ffn_core_fp32.cu``, the
+unfused FFN core's kernels, ``unfused_fp32.CorePrims``: ``core_nn`` and
+``core_tn``; as accurate as FFMA: one TF32 pass would round operands to 11
+significant bits), as does the attention core (``csrc/attn_fp32.cu``); the
+norms, the outer / projection mask, the RoPE split and the fixed-order
+sums are ``csrc/step_fp32.cu``'s (the norms a warp per position, reading
+rows coalesced).
 
 Each step is a chain of launches through device memory (the .cu files'
 headers list the kernels):
@@ -36,14 +37,20 @@ headers list the kernels):
   partials), and the weight gradients (``core_tn``) and bias gradients
   (``core_colsum``) as per-split partials over positions; all partials
   summed in a fixed order (``reduce``) once every group has run.
-* Attention forward: norm -> QKV GEMM -> q, k (RoPE), v as ``[R, H, Lp,
-  32]`` -> the core (``attn_fp32.cu``: 3xTF32 scores and products, the
-  softmax in the exp2 domain with a lazy max) -> out-projection GEMM with
-  the output epilogue.  The stash for the backward: q, k, v, o
+* Attention forward: norm -> QKV (``core_nn``, store) -> q, k (RoPE), v
+  as ``[R, H, Lp, 32]`` -> the core (``attn_fp32.cu``: 3xTF32 scores and
+  products, the softmax in the exp2 domain with a lazy max) -> the
+  out-projection (``core_nn`` with the output epilogue: no bias, the
+  projection mask at (row, position, channel), the residual; with no
+  residual the products alone).  The stash for the backward: q, k, v, o
   and the log-sum-exp.
-* Attention backward: the projection mask on g, do = dproj W_out, the core's
-  dq and dk/dv kernels (``attn_fp32.cu``, RoPE undone), dxn = dqkv W_qkv,
-  the norm's backward, the weight gradients as per-split partials.
+* Attention backward: the projection mask on g, do = dproj W_out
+  (``core_nn``), the core's dq and dk/dv kernels (``attn_fp32.cu``, RoPE
+  undone), the forward's norm again, dxn = dqkv W_qkv (``core_nn``), the
+  norm's backward, the weight gradients (``core_tn``) as per-split
+  partials summed in a fixed order.  The four weight panels (``W_qkv^T``,
+  ``W_out^T`` and the weights as stored, K-major and split into TF32
+  halves: :func:`attn_panels`) are made once per weight version.
 
 Each step counts one launch per call on its own function (:func:`ffn_forward`,
 :func:`ffn_backward`, :func:`attention_forward`, :func:`attention_backward`),
@@ -69,18 +76,16 @@ from . import SMEM_OPTIN, cached_panels, check, load, ptr, stream_handle
 
 __all__ = ["Win", "attn_launch_bytes", "compiled_attn_launch_bytes", "launch_bytes",
            "compiled_launch_bytes", "ffn_launch_bytes", "compiled_ffn_launch_bytes",
-           "supports_ffn",
-           "supports_attention", "ffn_rows", "ffn_forward", "ffn_backward",
-           "attention_forward", "attention_backward", "ffn_panels", "SCRATCH_CAP",
-           "EPI_STORE", "EPI_SWIGLU", "EPI_SWIGLU_BWD", "EPI_OUT"]
+           "supports_ffn", "supports_attention", "ffn_rows", "ffn_forward", "ffn_backward",
+           "attention_forward", "attention_backward", "ffn_panels", "attn_panels",
+           "SCRATCH_CAP", "EPI_STORE", "EPI_SWIGLU", "EPI_SWIGLU_BWD", "EPI_OUT"]
 
 CHANNELS = (32, 64, 96, 128)    # the step widths the gates admit, as for bf16 rows
-BM, BN = 128, 64                # GEMM tile (8 x 4 outputs a thread)
-BK = 8                          # GEMM stage depth (two stages in flight)
 QT = 64                         # rows of q, k, v padded to a multiple of this
 DP = 32                         # head dims, zero-padded
 ATTN_STAGES, ATTN_CHUNK = 3, 64   # the attention core's cp.async ring of 64-row chunks
-NP = 64                         # positions per norm-backward block
+NORM_WARPS = 8                  # warps a norm block, a position a warp at a time
+NP = 32                         # positions a norm block (4 a warp): dgamma partial rows
 SCRATCH_CAP = 1 << 30           # bytes of fp32 scratch per FFN row group
 _SMS = 132
 EPI_STORE, EPI_SWIGLU, EPI_SWIGLU_BWD, EPI_OUT = range(4)
@@ -112,29 +117,49 @@ def compiled_attn_launch_bytes(dp: int) -> dict:
     return {"attn": fn(0, dp), "dkdv": fn(1, dp)}
 
 
-def launch_bytes(c: int, training: bool = False) -> dict:
-    """Shared memory of each launch of the attention step: the FFMA GEMMs'
-    two buffers of an 8-deep stage of A (128 + 4 floats a row) and B (64 +
-    4) (csrc/step_fp32.cu), the attention core's at DP 32
-    (:func:`attn_launch_bytes`; the dk/dv kernel's only in training), and
-    (in training) the norm backward's 64 positions of C floats."""
-    attn = attn_launch_bytes(DP)
-    out = {"gemm": 2 * BK * (BM + 4 + BN + 4) * 4, "attn": attn["attn"]}
-    if training:
-        out.update(dkdv=attn["dkdv"], norm_bwd=NP * c * 4)
-    return out
+def _norm_bwd_bytes(c: int) -> int:
+    """The norm backward's shared memory: its warps' dgamma partials."""
+    return NORM_WARPS * c * 4
 
 
-def compiled_launch_bytes(c: int, training: bool = False) -> dict:
-    """:func:`launch_bytes` as the compiled kernels count them."""
+def _compiled_norm_bwd_bytes(c: int) -> int:
     fn = load("step_fp32").step_fp32_smem_bytes
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int] * 2
-    attn = compiled_attn_launch_bytes(DP)
-    out = {"gemm": fn(0, c), "attn": attn["attn"]}
+    return fn(0, c)
+
+
+def _attn_layouts(nn: dict, attn: dict, norm_bwd: int, c: int, a: int, training: bool) -> dict:
+    U = _core()
+    tile = lambda n: nn[U.NN_KEY[U.core_tile(n)]]
+    out = {"qkv": tile(3 * a), "attn": attn["attn"], "proj": tile(c)}
     if training:
-        out.update(dkdv=attn["dkdv"], norm_bwd=fn(1, c))
+        out.update(dout=tile(a), dkdv=attn["dkdv"], dxn=tile(c), tn=nn["tn"], norm_bwd=norm_bwd)
     return out
+
+
+def launch_bytes(c: int, a: int, training: bool = False) -> dict:
+    """Shared memory of each launch of the attention step: ``core_nn`` at the
+    tile width (``unfused_fp32.core_tile``) of the QKV product (N = 3A) and
+    the out-projection (N = C), the attention core's at DP 32
+    (:func:`attn_launch_bytes`); in training also ``core_nn`` for do (N = A)
+    and dxn (N = C), ``core_tn``, the core's dk/dv kernel and the norm
+    backward's dgamma partials."""
+    return _attn_layouts(_core().core_launch_bytes(), attn_launch_bytes(DP), _norm_bwd_bytes(c),
+                         c, a, training)
+
+
+def compiled_launch_bytes(c: int, a: int, training: bool = False) -> dict:
+    """:func:`launch_bytes` as the compiled kernels count them."""
+    return _attn_layouts(_core().compiled_core_launch_bytes(), compiled_attn_launch_bytes(DP),
+                         _compiled_norm_bwd_bytes(c), c, a, training)
+
+
+def compiled_norm_positions() -> int:
+    """:data:`NP` as the compiled norm backward counts it."""
+    fn = load("step_fp32").step_fp32_norm_positions
+    fn.restype, fn.argtypes = ctypes.c_int, []
+    return fn()
 
 
 def _core():
@@ -157,16 +182,14 @@ def ffn_launch_bytes(c: int, inner: int, training: bool = False) -> dict:
     """Shared memory of each launch of the FFN step: ``core_nn`` at the tile
     width (``unfused_fp32.core_tile``) of the conv (N = 2I) and the deconv
     (N = C); in training also of dh (N = I) and dx (N = C), ``core_tn``,
-    and the norm backward's 64 positions of C floats."""
-    return _ffn_layouts(_core().core_launch_bytes(), NP * c * 4, c, inner, training)
+    and the norm backward's dgamma partials (a row of C floats a warp)."""
+    return _ffn_layouts(_core().core_launch_bytes(), _norm_bwd_bytes(c), c, inner, training)
 
 
 def compiled_ffn_launch_bytes(c: int, inner: int, training: bool = False) -> dict:
     """:func:`ffn_launch_bytes` as the compiled kernels count them."""
-    fn = load("step_fp32").step_fp32_smem_bytes
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 2
-    return _ffn_layouts(_core().compiled_core_launch_bytes(), fn(1, c), c, inner, training)
+    return _ffn_layouts(_core().compiled_core_launch_bytes(), _compiled_norm_bwd_bytes(c), c,
+                        inner, training)
 
 
 def supports_ffn(c: int, inner: int, k: int, training: bool, num_groups: int = 1) -> bool:
@@ -184,7 +207,7 @@ def supports_attention(c: int, a: int, h: int, training: bool) -> bool:
     layouts within :data:`SMEM_OPTIN`."""
     d = a // h if a % h == 0 else 0
     return (c in CHANNELS and a % 8 == 0 and d % 2 == 0 and 0 < d <= DP
-            and max(launch_bytes(c, training).values()) <= SMEM_OPTIN)
+            and max(launch_bytes(c, a, training).values()) <= SMEM_OPTIN)
 
 
 def ffn_rows(rows: int, seq: int, c: int, inner: int, k: int, training: bool,
@@ -195,13 +218,6 @@ def ffn_rows(rows: int, seq: int, c: int, inner: int, k: int, training: bool,
     lc = seq + k - 1
     per_row = 4 * ((3 * seq * c + 5 * lc * inner) if training else (seq * c + lc * inner))
     return max(1, min(rows, scratch_cap // per_row))
-
-
-def _splits(m: int, n: int, total: int) -> int:
-    """Position splits of an FFMA weight-gradient product (the attention
-    step's): about four blocks an SM, at least 64 positions a split."""
-    tiles = -(-m // BM) * -(-n // BN)
-    return max(1, min(-(-4 * _SMS // tiles), total // 64, 65535))
 
 
 def _col_splits(total: int) -> int:
@@ -243,9 +259,24 @@ def _unpack_ffn_grads(dwc, dbc, dwd, inner, c, k):
     return dcw.contiguous(), dcb.contiguous(), ddw.contiguous()
 
 
+def attn_panels(w_qkv, w_out):
+    """The attention step's GEMM panels, split for the tensor cores
+    (``unfused_fp32.split_panel``): the QKV product's ``W_qkv^T [C, 3A]``,
+    the out-projection's ``W_out^T [A, C]``, and for the backward do's
+    ``W_out [C, A]`` and dxn's ``W_qkv [3A, C]``."""
+    U = _core()
+    wq = w_qkv.detach().to(torch.float32)
+    wo = w_out.detach().to(torch.float32)
+    return tuple(U.split_panel(p) for p in (wq.T, wo.T, wo, wq))
+
+
 # The attention step's panels of the weights they were laid out from
 # (``cached_panels``)
 _PANELS = WeakIdKeyDictionary()
+
+
+def _attn_panels(w_qkv, w_out):
+    return cached_panels(_PANELS, w_qkv, (w_out,), lambda: attn_panels(w_qkv, w_out))
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -265,10 +296,8 @@ def _opt(t):
 class CudaPrims:
     """The kernels of ``csrc/step_fp32.cu`` and the attention core of
     ``csrc/attn_fp32.cu`` (``attn_fwd``, ``attn_bwd``), launched on the
-    current stream: the FFMA ``gemm_nn`` (store and output epilogues) and
-    ``gemm_tn`` are the attention step's; the FFN GEMMs are
-    ``unfused_fp32.CorePrims``'.  Every tensor is fp32, contiguous and
-    16-byte aligned."""
+    current stream; every step's GEMMs are ``unfused_fp32.CorePrims``'.
+    Every tensor is fp32, contiguous and 16-byte aligned."""
 
     def __init__(self):
         libs = {"step_fp32": load("step_fp32"), "attn_fp32": load("attn_fp32")}
@@ -276,9 +305,6 @@ class CudaPrims:
                            ctypes.c_void_p)
         self._fn = {}
         for name, args in (
-                ("f32_gemm_nn", [i] + _win_types() + [ll, i, vp, i, vp, ll, vp, vp, ll]
-                 + [u] * 4 + [f, i, vp]),
-                ("f32_gemm_tn", _win_types() + [i] + _win_types() + [i, ll, i, vp, vp]),
                 ("f32_reduce", [vp, ll, ll, ll, vp, vp]),
                 ("f32_norm_fwd", [vp, vp, vp, ll, i, i, f, vp]),
                 ("f32_norm_bwd", [vp] * 6 + [ll, i, i, f, vp]),
@@ -292,18 +318,6 @@ class CudaPrims:
 
     def _call(self, name, *args, device):
         check(self._fn[name](*args, stream_handle(device)), name)
-
-    def gemm_nn(self, epi, a: Win, m, k, b, n, out, ldo, bias=None, res=None, p=1, site=0,
-                drop=(0, 0, 0, 1.0, 0)):
-        if epi not in (EPI_STORE, EPI_OUT):
-            raise ValueError("f32_gemm_nn: store and output epilogues only (the FFN's "
-                             "run on unfused_fp32.CorePrims)")
-        self._call("f32_gemm_nn", epi, *_win_args(a), m, k, ptr(b), n, ptr(out), ldo,
-                   _opt(bias), _opt(res), p, site, *drop, device=out.device)
-
-    def gemm_tn(self, a: Win, m, b: Win, n, total, splits, part):
-        self._call("f32_gemm_tn", *_win_args(a), m, *_win_args(b), n, total, splits, ptr(part),
-                   device=part.device)
 
     def reduce(self, part, s, n, seg, out):
         self._call("f32_reduce", ptr(part), s, n, seg, ptr(out), device=out.device)
@@ -480,20 +494,19 @@ def attention_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps, rope=Tru
     q and k after RoPE and v ``[R, H, Lp, 32]``, o ``[R, L, A]``, the
     natural log-sum-exp ``[R, H, L]``."""
     P = _prims(prims)
+    G = _core()._core_gemms(P)
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads
     lp = -(-seq // QT) * QT
     f32 = dict(dtype=torch.float32, device=x.device)
-    wqkv_t, wo_t = cached_panels(_PANELS, w_qkv, (w_out,), lambda: (
-        w_qkv.detach().to(torch.float32).T.contiguous(),
-        w_out.detach().to(torch.float32).T.contiguous()))
+    wq_p, wo_p, _, _ = _attn_panels(w_qkv, w_out)
     g32 = gamma.detach().to(torch.float32).contiguous()
     drop = D.kernel_args(drop_rate, seed, row0)
     xn = torch.empty(r, seq, c, **f32)
     P.norm_fwd(x, g32, xn, r * seq, c, num_groups, eps)
     qkv = torch.empty(r, seq, 3 * a, **f32)
-    P.gemm_nn(EPI_STORE, _dense(xn, r * seq, c), r * seq, c, wqkv_t, 3 * a, qkv, 3 * a)
+    G.gemm_nn(EPI_STORE, _dense(xn, r * seq, c), r * seq, c, wq_p, 3 * a, qkv, 3 * a)
     del xn
     cos, sin = _attn_tables(seq, d, theta, rope, x.device)
     q, k, v = (torch.empty(r, n_heads, lp, DP, **f32) for _ in range(3))
@@ -503,7 +516,7 @@ def attention_forward(x, gamma, w_qkv, w_out, n_heads, num_groups, eps, rope=Tru
     lse = torch.empty(r, n_heads, seq, **f32) if stash else None
     P.attn_fwd(q, k, v, o, lse, r, n_heads, seq, lp, d, 1.0 / math.sqrt(d), drop)
     out = torch.empty_like(x)
-    P.gemm_nn(EPI_OUT, _dense(o, r * seq, a), r * seq, a, wo_t, c, out, c,
+    G.gemm_nn(EPI_OUT, _dense(o, r * seq, a), r * seq, a, wo_p, c, out, c,
               res=x if residual else None, p=seq, site=D.SITE_ATTN_PROJ, drop=drop)
     attention_forward.launches += 1
     return (out, (q, k, v, o, lse)) if stash else out
@@ -515,6 +528,8 @@ def attention_backward(g, x, gamma, w_qkv, w_out, stash, n_heads, num_groups, ep
     """#4 on fp32 rows from the forward's stash (one counted launch):
     ``(dx, dgamma, dw_qkv, dw_out)`` in torch layouts."""
     P = _prims(prims)
+    U = _core()
+    G = U._core_gemms(P)
     r, seq, c = x.shape
     a = w_qkv.shape[0] // 3
     d = a // n_heads
@@ -524,15 +539,14 @@ def attention_backward(g, x, gamma, w_qkv, w_out, stash, n_heads, num_groups, ep
     f32 = dict(dtype=torch.float32, device=x.device)
     g = g.to(torch.float32).contiguous()
     g32 = gamma.detach().to(torch.float32).contiguous()
-    wq = w_qkv.detach().to(torch.float32).contiguous()
-    wo = w_out.detach().to(torch.float32).contiguous()
+    _, _, wo_b, wq_b = _attn_panels(w_qkv, w_out)
     drop = D.kernel_args(drop_rate, seed, row0)
     dproj = g
     if residual and drop_rate > 0.0:
         dproj = torch.empty_like(g)
         P.mask_rows(g, dproj, npos * c, seq, c, D.SITE_ATTN_PROJ, drop)
     dout = torch.empty(r, seq, a, **f32)
-    P.gemm_nn(EPI_STORE, _dense(dproj, npos, c), npos, c, wo, a, dout, a)
+    G.gemm_nn(EPI_STORE, _dense(dproj, npos, c), npos, c, wo_b, a, dout, a)
     cos, sin = _attn_tables(seq, d, theta, rope, x.device)
     dop = torch.empty(r, n_heads, lp, DP, **f32)
     delta = torch.empty(r, n_heads, seq, **f32)
@@ -543,14 +557,14 @@ def attention_backward(g, x, gamma, w_qkv, w_out, stash, n_heads, num_groups, ep
     xn = torch.empty(r, seq, c, **f32)
     P.norm_fwd(x, g32, xn, npos, c, num_groups, eps)
     dxn = torch.empty(r, seq, c, **f32)
-    P.gemm_nn(EPI_STORE, _dense(dqkv, npos, 3 * a), npos, 3 * a, wq, c, dxn, c)
+    G.gemm_nn(EPI_STORE, _dense(dqkv, npos, 3 * a), npos, 3 * a, wq_b, c, dxn, c)
     dx = torch.empty_like(x)
     pg = torch.empty(-(-npos // NP), c, **f32)
     P.norm_bwd(x, g32, dxn, g if residual else None, dx, pg, npos, c, num_groups, eps)
-    so, sq = _splits(c, a, npos), _splits(3 * a, c, npos)
+    so, sq = U._tn_splits(c, a, npos), U._tn_splits(3 * a, c, npos)
     po, pq = torch.empty(so, c, a, **f32), torch.empty(sq, 3 * a, c, **f32)
-    P.gemm_tn(_dense(dproj, npos, c), c, _dense(o, npos, a), a, npos, so, po)
-    P.gemm_tn(_dense(dqkv, npos, 3 * a), 3 * a, _dense(xn, npos, c), c, npos, sq, pq)
+    G.gemm_tn(_dense(dproj, npos, c), c, _dense(o, npos, a), a, npos, so, po)
+    G.gemm_tn(_dense(dqkv, npos, 3 * a), 3 * a, _dense(xn, npos, c), c, npos, sq, pq)
     red = lambda part, *shape: _reduce(P, part.reshape(part.shape[0], -1),
                                        torch.empty(*shape, **f32))
     attention_backward.launches += 1

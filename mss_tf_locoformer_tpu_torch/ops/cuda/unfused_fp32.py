@@ -50,9 +50,11 @@ Each kernel is a chain of launches through device memory:
 The weight panels are laid out K-major and split into TF32 halves once,
 when they are made (:func:`core_panels`, cached per weight version); the
 inner width is zero-padded to whole float4s in them, so every inner width
-runs.  The fused FFN step's fp32 rows (#2, #5: ``step_fp32.ffn_forward`` /
-``ffn_backward``) run on the same GEMMs and panels, ``core_nn`` with the
-step's output epilogue (bias, outer mask, residual).  Each kernel counts one launch per call on its own function
+runs.  The fused steps' fp32 rows run on the same GEMMs: the FFN step's
+(#2, #5: ``step_fp32.ffn_forward`` / ``ffn_backward``) on these panels,
+``core_nn`` with the step's output epilogue (bias, outer mask, residual),
+and the attention step's (#3, #4: its QKV product, out-projection, their
+transposes and weight products) on ``step_fp32.attn_panels``.  Each kernel counts one launch per call on its own function
 (:func:`flash_forward_fp32`, :func:`flash_backward_fp32`,
 :func:`ffn_core_fp32`, :func:`ffn_core_fp32_backward`), not on the bf16
 kernels' counts.  The chains run on ``prims`` (``step_fp32.CudaPrims`` by
@@ -300,14 +302,14 @@ def _panels(conv_w, conv_b, deconv_w):
 
 
 class CorePrims:
-    """The kernels of ``csrc/ffn_core_fp32.cu`` with ``step_fp32.CudaPrims``'
-    ``gemm_nn`` / ``gemm_tn`` / ``colsum`` conventions, launched on the
-    current stream: ``core_nn`` (wgmma, 3xTF32) takes every FFN epilogue
-    (store, SwiGLU, its backward, the FFN step's output with its residual
-    ``res``) and, as ``b``, a :func:`split_panel` view, whose halves it
-    reads; ``core_tn`` (mma.sync, 3xTF32) the weight products;
-    ``core_colsum`` the bias gradients' column sums.  Every tensor is fp32,
-    contiguous and 16-byte aligned."""
+    """The kernels of ``csrc/ffn_core_fp32.cu``, launched on the current
+    stream: ``core_nn`` (wgmma, 3xTF32) takes every epilogue (store,
+    SwiGLU, its backward, a step's output with its residual ``res``) and, as
+    ``b``, a :func:`split_panel` view, whose halves it reads; ``core_tn``
+    (mma.sync, 3xTF32) the weight products; ``core_colsum`` the bias
+    gradients' column sums.  A's (and ``core_tn``'s B's) rows are windows
+    (``step_fp32.Win``).  Every tensor is fp32, contiguous and 16-byte
+    aligned."""
 
     def __init__(self):
         lib = load("ffn_core_fp32")
@@ -345,10 +347,11 @@ _CORE = []
 
 
 def _core_gemms(P):
-    """The FFN core's GEMMs and column sums: :class:`CorePrims` beside
-    ``step_fp32``'s CUDA prims ``P`` (whose ``reduce`` the chain keeps), or
-    ``P``'s own ``gemm_nn`` / ``gemm_tn`` / ``colsum`` when ``P`` is another
-    implementation of the kernels (an emulation in plain torch)."""
+    """The fp32 chains' GEMMs and column sums: :class:`CorePrims` beside
+    ``step_fp32``'s CUDA prims ``P`` (whose norms, masks and ``reduce`` the
+    chains keep), or ``P``'s own ``gemm_nn`` / ``gemm_tn`` / ``colsum`` when
+    ``P`` is another implementation of the kernels (an emulation in plain
+    torch)."""
     if not isinstance(P, S.CudaPrims):
         return P
     if not _CORE:

@@ -206,16 +206,16 @@ def test_kernels_refuse_fp16_rows(dev):
 FP32_TOL, FP32_REL_L2 = 1e-4, 1e-4
 
 
-def _check_fp32(out, ref_out, got, ref, names):
-    _close(out, ref_out, FP32_TOL)
+def _check_fp32(out, ref_out, got, ref, names, tol=FP32_TOL, rel=FP32_REL_L2):
+    _close(out, ref_out, tol)
     for name, a, b in zip(names, got, ref):
         assert torch.isfinite(a).all(), name
         if b.abs().max().item() == 0:
             assert not a.any(), name
         elif name == "dx":
-            _close(a, b, FP32_TOL)
+            _close(a, b, tol)
         else:
-            assert _rel_l2(a, b) <= FP32_REL_L2, (name, _rel_l2(a, b))
+            assert _rel_l2(a, b) <= rel, (name, _rel_l2(a, b))
 
 
 @pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
@@ -1047,10 +1047,10 @@ FP32_CORE_ODD = [(2, 1, 4, 30, 2), (3, 17, 12, 30, 8), (1, 1, 12, 64, 8), (2, 40
 @pytest.mark.parametrize("r,seq,c,inner,k", FP32_CORE_ODD)
 def test_fp32_swiglu_ffn_kernels_odd_shapes(dev, monkeypatch, r, seq, c, inner, k, drop):
     """#8 and #9 on fp32 rows against autograd through the plain version in
-    fp32: one counted launch each way, and no FFMA GEMM of step_fp32.cu
-    (``gemm_nn``, ``gemm_tn``) inside either call."""
+    fp32: one counted launch each way, and no FFMA GEMM inside either call
+    (every GEMM on the 3xTF32 kernels)."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
-    ffma = _no_ffma(monkeypatch)
+    gemms = _no_ffma(monkeypatch)
     x, w = _core_inputs(dev, r, seq, c, inner, k)
     x = x.float()
     go = torch.randn(*x.shape, generator=torch.Generator().manual_seed(14)).to(dev)
@@ -1059,7 +1059,7 @@ def test_fp32_swiglu_ffn_kernels_odd_shapes(dev, monkeypatch, r, seq, c, inner, 
     torch.cuda.synchronize()
     assert [U.ffn_core_fp32.launches - before[0],
             U.ffn_core_fp32_backward.launches - before[1]] == [1, 1]
-    assert ffma == []
+    assert set(gemms) == {"gemm_nn", "gemm_tn"}
     ref_out, ref = _all_grads(lambda *a: SF.reference_swiglu_conv_deconv(*a, k, drop, 1234, 3),
                               [x, *w], go)
     _check_fp32(out, ref_out, got, ref, ("dx", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
@@ -1087,25 +1087,33 @@ FP32_STEP_3X = [(2, 1, 32, 64, 4), (3, 17, 64, 128, 8), (2, 65, 96, 384, 4),
 
 
 def _no_ffma(monkeypatch):
-    """The names of step_fp32.cu's FFMA GEMMs called from here on."""
+    """No FFMA GEMM is left to run: step_fp32.cu's library exports none
+    (``f32_gemm_nn`` / ``f32_gemm_tn``) and ``step_fp32.CudaPrims`` binds
+    none, so every GEMM of an fp32 chain is a launch of ``unfused_fp32.
+    CorePrims`` (3xTF32 ``core_nn`` / ``core_tn``); returns the names of
+    those launches from here on."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import load
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
-    ffma = []
+    from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
+    assert not any(hasattr(load("step_fp32"), n) for n in ("f32_gemm_nn", "f32_gemm_tn"))
+    assert not any(hasattr(S.CudaPrims, n) for n in ("gemm_nn", "gemm_tn"))
+    core = []
     for name in ("gemm_nn", "gemm_tn"):
-        real = getattr(S.CudaPrims, name)
-        monkeypatch.setattr(S.CudaPrims, name,
-                            lambda self, *a, _n=name, _f=real, **kw: ffma.append(_n) or _f(
+        real = getattr(U.CorePrims, name)
+        monkeypatch.setattr(U.CorePrims, name,
+                            lambda self, *a, _n=name, _f=real, **kw: core.append(_n) or _f(
                                 self, *a, **kw))
-    return ffma
+    return core
 
 
 @pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
 @pytest.mark.parametrize("r,seq,c,inner,k", FP32_STEP_3X)
 def test_fp32_ffn_step_on_tensor_cores(dev, monkeypatch, r, seq, c, inner, k, drop, residual):
     """#2 and #5 on fp32 rows against autograd through the plain version in
-    fp32: one counted launch each way, and no FFMA GEMM of step_fp32.cu
-    inside either call."""
+    fp32: one counted launch each way, and no FFMA GEMM inside either call
+    (every GEMM on the 3xTF32 kernels)."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
-    ffma = _no_ffma(monkeypatch)
+    gemms = _no_ffma(monkeypatch)
     x, params, g = _ffn_inputs(dev, r, seq, c, inner, k, seed=11)
     x, g = x.float(), g.float()
     if not residual:
@@ -1117,22 +1125,22 @@ def test_fp32_ffn_step_on_tensor_cores(dev, monkeypatch, r, seq, c, inner, k, dr
     out, got = _grads(fn(FB.fused_norm_ffn_residual), x, grad_params, g)
     torch.cuda.synchronize()
     assert (S.ffn_forward.launches, S.ffn_backward.launches) == (counts[0] + 1, counts[1] + 1)
-    assert ffma == []
+    assert set(gemms) == {"gemm_nn", "gemm_tn"}
     ref_out, ref = _grads(fn(FB.reference_norm_ffn_residual), x, grad_params, g)
     _check_fp32(out, ref_out, got, ref,
                 ("dx", "dgamma", "dconv_w", "dconv_b", "ddeconv_w", "ddeconv_b"))
 
 
-@pytest.mark.parametrize("c", [32, 64, 96, 128])
-def test_fp32_output_epilogue_mask_is_keep_mask(dev, c):
-    """``core_nn``'s output epilogue at dropout 0.1 on zero products with a
-    bias of ones: every output is the outer site's keep bit times 1 / (1 -
-    p), bit for bit ``keep_mask`` at (row0 + row, position, channel); with
-    no residual the products alone (no bias, no mask)."""
+def _output_epilogue_mask(dev, c, site, kk):
+    """``core_nn``'s output epilogue at dropout 0.1 on zero products (K
+    ``kk``) with a bias of ones at ``site``: every output is the site's keep
+    bit times 1 / (1 - p), bit for bit ``keep_mask`` at (row0 + row,
+    position, channel); with no residual the products alone (no bias, no
+    mask)."""
     from mss_tf_locoformer_tpu_torch.ops import dropout as D
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
     from mss_tf_locoformer_tpu_torch.ops.cuda import unfused_fp32 as U
-    r, seq, kk, p, row0 = 3, 301, 8 * c, 0.1, 5
+    r, seq, p, row0 = 3, 301, 0.1, 5
     a = torch.randn(r, seq, kk, device=dev)
     b = U.split_panel(torch.zeros(kk, c, device=dev))
     bias, res = torch.ones(c, device=dev), torch.zeros(r, seq, c, device=dev)
@@ -1140,15 +1148,31 @@ def test_fp32_output_epilogue_mask_is_keep_mask(dev, c):
     P = U.CorePrims()
     out = torch.empty(r, seq, c, device=dev)
     P.gemm_nn(S.EPI_OUT, S.Win(a, seq * kk, seq, kk, 0, seq * kk), r * seq, kk, b, c, out, c,
-              bias=bias, res=res, p=seq, site=D.SITE_FFN_OUTER, drop=drop)
-    keep = D.row_mask(77, D.SITE_FFN_OUTER, out, row0, p)
+              bias=bias, res=res, p=seq, site=site, drop=drop)
+    keep = D.row_mask(77, site, out, row0, p)
     torch.cuda.synchronize()
     assert torch.equal(out != 0, keep)
     assert torch.equal(out[keep], torch.full_like(out[keep], drop[3]))
     P.gemm_nn(S.EPI_OUT, S.Win(a, seq * kk, seq, kk, 0, seq * kk), r * seq, kk, b, c, out, c,
-              bias=bias, p=seq, site=D.SITE_FFN_OUTER, drop=drop)
+              bias=bias, p=seq, site=site, drop=drop)
     torch.cuda.synchronize()
     assert not out.any()
+
+
+@pytest.mark.parametrize("c", [32, 64, 96, 128])
+def test_fp32_output_epilogue_mask_is_keep_mask(dev, c):
+    """The FFN step's output epilogue (the deconv's K, 8 C) at the outer
+    site."""
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    _output_epilogue_mask(dev, c, D.SITE_FFN_OUTER, 8 * c)
+
+
+@pytest.mark.parametrize("c,a", [(32, 32), (64, 64), (96, 96), (128, 128), (96, 24)])
+def test_fp32_projection_epilogue_mask_is_keep_mask(dev, c, a):
+    """The attention step's out-projection (K = A, no bias in the step) at
+    the projection site, the mp 4 shard's A 24 among them."""
+    from mss_tf_locoformer_tpu_torch.ops import dropout as D
+    _output_epilogue_mask(dev, c, D.SITE_ATTN_PROJ, a)
 
 
 @pytest.mark.parametrize("c,inner,k", [(96, 384, 4), (32, 64, 8)])
@@ -1157,7 +1181,7 @@ def test_fp32_ffn_step_reruns_bit_equal(dev, monkeypatch, c, inner, k):
     atomics: per-split partials summed in a fixed order); a one-group run
     differs only by the order of its sums; no FFMA GEMM runs."""
     from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
-    ffma = _no_ffma(monkeypatch)
+    gemms = _no_ffma(monkeypatch)
     r, seq = 5, 257
     x, params, g = _ffn_inputs(dev, r, seq, c, inner, k, seed=12)
     x, g = x.float(), g.float()
@@ -1170,7 +1194,7 @@ def test_fp32_ffn_step_reruns_bit_equal(dev, monkeypatch, c, inner, k):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert all(_rel_l2(a, b) < 1e-5 for a, b in zip(first[1:], whole[1:]))
-    assert ffma == []
+    assert set(gemms) == {"gemm_nn", "gemm_tn"}
 
 
 def test_fp32_ffn_step_layouts_match_the_compiled_kernels(dev):
@@ -1182,3 +1206,139 @@ def test_fp32_ffn_step_layouts_match_the_compiled_kernels(dev):
             for training in (False, True):
                 assert S.ffn_launch_bytes(c, inner, training) == \
                     S.compiled_ffn_launch_bytes(c, inner, training)
+
+
+# fp32 #3/#4 on the 3xTF32 GEMMs of csrc/ffn_core_fp32.cu (core_nn: QKV, the
+# out-projection with the output epilogue at the projection site, do, dxn;
+# core_tn: the weight products) around csrc/attn_fp32.cu's core, with
+# csrc/step_fp32.cu's norms (a warp per position): against autograd through
+# the plain version in float64, outputs and dx within FP32_STEP_TOL of
+# max|ref|, the other gradients within FP32_STEP_TOL relative L2 (fp32 on
+# the kernels' side, float64 on the other: ~1e-6); C 32 to 128, L 1 to 2049,
+# the mp 4 shard's one head of 24, the partial-sum mode.
+FP32_STEP_TOL = 1e-5
+FP32_ATTN_3X = [(1, 1, 32, 32, 2), (2, 65, 64, 64, 4), (2, 130, 96, 96, 4),
+                (1, 2049, 96, 96, 4), (2, 129, 128, 128, 4), (1, 1025, 128, 128, 8),
+                (3, 37, 96, 24, 1)]
+
+
+@pytest.mark.parametrize("drop,residual", [(0.0, True), (0.1, True), (0.1, False)])
+@pytest.mark.parametrize("r,seq,c,a,h", FP32_ATTN_3X)
+def test_fp32_attention_step_on_tensor_cores(dev, monkeypatch, r, seq, c, a, h, drop,
+                                             residual):
+    """#3 and #4 on fp32 rows against autograd through the plain version in
+    float64: one counted launch each way, none of the bf16 kernels', every
+    GEMM on the 3xTF32 kernels (``core_nn`` four times, ``core_tn`` twice)
+    and no FFMA GEMM."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    gemms = _no_ffma(monkeypatch)
+    x, params, g = _attn_inputs(dev, r, seq, c, a, seed=16)
+    x, g = x.float(), g.float()
+    args = (h, 4, 1e-5, True, 10000.0, drop, 4321, 9, residual)
+    counts = (S.attention_forward.launches, S.attention_backward.launches,
+              AB.fused_attention_block.launches)
+    out, got = _grads(lambda *p: AB.fused_attention_block(*p, *args), x, params, g)
+    torch.cuda.synchronize()
+    assert (S.attention_forward.launches, S.attention_backward.launches,
+            AB.fused_attention_block.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    assert sorted(gemms) == ["gemm_nn"] * 4 + ["gemm_tn"] * 2
+    ref_out, ref = _grads(lambda *p: AB.reference_attention_block(*p, *args), x.double(),
+                          [t.double() for t in params], g.double())
+    _check_fp32(out, ref_out, got, ref, ("dx", "dgamma", "dw_qkv", "dw_out"), FP32_STEP_TOL,
+                FP32_STEP_TOL)
+
+
+def test_fp32_attention_step_reruns_bit_equal(dev, monkeypatch):
+    """Two #4 runs at dropout 0.1 give the same bits (the weight products'
+    per-split partials and the dgamma partials summed in a fixed order, no
+    atomics); no FFMA GEMM runs."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    gemms = _no_ffma(monkeypatch)
+    x, (gamma, w_qkv, w_out), g = _attn_inputs(dev, 4, 513, 128, 128, seed=17)
+    x, g = x.float(), g.float()
+    args = (4, 4, 1e-5, True, 10000.0, 0.1, 5, 3)
+    _, stash = S.attention_forward(x, gamma, w_qkv, w_out, *args, stash=True)
+    first = S.attention_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    again = S.attention_backward(g, x, gamma, w_qkv, w_out, stash, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(first, again))
+    assert gemms.count("gemm_tn") == 4
+
+
+def _norm_f64(x, gamma, groups, eps):
+    g = x.unflatten(-1, (groups, x.shape[-1] // groups))
+    rms = g.pow(2).sum(-1, keepdim=True).sqrt() * (g.shape[-1] ** -0.5)
+    return (g / (rms + eps)).flatten(-2) * gamma
+
+
+# (C, groups): every width the gates admit at 1, 2 and 4 groups; 3 groups of
+# 32; groups that straddle a lane's float4 (C 32 / 16 groups: 2 channels
+# each, C 96 / 32: 3)
+FP32_NORMS = [(c, g) for c in (32, 64, 96, 128) for g in (1, 2, 4)] + [(96, 3), (32, 16),
+                                                                       (96, 32)]
+
+
+@pytest.mark.parametrize("c,groups", FP32_NORMS)
+def test_fp32_norm_kernels(dev, c, groups):
+    """``norm_fwd`` and ``norm_bwd`` (a warp per position) against the norm in
+    float64 and its autograd, with and without the residual's gradient:
+    xn and dx within FP32_STEP_TOL of max|ref|, dgamma (the blocks'
+    partials summed in a fixed order) within FP32_STEP_TOL relative L2; a
+    ragged last block; a zero row (rms 0: dx is the upstream gradient times
+    gamma over eps, held on its own); a second run gives the same bits."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    P = S.CudaPrims()
+    npos = 5000 * S.NP + 7
+    gen = torch.Generator().manual_seed(c + groups)
+    x, dxn, gres = (torch.randn(npos, c, generator=gen).to(dev) for _ in range(3))
+    x[3] = 0.0   # a zero row: xn 0, dx the upstream gradient over eps
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    xn = torch.empty_like(x)
+    P.norm_fwd(x, gamma, xn, npos, c, groups, 1e-5)
+    xl, gl = x.double().requires_grad_(True), gamma.double().requires_grad_(True)
+    ref = _norm_f64(xl, gl, groups, 1e-5)
+    ref_dx, ref_dg = torch.autograd.grad(ref, (xl, gl), dxn.double())
+    torch.cuda.synchronize()
+    _close(xn, ref.detach(), FP32_STEP_TOL)
+    part = torch.empty(-(-npos // S.NP), c, device=dev)
+    for res in (None, gres):
+        dx = torch.empty_like(x)
+        P.norm_bwd(x, gamma, dxn, res, dx, part, npos, c, groups, 1e-5)
+        dg = S._reduce(P, part, torch.empty(c, device=dev))
+        torch.cuda.synchronize()
+        want = ref_dx.clone()
+        want[3] = dxn[3].double() * gl.detach() / 1e-5   # d(x / eps * gamma) at x = 0
+        if res is not None:
+            want += res.double()
+        rows = torch.arange(npos, device=dev) != 3
+        _close(dx[rows], want[rows], FP32_STEP_TOL)
+        _close(dx[3], want[3], FP32_STEP_TOL)
+        assert _rel_l2(dg, ref_dg) <= FP32_STEP_TOL, _rel_l2(dg, ref_dg)
+    again = torch.empty_like(x)
+    P.norm_bwd(x, gamma, dxn, gres, again, part, npos, c, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(again, dx)
+
+
+def test_fp32_norm_kernels_refuse_other_layouts(dev):
+    """The norms take C of whole float4s up to 128 and whole groups, on
+    16-byte aligned rows; anything else raises (no launch)."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    P = S.CudaPrims()
+    x = torch.zeros(4, 260, device=dev)
+    gamma = torch.ones(260, device=dev)
+    for c, groups, off in ((132, 1, 0), (30, 1, 0), (32, 3, 0), (32, 1, 1)):
+        with pytest.raises(RuntimeError):
+            P.norm_fwd(x.reshape(-1)[off:], gamma, torch.empty_like(x), 2, c, groups, 1e-5)
+
+
+def test_fp32_attention_layouts_match_the_compiled_kernels(dev):
+    """The fp32 attention-step gate's layout bytes (``core_nn`` at each GEMM's
+    tile, ``core_tn``, the core's, the norm backward's partials) and the
+    norm blocks' positions are the compiled kernels' own."""
+    from mss_tf_locoformer_tpu_torch.ops.cuda import step_fp32 as S
+    assert S.compiled_norm_positions() == S.NP
+    for c in S.CHANNELS:
+        for a in (24, 32, 48, 96, 128):
+            for training in (False, True):
+                assert S.launch_bytes(c, a, training) == S.compiled_launch_bytes(c, a, training)

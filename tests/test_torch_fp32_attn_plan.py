@@ -441,7 +441,7 @@ def test_tile_plan_and_layouts_of_the_shipped_shapes():
         assert S.attn_launch_bytes(dp) == want
         assert max(want.values()) <= S.SMEM_OPTIN
     assert U.flash_launch_bytes(12) == S.attn_launch_bytes(16)
-    assert S.launch_bytes(128, True)["dkdv"] == S.attn_launch_bytes(32)["dkdv"]
+    assert S.launch_bytes(128, 128, True)["dkdv"] == S.attn_launch_bytes(32)["dkdv"]
 
 
 def test_split_halves_are_tf32():

@@ -281,11 +281,11 @@ def test_fp32_step_layouts_and_tiles():
     assert U.core_launch_bytes() == {"nn": nn128, "nn64": nn64, "tn": tn, "nn96": nn96}
     assert S.ffn_launch_bytes(96, 384) == {"conv": nn128, "deconv": nn96}
     assert S.ffn_launch_bytes(96, 384, True) == {"conv": nn128, "deconv": nn96, "dh": nn128,
-                                                 "dx": nn96, "tn": tn, "norm_bwd": 24576}
+                                                 "dx": nn96, "tn": tn, "norm_bwd": 3072}
     assert S.ffn_launch_bytes(128, 384, True) == {"conv": nn128, "deconv": nn128, "dh": nn128,
-                                                  "dx": nn128, "tn": tn, "norm_bwd": 32768}
+                                                  "dx": nn128, "tn": tn, "norm_bwd": 4096}
     assert S.ffn_launch_bytes(32, 64, True) == {"conv": nn128, "deconv": nn64, "dh": nn64,
-                                                "dx": nn64, "tn": tn, "norm_bwd": 8192}
+                                                "dx": nn64, "tn": tn, "norm_bwd": 1024}
     for c in S.CHANNELS:
         for inner in range(4, 4100, 4):
             assert S.supports_ffn(c, inner, 4, True)

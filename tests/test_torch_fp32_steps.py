@@ -347,9 +347,11 @@ def test_fp32_gates_at_every_shipped_config():
     assert fused == {"musdb18.yaml", "musdb18_medium.yaml", "musdb18_bslocoformer.yaml",
                      "musdb18_lowmem.yaml", "speech_dns.yaml", "speech_whamr.yaml",
                      "speech_whamr_nope.yaml", "speech_wsj0_2mix.yaml"}
-    assert S.launch_bytes(128, True) == {"gemm": 12800, "attn": 55296, "dkdv": 56832,
-                                         "norm_bwd": 32768}
-    assert S.launch_bytes(96) == {"gemm": 12800, "attn": 55296}
+    nn128, nn96, nn64, tn = 197632, 164864, 132096, 104448   # core_nn's tiles, core_tn
+    assert S.launch_bytes(128, 128, True) == {"qkv": nn128, "attn": 55296, "proj": nn128,
+                                              "dout": nn128, "dkdv": 56832, "dxn": nn128,
+                                              "tn": tn, "norm_bwd": 4096}
+    assert S.launch_bytes(96, 96) == {"qkv": nn64, "attn": 55296, "proj": nn96}
     assert not S.supports_ffn(256, 1024, 4, False)      # xlarge: the unfused route
     assert not S.supports_ffn(96, 386, 4, False)        # inner not whole float4s
     assert not S.supports_attention(96, 96, 2, False)   # head_dim 48 > 32

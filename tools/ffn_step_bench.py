@@ -39,8 +39,9 @@ model's.  With ``--parent`` the other checkout's ``ops/cuda/step_fp32.py``
 (and ``unfused_fp32.py``) drive its own ``csrc/step_fp32.cu`` (and
 ``csrc/ffn_core_fp32.cu``), built into ``build/flash_parent/``
 (``tools/flash_bench.py``'s loader), in turns with this tree's: parent,
-tree, tree, parent, each call and each whole step (the steps' FFN layers
-switched to the other checkout's chain; everything else is this tree's).
+tree, tree, parent, each call and each whole step (the steps' FFN and
+attention layers switched to the other checkout's chain; everything else
+is this tree's).
 ``git archive HEAD | tar -x -C build/parent`` first, then ``python3
 tools/ffn_step_bench.py --fp32 --parent build/parent`` through the chip
 tool with a 900 s limit.
@@ -216,15 +217,16 @@ def time_fp32(label, S, U, tag, cfg, rows, seq, drop, backward, reps) -> dict:
 
 def fp32_steps(mods, order, reps) -> dict:
     """s per ``use_amp: false`` optimizer step of the base config (2 x 3 s,
-    dropout 0.1) and the wsj0-2mix config (4 x 4 s), the FFN steps on each
-    label's chain in turn (``swiglu_block``'s ``step_fp32``), after one
-    warm-up step each."""
+    dropout 0.1) and the wsj0-2mix config (4 x 4 s), the FFN and attention
+    steps on each label's chain in turn (``swiglu_block``'s and
+    ``attention_block``'s ``step_fp32``), after one warm-up step each."""
     import time
 
     import torch
     import chip_smoke as cs
     from mss_tf_locoformer_tpu_torch.core.config import LossConfig, TrainingConfig
     from mss_tf_locoformer_tpu_torch.core.precision import FP32
+    from mss_tf_locoformer_tpu_torch.ops.cuda import attention_block as AB
     from mss_tf_locoformer_tpu_torch.ops.cuda import swiglu_block as FB
     from mss_tf_locoformer_tpu_torch.train.speech import speech_train_step
     from mss_tf_locoformer_tpu_torch.train.state import make_optimizer
@@ -250,7 +252,7 @@ def fp32_steps(mods, order, reps) -> dict:
         for tag, step in steps.items():
             out[tag] = []
             for label in order:
-                FB.step_fp32 = mods[label][0]
+                FB.step_fp32 = AB.step_fp32 = mods[label][0]
                 step()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -261,7 +263,7 @@ def fp32_steps(mods, order, reps) -> dict:
                 print(f"[{label}] use_amp false train step, {tag}: {sec:.4f} s/step")
                 out[tag].append({"label": label, "sec": sec})
     finally:
-        FB.step_fp32 = tree
+        FB.step_fp32 = AB.step_fp32 = tree
     del model, opt, smodel, sopt, batch, src
     torch.cuda.empty_cache()
     return out

@@ -31,10 +31,13 @@ the xlarge serving shapes and, with its stash, the small training shapes;
 #7 (``flash_backward_fp32``) at the small training shapes; the fused
 attention step's fp32 rows #3 and #4 (``step_fp32.attention_forward`` /
 ``attention_backward``) at the base training shapes (micro-batch 2 x 3 s,
-dropout 0.1) and #3 at the speech serving shapes (wsj0-2mix, 8 s).  Each
-call's launches are timed apart by CUDA events around each kernel of the
-chain, the backward core's two kernels (dq, dk/dv) from a
-``torch.profiler`` trace; beside them ``scaled_dot_product_attention``'s
+dropout 0.1) and #3 at the speech serving shapes (wsj0-2mix, 8 s); the
+fp32 norms alone (``norm_fwd``, ``norm_bwd`` with the residual's gradient)
+at the base training and wsj0-2mix serving shapes, beside their bytes
+bounds.  Each call's launches are timed apart by CUDA events around each
+kernel of the chain (the GEMMs by kernel, epilogue and K x N: QKV,
+out-projection, do, dxn, the weight products), the backward core's two
+kernels (dq, dk/dv) from a ``torch.profiler`` trace; beside them ``scaled_dot_product_attention``'s
 fp32 memory-efficient backend (#6, #7) and both bounds: fp32 FFMA at 67
 TFLOP/s, and the larger of 3 x FLOP at the TF32 peak, one exponential a
 score and the bytes.  With ``--parent`` the other checkout's
@@ -336,13 +339,16 @@ def _parent_fp32(root: str):
     return mods["step_fp32"], mods["unfused_fp32"], paths
 
 
-def _launch_ms(S, fn, reps: int, backward: bool = False) -> dict:
-    """Per launch of the chain ``fn`` runs on ``S.CudaPrims`` (``S`` a
-    ``step_fp32`` module): ``[launches, device ms]`` a call (CUDA events,
-    ``chip_smoke._fp32_attn_launches``), after one call to warm up."""
+def _launch_ms(label, S, U, fn, reps: int, backward: bool = False) -> dict:
+    """Per launch of the chain ``fn`` runs on ``S.CudaPrims`` and
+    ``U.CorePrims`` (``S`` / ``U`` a checkout's ``step_fp32`` /
+    ``unfused_fp32``): ``[launches, device ms]`` a call (CUDA events,
+    ``chip_smoke._fp32_attn_launches``; this tree's chain must run no FFMA
+    GEMM), after one call to warm up."""
     from chip_smoke import _fp32_attn_launches
     fn()
-    return _fp32_attn_launches("bench", fn, backward, reps, S.CudaPrims)
+    return _fp32_attn_launches(f"bench {label}", fn, backward, reps, S, U,
+                               check=label == "tree")
 
 
 def _core_kernel_ms(fn, reps: int) -> dict:
@@ -373,13 +379,15 @@ def _fp32_flash(label, S, U, tag, reps) -> dict:
     qkv = 1.5 * torch.randn(rows, seq, 3, h, d, generator=gen, device="cuda")
     q4, k4, v4 = qkv.permute(2, 0, 3, 1, 4)
     fwd = lambda: U.flash_forward_fp32(q4, k4, v4, True, 10000.0, stash)
-    out = {"fwd_ms": _time_ms(fwd, iters=reps), "fwd_launches": _launch_ms(S, fwd, reps),
+    out = {"fwd_ms": _time_ms(fwd, iters=reps),
+           "fwd_launches": _launch_ms(label, S, U, fwd, reps),
            "fwd_kernels": _core_kernel_ms(fwd, reps)}
     if tag in FP32_BWD:
         o, lse = U.flash_forward_fp32(q4, k4, v4, True, 10000.0, True)
         g = torch.randn(rows, seq, h, d, generator=gen, device="cuda")
         bwd = lambda: U.flash_backward_fp32(g, q4, k4, v4, o, lse, True, 10000.0)
-        out.update(bwd_ms=_time_ms(bwd, iters=reps), bwd_launches=_launch_ms(S, bwd, reps, True),
+        out.update(bwd_ms=_time_ms(bwd, iters=reps),
+                   bwd_launches=_launch_ms(label, S, U, bwd, reps, True),
                    bwd_kernels=_core_kernel_ms(bwd, reps))
         del o, lse, g
     del qkv, q4, k4, v4
@@ -400,8 +408,9 @@ def _step_shapes():
     return out
 
 
-def _fp32_step(label, S, tag, cfg, rows, seq, drop, backward, reps) -> dict:
-    """#3 (and #4) of the fp32 chain ``S`` (a ``step_fp32`` module)."""
+def _fp32_step(label, S, U, tag, cfg, rows, seq, drop, backward, reps) -> dict:
+    """#3 (and #4) of the fp32 chain ``S`` / ``U`` (a checkout's
+    ``step_fp32`` / ``unfused_fp32``)."""
     import torch
     import chip_smoke as cs
     from chip_smoke import _time_ms
@@ -411,18 +420,59 @@ def _fp32_step(label, S, tag, cfg, rows, seq, drop, backward, reps) -> dict:
     x = x.float()
     args = (h, cfg.num_groups, cfg.eps, cfg.pos_enc == "rope", 10000.0, drop, 777, 0)
     fwd = lambda: S.attention_forward(x, gamma, w_qkv, w_out, *args, stash=backward)
-    out = {"fwd_ms": _time_ms(fwd, iters=reps), "fwd_launches": _launch_ms(S, fwd, reps),
+    out = {"fwd_ms": _time_ms(fwd, iters=reps),
+           "fwd_launches": _launch_ms(label, S, U, fwd, reps),
            "fwd_kernels": _core_kernel_ms(fwd, reps)}
     if backward:
         _, stash = fwd()
         g = torch.randn(rows, seq, c, device="cuda")
         bwd = lambda: S.attention_backward(g, x, gamma, w_qkv, w_out, stash, *args)
-        out.update(bwd_ms=_time_ms(bwd, iters=reps), bwd_launches=_launch_ms(S, bwd, reps, True),
+        out.update(bwd_ms=_time_ms(bwd, iters=reps),
+                   bwd_launches=_launch_ms(label, S, U, bwd, reps, True),
                    bwd_kernels=_core_kernel_ms(bwd, reps))
         del stash, g
     del x
     torch.cuda.empty_cache()
     print(f"[{label}] #3/#4 fp32 {tag}: {json.dumps(out)}")
+    return out
+
+
+def _norm_shapes():
+    """(tag, positions, C, groups) of the norm timings: the base training
+    freq and time shapes (micro-batch 2 x 3 s) and wsj0-2mix serving's
+    freq shape (8 s)."""
+    import chip_smoke as cs
+    base, sp = cs.base_model_config(), cs.speech_config("wsj0_2mix")
+    out = [(f"base training {p}", r * s, base.emb_dim, base.num_groups)
+           for p, r, s in cs._train_steps(base)]
+    p, r, s = cs._speech_steps(sp, 1, 8.0)[0]
+    return out + [(f"speech serving {p}", r * s, sp.separator.emb_dim, sp.separator.num_groups)]
+
+
+def _fp32_norms(label, S, npos, c, groups, reps) -> dict:
+    """``norm_fwd`` and ``norm_bwd`` (with the residual's gradient) of the
+    checkout ``S`` alone at ``npos`` positions of ``C``: ms a call (CUDA
+    events over ``reps`` calls after a warm-up) and the bytes bounds (x read,
+    xn written; x, dxn and the residual's gradient read, dx written; each at
+    3.35 TB/s)."""
+    import torch
+    from chip_smoke import HBM_RATE, _time_ms
+    P = S.CudaPrims()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x, dxn, gres = (torch.randn(npos, c, generator=gen, device="cuda") for _ in range(3))
+    gamma = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    xn, dx = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty(-(-npos // S.NP), c, device="cuda")
+    row = 4.0 * npos * c
+    out = {"norm_fwd_ms": _time_ms(lambda: P.norm_fwd(x, gamma, xn, npos, c, groups, 1e-5),
+                                   iters=reps),
+           "norm_bwd_ms": _time_ms(lambda: P.norm_bwd(x, gamma, dxn, gres, dx, part, npos, c,
+                                                      groups, 1e-5), iters=reps),
+           "norm_fwd_bound_ms": 2 * row / HBM_RATE * 1e3,
+           "norm_bwd_bound_ms": 4 * row / HBM_RATE * 1e3}
+    del x, dxn, gres, xn, dx, part
+    torch.cuda.empty_cache()
+    print(f"[{label}] norms [{npos}, {c}], {groups} groups: {json.dumps(out)}")
     return out
 
 
@@ -504,9 +554,12 @@ def main_fp32(args, smi):
                                 for lb in order]
         result["sdpa"][tag] = _fp32_sdpa(tag, args.reps)
     for tag, cfg, rows, seq, drop, backward in _step_shapes():
-        result["step"][tag] = [{"label": lb, **_fp32_step(lb, mods[lb][0], tag, cfg, rows, seq,
+        result["step"][tag] = [{"label": lb, **_fp32_step(lb, *mods[lb], tag, cfg, rows, seq,
                                                           drop, backward, args.reps)}
                                for lb in order]
+    result["norms"] = {tag: [{"label": lb, **_fp32_norms(lb, mods[lb][0], npos, c, groups,
+                                                          args.reps)} for lb in order]
+                       for tag, npos, c, groups in _norm_shapes()}
     for name, bound in result["bounds"].items():
         print(f"[bound] {name}: 3xTF32 {bound['tf32x3'][0]:.3f} ms ({bound['tf32x3'][1]}), "
               f"FFMA {bound['ffma'][0]:.3f} ms ({bound['ffma'][1]})")
