@@ -1,0 +1,3 @@
+"""``readers.train_backward_ms`` in the fp32 training cells.  Moves ``train_step_s.fp32``."""
+
+from benchmark.readers import train_backward_ms as read  # noqa: F401
